@@ -1,0 +1,96 @@
+"""SDR (signal-to-distortion ratio) via Toeplitz least squares.
+
+Counterpart of the JAX package's ``metrics/sdr.py`` (the Scheibler fast-SDR
+formulation):
+
+* L2-normalize both signals (clamped at 1e-6),
+* auto/cross-correlation at 512 lags,
+* solve the 512-tap symmetric Toeplitz normal equations,
+* SDR = 10*log10(coh / (1 - coh)) with 1e-8 floors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fast_speech_enhancement_metrics_tpu_torch.base import BaseMetric
+from fast_speech_enhancement_metrics_tpu_torch.ops.dft import correlation_lags
+from fast_speech_enhancement_metrics_tpu_torch.ops.levinson_pallas import levinson_solve_fused
+from fast_speech_enhancement_metrics_tpu_torch.ops.sdr_corr_gram import correlation_lags_gram
+from fast_speech_enhancement_metrics_tpu_torch.ops.toeplitz import (
+    levinson_solve,
+    symmetric_toeplitz_solve,
+)
+
+
+class SDR(BaseMetric):
+    higher_is_better = True
+    EXPECTED_SAMPLING_RATE = 16000
+
+    def __init__(
+        self,
+        sample_rate: int = 16000,
+        solver: str = "levinson",
+        corr_impl: str = "auto",
+        **kw,
+    ):
+        """``corr_impl``: "gram_x4" (kernel A4, ``ops/sdr_corr_gram.py``:
+        correlate the raw signals in float32, then normalize), "xla"
+        (normalize, then overlap-save DFT matmuls), or "auto" (gram_x4 on a
+        CUDA device, xla otherwise). The JAX package's "fused" (kernel A10)
+        and its reduced-precision "gram" / "gram_x1" modes are not ported.
+
+        ``solver``: "levinson" (kernel A5 on a CUDA device, its plain
+        version elsewhere), "levinson_xla" (the plain recursion everywhere),
+        or "cholesky" (Cholesky + triangular solves, LU for rows whose
+        Cholesky fails)."""
+        super().__init__(sample_rate, **kw)
+        self.filter_length = 512
+        if corr_impl in ("fused", "gram", "gram_x1"):
+            raise NotImplementedError(
+                f"corr_impl={corr_impl!r} is not ported (fused needs kernel "
+                "A10; the float32 kernel serves gram_x4)"
+            )
+        assert corr_impl in ("auto", "gram_x4", "xla")
+        self.corr_impl = corr_impl
+        assert solver in ("levinson", "levinson_xla", "cholesky")
+        self.solver = solver
+
+    @staticmethod
+    def _preprocess(speech):
+        norm = torch.clamp(torch.linalg.vector_norm(speech, dim=-1, keepdim=True), min=1e-6)
+        return speech / norm
+
+    def _compute(self, clean, denoised):
+        assert clean is not None
+        corr_len = self.filter_length
+
+        impl = self.corr_impl
+        if impl == "auto":
+            impl = "gram_x4" if self._on_cuda() else "xla"
+        if impl == "gram_x4":
+            # correlate the RAW signals and normalize the correlations
+            # afterwards: the same formula as normalize-first for any signal
+            # with ||x|| >= 1e-6 (correlations are bilinear, the coherence
+            # ratio is scale-invariant), without normalized copies
+            r0, b = correlation_lags_gram(clean, denoised, corr_len)
+            nc2 = torch.clamp(r0[..., 0:1], min=1e-12)  # = clip(||c||, 1e-6)^2
+            nd2 = torch.clamp(torch.sum(denoised * denoised, dim=-1, keepdim=True), min=1e-12)
+            r0 = r0 / nc2
+            b = b / torch.sqrt(nc2 * nd2)
+        else:
+            c = self._preprocess(clean)
+            d = self._preprocess(denoised)
+            r0, b = correlation_lags(c, (c, d), corr_len)
+
+        if self.solver == "levinson":
+            sol = levinson_solve_fused(r0.contiguous(), b.contiguous())
+        elif self.solver == "levinson_xla":
+            sol = levinson_solve(r0, b)
+        else:
+            sol = symmetric_toeplitz_solve(r0, b)
+        coh = torch.sum(b * sol, dim=-1)
+
+        ratio = coh / torch.clamp(1.0 - coh, min=1e-8)
+        sdr = 10.0 * torch.log10(torch.clamp(ratio, min=1e-8))
+        return {"SDR": sdr}

@@ -1,0 +1,158 @@
+"""Build, load and launch the package's hand-written CUDA kernels.
+
+The kernel sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
+(``sm_90a``) at first use: one ``nvcc -c`` per source, all started
+together, then one link into a shared library with a plain C interface,
+loaded with ctypes. The library's name carries a hash of the sources and
+flags, so an edited source is rebuilt and a built one is reused. The build
+directory (``_build/`` in the package) is generated and not tracked.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``launch`` raises if that is not 0. Each wrapper in
+``ops/`` counts its launches in ``launch_counts`` under its own name.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+HEADERS = ("common.cuh",)
+SOURCES = ("runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: launches per kernel wrapper; a wrapper adds one where it launches
+launch_counts: collections.Counter = collections.Counter()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # (clean, denoised, table, scale partials, tile partials, out, batch, chunks, eps, stream)
+    "fsem_lsd_wholesig_raw": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # (clean, denoised, slab partials, r_auto, r_cross, batch, samples, stream)
+    "fsem_correlation_lags_gram": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # (r0, b, x, batch, order, stream)
+    "fsem_levinson_solve": (_P, _P, _P, _I, _I, _P),
+    # (tob clean, tob denoised, num_segments, tile partials, out, batch, frames, stream)
+    "fsem_stoi_segment_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def library_path() -> Path:
+    """Where the library built from the current sources and flags lives."""
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for name in HEADERS + SOURCES:
+        digest.update(name.encode())
+        digest.update((CSRC_DIR / name).read_bytes())
+    return BUILD_DIR / f"libfsem_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile and link the kernel library unless it is already built.
+
+    Raises ``RuntimeError`` with the compiler's output if a source fails.
+    Each source's compiler output (``-Xptxas -v``: registers, shared
+    memory, spills) is kept beside the library as ``<source>.log``.
+    """
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}"
+    jobs = []
+    for name in SOURCES:
+        stem = Path(name).stem
+        obj = BUILD_DIR / f"{stem}.{tag}.o"
+        log_path = BUILD_DIR / f"{stem}.log"
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-c", str(CSRC_DIR / name), "-o", str(obj)],
+                stdout=log, stderr=subprocess.STDOUT,
+            )
+        jobs.append((name, obj, log_path, proc))
+    failed = []
+    for name, _, log_path, proc in jobs:
+        if proc.wait() != 0:
+            failed.append(f"--- {name}\n{log_path.read_text()}")
+    objs = [str(obj) for _, obj, _, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = so.with_name(f"{so.name}.{tag}.tmp")
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
+    return so
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.fsem_error_string.argtypes = (ctypes.c_int,)
+            lib.fsem_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``fsem_<name>`` on ``device``'s current stream.
+
+    ``args`` are the entry point's arguments before the stream: tensors
+    (passed as device pointers), ints and floats. Raises ``RuntimeError``
+    when the launch reports an error.
+    """
+    lib = _library()
+    fn = getattr(lib, f"fsem_{name}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+        err = fn(*c_args, stream)
+    if err != 0:
+        msg = lib.fsem_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+
+
+def check_operand(t: torch.Tensor, what: str, device: torch.device, dtype: torch.dtype, ndim: int) -> None:
+    """Raise ``ValueError`` unless ``t`` is a contiguous ``ndim``-D tensor of
+    ``dtype`` on ``device`` — what a kernel entry point reads raw."""
+    if t.device != device or t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: need a contiguous {ndim}-D {dtype} tensor on {device}, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )

@@ -1,0 +1,56 @@
+"""Framing primitives and the Hann window (``torch.stft`` semantics).
+
+Counterpart of the JAX package's ``ops/stft.py``: the window is built in
+float64 numpy and handed to PyTorch as a constant table; framing is a strided
+view (``Tensor.unfold``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+#: device copies of host-built constant tables, keyed by (id(table), device)
+_DEVICE_TABLES: dict = {}
+
+
+def device_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Device copy of a constant numpy table, made once per device.
+
+    Only for tables that live for the whole process (the ``lru_cache``d
+    table functions in ``ops/``): the cache keys on the array's identity and keeps
+    the array alive beside its copy, so the identity cannot be reused.
+    """
+    key = (id(table), str(device))
+    hit = _DEVICE_TABLES.get(key)
+    if hit is None or hit[0] is not table:
+        hit = (table, torch.from_numpy(np.ascontiguousarray(table)).to(device))
+        _DEVICE_TABLES[key] = hit
+    return hit[1]
+
+
+def hann_window(win_length: int, periodic: bool = True, dtype=np.float32) -> np.ndarray:
+    """Hann window matching ``torch.hann_window`` semantics.
+
+    ``periodic=True`` (torch default) computes 0.5*(1-cos(2*pi*k/N)) for
+    k=0..N-1; ``periodic=False`` uses N-1 in the denominator.
+    """
+    n = win_length if periodic else win_length - 1
+    k = np.arange(win_length, dtype=np.float64)
+    w = 0.5 * (1.0 - np.cos(2.0 * np.pi * k / n))
+    return w.astype(dtype)
+
+
+def num_frames(length: int, frame_length: int, hop: int) -> int:
+    """Number of full frames of ``frame_length`` at stride ``hop`` (no padding)."""
+    if length < frame_length:
+        return 0
+    return 1 + (length - frame_length) // hop
+
+
+def frame(x: torch.Tensor, frame_length: int, hop: int) -> torch.Tensor:
+    """Slice ``x`` (..., T) into overlapping frames (..., F, frame_length)."""
+    f = num_frames(x.shape[-1], frame_length, hop)
+    if f <= 0:
+        return x.new_zeros(x.shape[:-1] + (0, frame_length))
+    return x.unfold(-1, frame_length, hop)

@@ -1,0 +1,109 @@
+"""PyTorch port, SDR: kernels A4 and A5 (plain versions) and the metric
+against JAX on the CPU. Tolerances: correlations atol 2e-4 of max|r_auto|
+(as tests/test_ops.py holds the Gram kernel), Levinson solutions 2e-3 (as
+tests/test_ops.py holds the Levinson kernel), SDR atol 1e-2 dB."""
+
+import numpy as np
+import pytest
+import torch
+from scipy.linalg import solve_toeplitz
+
+from fast_speech_enhancement_metrics_tpu import SDR as JaxSDR
+from fast_speech_enhancement_metrics_tpu.ops.levinson_pallas import (
+    levinson_solve_fused as jax_levinson_fused,
+)
+from fast_speech_enhancement_metrics_tpu.ops.sdr_corr_gram import (
+    correlation_lags_gram as jax_corr_gram,
+)
+from fast_speech_enhancement_metrics_tpu.ops.toeplitz import levinson_solve as jax_levinson
+from fast_speech_enhancement_metrics_tpu_torch import SDR
+from fast_speech_enhancement_metrics_tpu_torch.ops import levinson_pallas, sdr_corr_gram
+
+
+@pytest.mark.parametrize("t", [16384, 7000, 150])
+def test_corr_kernel_plain_matches_pallas_kernel(t):
+    rs = np.random.RandomState(23)
+    c = rs.randn(3, t).astype(np.float32)
+    d = (0.8 * c + 0.3 * rs.randn(3, t)).astype(np.float32)
+    ra, rc = sdr_corr_gram.correlation_lags_gram(torch.from_numpy(c), torch.from_numpy(d), 512)
+    ja, jc = jax_corr_gram(c, d, 512, split="x4", interpret=True)
+    scale = float(np.abs(np.asarray(ja)).max())
+    np.testing.assert_allclose(ra.numpy(), np.asarray(ja), atol=2e-4 * scale)
+    np.testing.assert_allclose(rc.numpy(), np.asarray(jc), atol=2e-4 * scale)
+
+
+def _spd_rows(n, rows=5, seed=11):
+    """Decaying SPD Toeplitz rows, condition numbers 17..759. Two float32
+    orderings of the recursion differ by about cond x 1e-7 relative, so the
+    2e-3 tolerance holds the algorithm and not the round-off luck (the
+    noisier rows of tests/test_ops.py reach cond 2e4)."""
+    rs = np.random.RandomState(seed)
+    r = (0.9 ** np.arange(n))[None] * rs.uniform(0.5, 20.0, (rows, 1))
+    r = r + 0.002 * rs.randn(rows, n) * r[:, :1]
+    r[:, 0] = np.abs(r[:, 0]) + 1.0
+    return r.astype(np.float32), rs.randn(rows, n).astype(np.float32)
+
+
+def test_levinson_kernel_plain_matches_pallas_kernel():
+    r, b = _spd_rows(128)
+    ours = levinson_pallas.levinson_solve_fused(torch.from_numpy(r), torch.from_numpy(b)).numpy()
+    theirs = np.asarray(jax_levinson_fused(r, b, interpret=True))
+    for i in range(len(r)):
+        want = solve_toeplitz(r[i].astype(np.float64), b[i].astype(np.float64))
+        np.testing.assert_allclose(ours[i], theirs[i], rtol=2e-3, atol=2e-3 * np.abs(want).max())
+        np.testing.assert_allclose(ours[i], want, rtol=2e-3, atol=2e-3 * np.abs(want).max())
+
+
+def test_levinson_kernel_plain_matches_scan_at_512():
+    r, b = _spd_rows(512, rows=3, seed=12)
+    ours = levinson_pallas.levinson_solve_fused(torch.from_numpy(r), torch.from_numpy(b)).numpy()
+    theirs = np.asarray(jax_levinson(r, b))
+    np.testing.assert_allclose(ours, theirs, rtol=2e-3, atol=2e-3 * np.abs(theirs).max())
+
+
+def test_levinson_zero_system_is_guarded():
+    """r0[0] == 0 (an all-zero signal) solves the identity system, finitely."""
+    x = levinson_pallas.levinson_solve_fused(torch.zeros(2, 64), torch.ones(2, 64))
+    assert torch.isfinite(x).all()
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{}, {"solver": "cholesky"}, {"solver": "levinson_xla"}, {"corr_impl": "gram_x4"}],
+    ids=["auto", "cholesky", "levinson_xla", "gram_x4"],
+)
+def test_sdr_metric_matches_jax(speech_data, kw):
+    clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
+    ours = [r["SDR"] for r in SDR(device="cpu", **kw)(clean, noisy)]
+    jax_kw = {"solver": kw["solver"]} if "solver" in kw else {}
+    theirs = [r["SDR"] for r in JaxSDR(**jax_kw)(clean, noisy)]
+    np.testing.assert_allclose(ours, theirs, atol=1e-2)
+
+
+def test_sdr_gram_semantics_match_jax_gram_kernel():
+    """Raw-signal correlation + normalization fold, at a non-unit scale."""
+    rs = np.random.RandomState(24)
+    clean = (5.0 * rs.randn(3, 16000)).astype(np.float32)
+    noisy = clean + 1.5 * rs.randn(3, 16000).astype(np.float32)
+    ours = [r["SDR"] for r in SDR(device="cpu", corr_impl="gram_x4")(clean, noisy)]
+    theirs = [r["SDR"] for r in JaxSDR(corr_impl="gram_x4")(clean, noisy)]
+    np.testing.assert_allclose(ours, theirs, atol=1e-2)
+
+
+def test_sdr_self_reference_saturates(speech_data):
+    for r in SDR(device="cpu")(speech_data["speech"], speech_data["speech"]):
+        assert r["SDR"] > 40.0
+
+
+@pytest.mark.parametrize("impl", ["fused", "gram", "gram_x1"])
+def test_sdr_unported_corr_modes_raise(impl):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        SDR(device="cpu", corr_impl=impl)
+
+
+def test_sdr_kernel_wrappers_reject_other_devices():
+    x = torch.zeros(1, 512, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        sdr_corr_gram.correlation_lags_gram(x, x, 512)
+    with pytest.raises(ValueError, match="device"):
+        levinson_pallas.levinson_solve_fused(x, x)

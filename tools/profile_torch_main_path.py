@@ -1,0 +1,76 @@
+"""Where the time goes: the PyTorch/CUDA port's metrics under torch.profiler.
+
+Usage, from the repository root, on a machine with a CUDA card:
+
+    python3 tools/profile_torch_main_path.py [--batch 64] [--seconds 16]
+
+For each of LSD, SDR and STOI(sample_rate=16000), scores a batch of the
+package's synthetic audio (already on the card, as a benchmark would hold
+it) a few times under ``torch.profiler`` and prints one JSON line: the wall
+time per call, the device-busy time per call (the sum of all kernel times),
+the device idle share, and the ten kernels with the most device time. Needs
+a CUDA card; raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI  # noqa: E402
+from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_data  # noqa: E402
+
+CALLS = 5  # profiled calls per metric, after 3 warm-ups
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--seconds", type=float, default=16)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_main_path: needs a CUDA card")
+
+    clean, noisy, _ = load_audio_data(args.seconds, args.batch, 16000)
+    c = torch.from_numpy(clean).cuda()
+    d = torch.from_numpy(noisy).cuda()
+    metrics = {"LSD": LSD(), "SDR": SDR(), "STOI": STOI(sample_rate=16000)}
+    for name, metric in metrics.items():
+        for _ in range(3):
+            metric(c, d)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(CALLS):
+                metric(c, d)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
+        kernels = [
+            e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+        ]
+        busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / CALLS
+        per_name: dict[str, float] = {}
+        for e in kernels:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total / 1e3 / CALLS
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+        print(json.dumps({
+            "metric": name, "batch": args.batch, "seconds": args.seconds,
+            "device": torch.cuda.get_device_name(0),
+            "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "kernels_per_call": len(kernels) / CALLS,
+            "top_kernels_ms_per_call": [[k[:90], v] for k, v in top],
+        }), flush=True)
+
+
+if __name__ == "__main__":
+    main()
