@@ -17,10 +17,13 @@
 // X[-1] = conj X[1] and X[257] = conj X[255]; the Nyquist bin X[256] is the
 // real alternating-sign sum of the frame's two chunks.
 //
-// What bounds it on this card: the chunk DFT, 2 x 256 x 512 multiply-adds
-// per chunk and signal (about 33.5 GFLOP at 64 x 16 s), done in float32 FMA
-// (67 TFLOP/s peak). The signals are read once (131 MB at 64 x 16 s, 0.04 ms
-// at 3.35 TB/s), so operations, not bytes, set the bound.
+// What bounds it on this card: the function itself is bound by bytes. The
+// signals are read once (131 MB at 64 x 16 s, 0.04 ms at 3.35 TB/s); a
+// 512-point real FFT per frame and signal would need about 1.8 GFLOP in all
+// (0.03 ms of float32 FMA at 67 TFLOP/s). This design's direct chunk DFT
+// does 2 x 256 x 512 multiply-adds per chunk and signal (about 33.5 GFLOP,
+// 0.5 ms), so its operations set its own floor; an FFT-structured chunk
+// transform is the way below that.
 //
 // Design: three launches. (1) Sixteen blocks per row sum c*d and d*d over
 // a slice each (no float atomics). (2) One block per (row, tile of TF

@@ -9,10 +9,12 @@
 //   r_cross[l] = sum_t c[t - l] * d[t]
 // with zeros outside 0..T-1 (the zero-padded linear correlation).
 //
-// What bounds it on this card: 2 x 512 multiply-adds per sample and pair,
-// about 33.5 GFLOP at 64 x 16 s, in float32 FMA (67 TFLOP/s peak). The
-// signals are read once (131 MB, 0.04 ms at 3.35 TB/s): operations, not
-// bytes, set the bound.
+// What bounds it on this card: the function itself is bound by bytes. The
+// signals are read once (131 MB, 0.04 ms at 3.35 TB/s); an overlap-save FFT
+// correlation needs about 2 GFLOP (0.03 ms of float32 FMA at 67 TFLOP/s).
+// This direct design does 2 x 512 multiply-adds per sample and pair (about
+// 33.5 GFLOP at 64 x 16 s, 0.5 ms), so its operations set its own floor; a
+// transform-domain kernel is the way below that.
 //
 // Design: a direct time-domain product, no transform. One block per (row,
 // slab of kSlab samples of t). The block stages c over the slab and the 512

@@ -24,9 +24,9 @@ class LSD(BaseMetric):
         """``spectral_impl``: "fused" (kernel A1, ``ops/lsd_fused.py``: the
         spectrogram never reaches device memory; its plain version on the
         CPU), "xla" (framed-DFT matmuls + elementwise epilogue), or "auto"
-        (fused on a CUDA device for hop-aligned clips, xla otherwise: the
-        kernels for clips that are not hop-aligned, A2 and A3, are not
-        ported yet)."""
+        (fused on a CUDA device, xla otherwise). On the card, clips that
+        are not hop-aligned need kernel A2, not ported yet: "auto" raises
+        ``NotImplementedError`` for them, and "xla" scores them."""
         super().__init__(sample_rate, **kw)
         self.nfft = int(self.EXPECTED_SAMPLING_RATE * 0.032)
         self.hop = int(self.EXPECTED_SAMPLING_RATE * 0.016)
@@ -35,16 +35,16 @@ class LSD(BaseMetric):
         assert spectral_impl in ("auto", "fused", "xla")
         self.spectral_impl = spectral_impl
 
-    def _use_fused(self, t: int) -> bool:
+    def _use_fused(self) -> bool:
         if self.spectral_impl == "auto":
-            return self._on_cuda() and t % self.hop == 0
+            return self._on_cuda()
         return self.spectral_impl == "fused"
 
     def _compute(self, clean, denoised):
         assert clean is not None
         batch = clean.shape[0]
 
-        if self._use_fused(clean.shape[1]):
+        if self._use_fused():
             return {
                 "LSD": lsd_scores(
                     clean, denoised, self.nfft, self.hop, self.eps,

@@ -6,21 +6,18 @@ sum_t c[t-l] d[t] for l = 0..n_lags-1, zeros outside the signal. The CUDA
 kernel (``csrc/sdr_corr_gram.cu``) sums the products directly in the time
 domain in float32.
 
-The plain version keeps the TPU kernel's Gram formulation: cut both signals
-into hb = 128-sample frames C[f, i] = c[hb f + i]; with the shifted Grams
-G_s[i, j] = sum_f C[f, i] Y[f + s, j] (one matmul each),
-
-    r[hb a + b] = sum_i [i + b < hb] G_a[i, i + b] + [i + b >= hb] G_{a+1}[i, i + b - hb].
+The plain version is the package's plain correlation, the overlap-save DFT
+matmuls of ``ops/dft.py::correlation_lags``, on the raw signals. The TPU
+kernel's shifted-Gram formulation exists for a 128 x 128 matrix unit and is
+not kept.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
-import torch.nn.functional as F
 
 from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
+from fast_speech_enhancement_metrics_tpu_torch.ops.dft import correlation_lags
 
 KERNEL = "correlation_lags_gram"
 _HB = 128
@@ -28,39 +25,12 @@ _HB = 128
 _SLAB = 4096
 
 
-@functools.lru_cache(maxsize=None)
-def _lag_gather_index(n_lags: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """(shift, i, j) indices picking lag hb*a + b's Gram entries, each
-    (n_lags // hb, hb(i), hb(b))."""
-    a = torch.arange(n_lags // _HB, device=device)[:, None, None]
-    i = torch.arange(_HB, device=device)[None, :, None]
-    b = torch.arange(_HB, device=device)[None, None, :]
-    s = a + (i + b >= _HB).long()
-    j = (i + b) % _HB
-    return s, i.expand_as(s), j
-
-
 def _correlation_lags_plain(
     c: torch.Tensor, d: torch.Tensor, n_lags: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of kernel A4 (shifted-Gram matmuls)."""
-    n_shifts = n_lags // _HB
-    batch, t = c.shape
-    f_total = -(-t // _HB)
-    # one zero frame per shift past the end: Y[f + s] for f < f_total
-    pad = (f_total + n_shifts) * _HB - t
-    cf = F.pad(c, (0, pad)).reshape(batch, f_total + n_shifts, _HB)
-    df = F.pad(d, (0, pad)).reshape(batch, f_total + n_shifts, _HB)
-    lhs = cf[:, :f_total].transpose(1, 2)  # (B, hb, F)
-    s_idx, i_idx, j_idx = _lag_gather_index(n_lags, c.device)
-    out = []
-    for y in (cf, df):
-        grams = torch.stack(
-            [lhs @ y[:, s : s + f_total] for s in range(n_shifts + 1)], dim=1
-        )  # (B, S + 1, hb, hb)
-        r = grams[:, s_idx, i_idx, j_idx].sum(dim=2)  # (B, S, hb)
-        out.append(r.reshape(batch, n_lags))
-    return out[0], out[1]
+    """Plain PyTorch version of kernel A4."""
+    r_auto, r_cross = correlation_lags(c, (c, d), n_lags)
+    return r_auto, r_cross
 
 
 def _correlation_lags_cuda(

@@ -58,16 +58,25 @@ def test_lsd_48k_input_resamples():
 
 def test_lsd_auto_takes_plain_path_for_unaligned_clips():
     """A clip that is not hop-aligned needs kernel A2: ``lsd_scores`` says
-    so, and ``"auto"`` scores it on the framed-DFT path instead."""
+    so. On the CPU ``"auto"`` scores it on the framed-DFT path; on a CUDA
+    device ``"auto"`` means the kernel whatever the length, so such a clip
+    raises there instead of leaving the kernel path."""
     clean, noisy = _pairs(1.0, rows=2)  # 16000 % 256 != 0
+    ct, nt = torch.from_numpy(clean), torch.from_numpy(noisy)
     with pytest.raises(NotImplementedError, match="A2"):
-        lsd_fused.lsd_scores(torch.from_numpy(clean), torch.from_numpy(noisy), 512, 256, 1e-8)
+        lsd_fused.lsd_scores(ct, nt, 512, 256, 1e-8)
     with pytest.raises(NotImplementedError, match="A2"):
         lsd_fused.lsd_scores(torch.zeros(1, 512), torch.zeros(1, 512), 512, 256, 1e-8, denoised_scale=None)
-    assert not LSD(device="cpu")._use_fused(16000)
+    assert not LSD(device="cpu")._use_fused()
     ours = [r["LSD"] for r in LSD(device="cpu")(clean, noisy)]
     theirs = [r["LSD"] for r in JaxLSD()(clean, noisy)]
     np.testing.assert_allclose(ours, theirs, rtol=2e-4, atol=2e-4)
+
+    on_card = LSD(device="cpu")
+    on_card._on_cuda = lambda: True
+    assert on_card._use_fused()
+    with pytest.raises(NotImplementedError, match="A2"):
+        on_card._compute(ct, nt)
 
 
 def test_lsd_kernel_wrapper_rejects_other_devices():
