@@ -8,17 +8,22 @@ Usage, from the repository root, on a machine with a CUDA card:
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (``nvidia-smi``) and the TF32 switches;
-   float32 matmuls must not use TF32,
+   float32 matmuls must not use TF32, nor the metrics' convs,
 2. build the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a),
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (64 x 16 s x 16 kHz from the package's synthetic
-   generator),
-4. the main path: ``LSD()``, ``SDR()`` and ``STOI(sample_rate=16000)``
-   through ``__call__`` on that batch, with every kernel's launch count
-   read around it, and the first rows scored again on the CPU (plain
-   path) for agreement,
-5. times: each kernel, its plain version, a PyTorch library call for the
-   same function where one exists, and each metric end to end,
+   paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
+   generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
+   A2 and A3; one mHuBERT-147 layer at 64 x 799 frames for A7 and A8),
+4. the main paths, each with every kernel's launch count set to 0 before
+   it and read after it: ``LSD()``, ``SDR()`` and
+   ``STOI(sample_rate=16000)`` through ``__call__`` on the 16 s batch;
+   ``LSD()`` on the two unaligned batches; ``SpeechBERTScore`` at
+   mHuBERT-147's full width with seeded random weights on the 16 s batch.
+   The first rows are scored again on the CPU (plain path) for agreement,
+   and SpeechBERTScore's also by the card's float32 path,
+5. times: each kernel, its plain version, a PyTorch library call (or, for
+   A7 and A8, a composite of library calls) for the same function where
+   one exists, and each metric end to end,
 6. the result: a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -39,9 +44,13 @@ import torch
 
 BATCH, SECONDS, RATE = 64, 16, 16000
 CPU_ROWS = 4
+SBS_CPU_ROWS = 2
 HOP, EPS, LAGS = 256, 1e-8, 512
+#: unaligned clip lengths for LSD's A2 (F + 1 <= 1024 frames) and A3 (beyond)
+A2_SAMPLES, A3_SAMPLES = 16 * RATE + 100, 20 * RATE + 100
 #: published H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_BF16_TC_FLOPS = 989e12  # bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12  # HBM3
 PACKAGE = "fast_speech_enhancement_metrics_tpu_torch"
 JAX_PACKAGE = "fast_speech_enhancement_metrics_tpu"
@@ -86,9 +95,9 @@ def host_ms(fn, warmup: int = 2, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """Least time (ms) for the work on this card, and which side sets it."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -108,7 +117,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import fast_speech_enhancement_metrics_tpu_torch as pkg
+    from fast_speech_enhancement_metrics_tpu_torch.models import hubert
     from fast_speech_enhancement_metrics_tpu_torch.ops import (
+        attn_block_pallas,
         cuda_lib,
         levinson_pallas,
         lsd_fused,
@@ -131,6 +142,10 @@ def main() -> int:
     log(f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     check(not torch.backends.cuda.matmul.allow_tf32, "float32 matmuls would use TF32")
+    with hubert._conv_flags():  # as the HuBERT encoder sets it around every conv
+        conv_tf32 = torch.backends.cudnn.allow_tf32
+    log(f"torch.backends.cudnn.allow_tf32 inside the metrics' convs={conv_tf32}")
+    check(not conv_tf32, "the metrics' float32 convs would use TF32")
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -201,23 +216,96 @@ def main() -> int:
               torch.max(torch.abs(e_k - e_p) / 30 / per).item())
     record("A6", stoi_fused.KERNEL, "stoi_fused.cu", "stoi_fused.py:59", err, 5e-4)
 
+    # A2, A3: LSD of pre-scaled pairs that are not hop-aligned, atol 2e-4;
+    # the 16 s + 100 batch is the first A2_SAMPLES of the 20 s + 100 one
+    long_c_np, long_d_np, _ = load_audio_data(A3_SAMPLES / RATE + 0.01, BATCH, RATE)
+    unaligned = {}
+    for kid, n, wrapper, plain, kname, line in (
+        ("A2", A2_SAMPLES, lsd_fused.lsd_wholesig, lsd_fused._lsd_wholesig_plain,
+         lsd_fused.KERNEL_A2, "lsd_fused.py:141"),
+        ("A3", A3_SAMPLES, lsd_fused.lsd_framed, lsd_fused._lsd_framed_plain,
+         lsd_fused.KERNEL_A3, "lsd_fused.py:619"),
+    ):
+        c_np, d_np = np.ascontiguousarray(long_c_np[:, :n]), np.ascontiguousarray(long_d_np[:, :n])
+        cu, du = torch.from_numpy(c_np).to(dev), torch.from_numpy(d_np).to(dev)
+        scale = torch.sum(cu * du, dim=1, keepdim=True) / (torch.sum(du * du, dim=1, keepdim=True) + EPS)
+        ds = (du * scale).contiguous()
+        unaligned[kid] = (c_np, d_np, cu, ds)
+        err = torch.max(torch.abs(wrapper(cu, ds, HOP, EPS) - plain(cu, ds, HOP, EPS))).item()
+        record(kid, kname, "lsd_fused.cu", line, err, 2e-4, f" ({n} samples)")
+
+    # A7, A8: one mHuBERT-147 layer at full width on a (64, 799, 768) input;
+    # q_w and k_w drawn large enough that the softmax is far from flat
+    cfg = hubert.MHUBERT_147_CONFIG
+    d_model, heads, ffn = cfg.hidden_size, cfg.num_attention_heads, cfg.intermediate_size
+    blk_frames = t_len
+    for k_, s_ in zip(cfg.conv_kernel, cfg.conv_stride):
+        blk_frames = (blk_frames - k_) // s_ + 1
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape, scale):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    layer = {name: rnd(d_model, d_model, scale=0.06 if name in ("q_w", "k_w") else 0.02)
+             for name in ("q_w", "k_w", "v_w", "o_w")}
+    layer.update({name: rnd(d_model, scale=0.02) for name in ("q_b", "k_b", "v_b", "o_b", "ff_b2")})
+    layer.update(ff_w1=rnd(d_model, ffn, scale=0.02), ff_b1=rnd(ffn, scale=0.02),
+                 ff_w2=rnd(ffn, d_model, scale=0.02),
+                 ln1_s=1 + rnd(d_model, scale=0.1), ln1_b=rnd(d_model, scale=0.1),
+                 ln2_s=1 + rnd(d_model, scale=0.1), ln2_b=rnd(d_model, scale=0.1))
+    x_blk = rnd(BATCH, blk_frames, d_model, scale=1.0)
+    packed = {mode: attn_block_pallas.pack_attn_block_params(layer, heads, mode)
+              for mode in attn_block_pallas.SOFTMAX_MODES}
+    wqkv, bqkv = packed["exp2"][:2]
+    qk = (x_blk[0].to(torch.bfloat16).float() @ wqkv.float() + bqkv)[:, :2 * d_model]
+    q_, k_ = (qk[:, i * d_model:(i + 1) * d_model].reshape(blk_frames, heads, -1).transpose(0, 1) for i in (0, 1))
+    log(f"A7 input: max|s * log2 e| over row 0 = {torch.max(torch.abs(q_ @ k_.transpose(1, 2))).item():.2f} "
+        f"({blk_frames} frames, {heads} heads)")
+    blk_tol, blk_med_tol = 3e-2, 1e-3  # the JAX block tests' bf16 class
+
+    def block_err(got, want, what):
+        diff = torch.abs(got.float() - want.float())
+        mx, med = torch.max(diff).item(), torch.median(diff).item()
+        log(f"  {what}: max abs {mx:.3e}, median abs {med:.3e}")
+        check(med <= blk_med_tol, f"{what}: median abs error {med:.3e} over {blk_med_tol}")
+        return mx
+
+    err = max(
+        block_err(attn_block_pallas.attn_block(x_blk, packed[mode], heads, cfg.layer_norm_eps, mode),
+                  attn_block_pallas._attn_block_plain(x_blk, packed[mode], heads, cfg.layer_norm_eps, mode),
+                  f"A7 softmax={mode}")
+        for mode in attn_block_pallas.SOFTMAX_MODES
+    )
+    record("A7", attn_block_pallas.KERNEL_A7, "attn_block.cu", "attn_block_pallas.py:64", err, blk_tol)
+    ffn_packed = attn_block_pallas.pack_ffn_block_params(layer)
+    err = block_err(attn_block_pallas.ffn_block(x_blk, ffn_packed, cfg.layer_norm_eps),
+                    attn_block_pallas._ffn_block_plain(x_blk, ffn_packed, cfg.layer_norm_eps, "tanh"),
+                    "A8 gelu=tanh")
+    record("A8", attn_block_pallas.KERNEL_A8, "attn_block.cu", "attn_block_pallas.py:213", err, blk_tol)
+
     # -- 4. main path -----------------------------------------------------------
     metrics = {
         "LSD": pkg.LSD(),
         "SDR": pkg.SDR(),
         "STOI": pkg.STOI(sample_rate=RATE),
     }
-    kernel_of = {"A1": lsd_fused.KERNEL, "A4": sdr_corr_gram.KERNEL,
-                 "A5": levinson_pallas.KERNEL, "A6": stoi_fused.KERNEL}
-    torch.cuda.synchronize()
-    cuda_lib.launch_counts.clear()
-    scores = {name: m(clean_np, noisy_np) for name, m in metrics.items()}
-    torch.cuda.synchronize()
-    counts = dict(cuda_lib.launch_counts)
-    log(f"main path launches: {counts}")
-    for kid, kname in kernel_of.items():
-        check(counts.get(kname, 0) >= 1, f"{kid} {kname} was not launched on the main path")
-        results[kid]["launches"] = counts[kname]
+    def drive(fn, what, kernels):
+        """Run one main path with every launch count set to 0 before it;
+        each of ``kernels`` must have launched."""
+        torch.cuda.synchronize()
+        cuda_lib.launch_counts.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = dict(cuda_lib.launch_counts)
+        log(f"{what} launches: {counts}")
+        for kid in kernels:
+            kname = results[kid]["name"]
+            check(counts.get(kname, 0) >= 1, f"{kid} {kname} was not launched on the {what} path")
+            results[kid]["launches"] = counts.get(kname, 0)
+        return out
+
+    scores = drive(lambda: {name: m(clean_np, noisy_np) for name, m in metrics.items()},
+                   "main path (LSD, SDR, STOI)", ("A1", "A4", "A5", "A6"))
 
     cpu_tol = {"LSD": ("rel", 2e-4), "SDR": ("abs", 1e-2), "STOI": ("abs", 5e-4)}
     for name, rows in scores.items():
@@ -237,6 +325,44 @@ def main() -> int:
         mean = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
         log(f"{name}: batch mean {mean}; card vs CPU plain path on {CPU_ROWS} rows: "
             f"max diff {worst:.3e} ({'rtol/atol' if kind == 'rel' else 'atol'} {tol})")
+
+    # LSD of clips that are not hop-aligned: A2, then A3 past 1023 frames
+    for kid, (c_np, d_np, _, _) in unaligned.items():
+        rows = drive(lambda: metrics["LSD"](c_np, d_np), f"LSD {c_np.shape[1]} samples", (kid,))
+        cpu_rows = pkg.LSD(device="cpu")(c_np[:CPU_ROWS], d_np[:CPU_ROWS])
+        vals = np.array([r["LSD"] for r in rows])
+        check(len(rows) == BATCH and bool(np.all(np.isfinite(vals))), f"LSD {kid}: bad scores")
+        worst = max(abs(a["LSD"] - b["LSD"]) - 2e-4 * abs(b["LSD"]) for a, b in zip(rows, cpu_rows))
+        check(worst <= 2e-4, f"LSD {kid}: card vs CPU beyond rtol/atol 2e-4")
+        log(f"LSD {c_np.shape[1]} samples ({kid}): batch mean {vals.mean()}; card vs CPU plain "
+            f"path on {CPU_ROWS} rows within rtol/atol 2e-4")
+
+    # SpeechBERTScore at mHuBERT-147's full width, seeded random weights:
+    # 8 layers x 2 row chunks of the doubled batch -> 16 launches each of A7, A8
+    sbs_params = hubert.init_params(torch.Generator().manual_seed(0), cfg)
+    sbs = pkg.SpeechBERTScore(params=sbs_params)
+    sbs_rows = drive(lambda: sbs(clean_np, noisy_np), "SpeechBERTScore", ("A7", "A8"))
+    want = sbs.output_layer * 2
+    for kid in ("A7", "A8"):
+        check(results[kid]["launches"] == want,
+              f"{kid}: {results[kid]['launches']} launches, expected {want}")
+    f1 = np.array([r["SpeechBERTScore"] for r in sbs_rows])
+    check(len(f1) == BATCH and bool(np.all(np.isfinite(f1))) and bool(np.all(np.abs(f1) <= 1.0 + 1e-6)),
+          "SpeechBERTScore: bad scores")
+    t0 = time.perf_counter()
+    sbs_cpu = pkg.SpeechBERTScore(params=sbs_params, device="cpu", attention_impl="block_ffn")
+    cpu_f1 = np.array([r["SpeechBERTScore"] for r in sbs_cpu(clean_np[:SBS_CPU_ROWS], noisy_np[:SBS_CPU_ROWS])])
+    cpu_s = time.perf_counter() - t0
+    dev_cpu = float(np.max(np.abs(f1[:SBS_CPU_ROWS] - cpu_f1)))
+    check(dev_cpu <= 2e-4, f"SpeechBERTScore: card vs CPU plain path {dev_cpu:.3e} (atol 2e-4)")
+    exact = pkg.SpeechBERTScore(params=sbs_params, precision="highest")
+    exact_f1 = np.array([r["SpeechBERTScore"] for r in exact(clean_np[:SBS_CPU_ROWS], noisy_np[:SBS_CPU_ROWS])])
+    dev_fp32 = float(np.max(np.abs(f1[:SBS_CPU_ROWS] - exact_f1)))
+    check(dev_fp32 <= 2e-3, f"SpeechBERTScore: block path vs the card's float32 path {dev_fp32:.3e} (atol 2e-3)")
+    log(f"SpeechBERTScore: batch mean {f1.mean()}; card vs CPU plain path on {SBS_CPU_ROWS} rows: "
+        f"max diff {dev_cpu:.3e} (atol 2e-4; the CPU took {cpu_s:.1f} s); vs the card's float32 "
+        f"einsum path (precision='highest'): {dev_fp32:.3e} (atol 2e-3)")
+    del sbs_cpu, exact
 
     # -- 5. times ---------------------------------------------------------------
     nc = t_len // HOP
@@ -286,13 +412,65 @@ def main() -> int:
                lambda: stoi_fused._stoi_segment_sums_plain(tob_c, tob_d, nseg, 30, 15), None,
                a6_ops, a6_ops, 2 * BATCH * f_len * 15 * 4 + BATCH * 4 + 2 * BATCH * 4),
     }
+    for kid, (_, _, cu, ds) in unaligned.items():
+        n = cu.shape[1]
+        f_n = 1 + n // HOP
+        wrapper = lsd_fused.lsd_wholesig if kid == "A2" else lsd_fused.lsd_framed
+        plain = lsd_fused._lsd_wholesig_plain if kid == "A2" else lsd_fused._lsd_framed_plain
+        timing[kid] = (
+            lambda w=wrapper, cu=cu, ds=ds: w(cu, ds, HOP, EPS),
+            lambda p=plain, cu=cu, ds=ds: p(cu, ds, HOP, EPS), None,
+            2 * BATCH * f_n * (rfft_flops(2 * HOP) + 2 * HOP) + BATCH * f_n * (HOP + 1) * 14,
+            2 * BATCH * f_n * HOP * 2 * HOP * 2,
+            2 * BATCH * n * 4 + HOP * 2 * HOP * 4 + BATCH * 4,
+        )
+
+    # A7 / A8 at the main path's mode (exp2, tanh); the library yardstick is
+    # a composite of PyTorch calls (bf16 F.linear, scaled_dot_product_attention,
+    # F.layer_norm), timed here and used nowhere in the port
+    fn = torch.nn.functional
+    rows_t = BATCH * blk_frames
+    wq_e, bq_e, wo_e, bo_e, ln_s, ln_b = packed["exact"]
+    lin = {"qkv": wq_e.t().contiguous(), "o": wo_e.t().contiguous(),
+           "w1": ffn_packed[0].t().contiguous(), "w2": ffn_packed[2].t().contiguous()}
+
+    def a7_library():
+        xb = x_blk.to(torch.bfloat16)
+        qkv = fn.linear(xb, lin["qkv"], bq_e.to(torch.bfloat16))
+        q, k, v = qkv.view(BATCH, blk_frames, 3, heads, -1).permute(2, 0, 3, 1, 4)
+        ctx = fn.scaled_dot_product_attention(q, k, v, scale=1.0)  # q carries the scale
+        out = fn.linear(ctx.transpose(1, 2).reshape(BATCH, blk_frames, d_model), lin["o"], bo_e.to(torch.bfloat16))
+        return fn.layer_norm((out + xb).float(), (d_model,), ln_s, ln_b, cfg.layer_norm_eps)
+
+    def a8_library():
+        xb = x_blk.to(torch.bfloat16)
+        h = fn.gelu(fn.linear(xb, lin["w1"], ffn_packed[1].to(torch.bfloat16)), approximate="tanh")
+        out = fn.linear(h, lin["w2"], ffn_packed[3].to(torch.bfloat16))
+        return fn.layer_norm((out + xb).float(), (d_model,), ffn_packed[4], ffn_packed[5], cfg.layer_norm_eps)
+
+    a7_ops = BATCH * (2 * blk_frames * d_model * 3 * d_model + 4 * blk_frames * blk_frames * d_model
+                      + 2 * blk_frames * d_model * d_model)
+    a8_ops = BATCH * 4 * blk_frames * d_model * ffn
+    io_bytes = 2 * rows_t * d_model * 4  # x in and y out, float32 as the main path passes them
+    timing["A7"] = (
+        lambda: attn_block_pallas.attn_block(x_blk, packed["exp2"], heads, cfg.layer_norm_eps, "exp2"),
+        lambda: attn_block_pallas._attn_block_plain(x_blk, packed["exp2"], heads, cfg.layer_norm_eps, "exp2"),
+        a7_library, a7_ops, a7_ops, io_bytes + 4 * d_model * d_model * 2 + 6 * d_model * 4,
+    )
+    timing["A8"] = (
+        lambda: attn_block_pallas.ffn_block(x_blk, ffn_packed, cfg.layer_norm_eps),
+        lambda: attn_block_pallas._ffn_block_plain(x_blk, ffn_packed, cfg.layer_norm_eps, "tanh"),
+        a8_library, a8_ops, a8_ops, io_bytes + 2 * d_model * ffn * 2 + (ffn + 3 * d_model) * 4,
+    )
+    tensor_core = {"A7", "A8"}
     for kid, (kern, plain, library, ops, direct_ops, nbytes) in timing.items():
         r = results[kid]
+        peak = PEAK_BF16_TC_FLOPS if kid in tensor_core else PEAK_FP32_FLOPS
         r["ms"] = cuda_ms(kern)
         r["plain_ms"] = cuda_ms(plain, warmup=1, reps=10)
         r["library_ms"] = None if library is None else cuda_ms(library, warmup=1, reps=10)
-        r["bound_ms"], r["bound_by"] = bound(ops, nbytes)
-        r["direct_bound_ms"], _ = bound(direct_ops, nbytes)
+        r["bound_ms"], r["bound_by"] = bound(ops, nbytes, peak)
+        r["direct_bound_ms"], _ = bound(direct_ops, nbytes, peak)
         log(f"{kid} {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; {r['direct_bound_ms']:.4f} ms for the kernel's own algorithm), "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
@@ -302,7 +480,13 @@ def main() -> int:
         ms = host_ms(lambda m=m: m(c, d))
         log(json.dumps({"metric": name, "batch": BATCH, "seconds": SECONDS, "ms": ms,
                         "audio_seconds_per_s": audio_s / (ms / 1e3)}))
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak_all = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: sbs(c, d), warmup=1, reps=3)
+    log(json.dumps({"metric": "SpeechBERTScore", "batch": BATCH, "seconds": SECONDS, "ms": ms,
+                    "audio_seconds_per_s": audio_s / (ms / 1e3),
+                    "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    log(f"peak device memory: {peak_all / 2**30:.2f} GiB up to the end-to-end times")
 
     # -- 6. result ---------------------------------------------------------------
     keys = ("name", "id", "route", "source", "replaces", "launches", "max_abs_err",

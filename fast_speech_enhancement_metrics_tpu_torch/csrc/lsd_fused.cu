@@ -1,19 +1,29 @@
-// Log-spectral distance of raw, hop-aligned clean/denoised pairs.
+// Log-spectral distance of clean/denoised pairs, fused.
 //
-// Replaces: ops/lsd_fused.py::_lsd_wholesig_raw_kernel of the JAX package
-// (Pallas, TPU), the kernel behind lsd_scores(..., denoised_scale="auto").
+// Replaces three Pallas TPU kernels of the JAX package's ops/lsd_fused.py:
+//   A1 _lsd_wholesig_raw_kernel: hop-aligned raw pairs, projection scale
+//      computed in the kernel (lsd_scores(..., denoised_scale="auto")),
+//   A2 _lsd_wholesig_kernel: pre-scaled pairs of any length, F + 1 <= 1024,
+//   A3 _lsd_framed_kernel: the same function, frame-blocked, F + 1 > 1024.
+// A2 and A3 compute one function and differ on the TPU only in how a row's
+// chunks fit VMEM; here both are the frame-tile kernel without its scale
+// stage (entry point fsem_lsd_wholesig), and A1 is it with the scale stage
+// (fsem_lsd_wholesig_raw).
 //
-// What it computes, per pair (c, d) of T = NC * 256 samples:
-//   scale = sum(c*d) / (sum(d*d) + eps);  d <- scale * d
-//   centered STFT (n_fft 512, hop 256, periodic Hann, zero padding), frames
-//   0..NC; per frame the mean over the 257 one-sided bins of
-//   log(|C|^2 / (|D| + eps)^2 + eps)^2, its square root, and the mean of
-//   that over the NC + 1 frames.
-// The spectra use the shared-chunk form: with hop = n_fft / 2 the frame
-// spectrum is X_f[k] = A_{f-1}[k] + (-1)^k A_f[k] with A_j the 512-point
-// DFT of raw chunk j (A_{-1} = A_NC = 0 are the zero padding), so each
-// chunk is transformed once. The Hann window is the exact 3-tap
-// convolution Y[k] = 0.5 X[k] - 0.25 (X[k-1] + X[k+1]) in frequency, with
+// What it computes, per pair (c, d) of T samples (any T):
+//   A1 only: scale = sum(c*d) / (sum(d*d) + eps);  d <- scale * d
+//   centered STFT (n_fft 512, hop 256, periodic Hann, zero padding of 256
+//   on each side), frames 0..F-1 with F = 1 + T / 256; per frame the mean
+//   over the 257 one-sided bins of log(|C|^2 / (|D| + eps)^2 + eps)^2, its
+//   square root, and the mean of that over the F frames.
+// The spectra use the shared-chunk form: with hop = n_fft / 2 frame f is
+// [chunk f-1 | chunk f] of the raw signal, so its spectrum is
+// X_f[k] = A_{f-1}[k] + (-1)^k A_f[k] with A_j the 512-point DFT of raw
+// chunk j. Chunk -1 is the left zero padding; chunk F-1 = T / 256 holds the
+// signal's last T % 256 samples followed by zeros (all zeros when T is
+// hop-aligned), so each chunk is staged with a bound of T and transformed
+// once. The Hann window is the exact 3-tap convolution
+// Y[k] = 0.5 X[k] - 0.25 (X[k-1] + X[k+1]) in frequency, with
 // X[-1] = conj X[1] and X[257] = conj X[255]; the Nyquist bin X[256] is the
 // real alternating-sign sum of the frame's two chunks.
 //
@@ -25,17 +35,18 @@
 // 0.5 ms), so its operations set its own floor; an FFT-structured chunk
 // transform is the way below that.
 //
-// Design: three launches. (1) Sixteen blocks per row sum c*d and d*d over
-// a slice each (no float atomics). (2) One block per (row, tile of TF
-// frames) adds its row's sixteen partials in a fixed order into the scale,
-// stages the tile's TF + 1 chunks of both signals in shared memory (the
-// denoised chunks already scaled), takes their chunk DFTs with
-// thread k owning bin k (the packed cos|sin table streams from L2: it is
-// 512 KB and does not fit in shared memory), combines chunk pairs into
-// frame spectra in shared memory, then one warp per frame applies the Hann
-// taps and the log ratio and sums the frame's 257 bins. The block writes
-// the sum of its frames' square roots. (3) One warp per row adds its
-// tiles' partials in a fixed order and divides by NC + 1.
+// Design: up to three launches. (1) A1 only: sixteen blocks per row sum
+// c*d and d*d over a slice each (no float atomics). (2) One block per (row,
+// tile of TF frames) — the TPU's frame-block grid of A3, which on this card
+// serves every length — adds its row's sixteen partials in a fixed order
+// into the scale (A1), stages the tile's TF + 1 chunks of both signals in
+// shared memory (the denoised chunks already scaled), takes their chunk
+// DFTs with thread k owning bin k (the packed cos|sin table streams from
+// L2: it is 512 KB and does not fit in shared memory), combines chunk pairs
+// into frame spectra in shared memory, then one warp per frame applies the
+// Hann taps and the log ratio and sums the frame's 257 bins. The block
+// writes the sum of its frames' square roots. (3) One warp per row adds its
+// tiles' partials in a fixed order and divides by F.
 #include "common.cuh"
 
 namespace {
@@ -112,10 +123,14 @@ __device__ __forceinline__ float hann_power(const float* re, const float* im, in
   return yr * yr + yi * yi;
 }
 
+// kScale: apply the projection scale from scale_partial (A1); without it
+// the denoised signal is used as given (A2/A3).
+template <bool kScale>
 __global__ void __launch_bounds__(kThreads) lsd_frames_kernel(
     const float* __restrict__ c, const float* __restrict__ d,
     const float* __restrict__ scale_partial, const float* __restrict__ table,
-    float* __restrict__ partial, int nc, int n_tiles, float eps) {
+    float* __restrict__ partial, long long t_len, int n_frames, int n_tiles,
+    float eps) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float nyq[2][kTileChunks];
@@ -126,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) lsd_frames_kernel(
   const int lane = tid & 31, warp = tid >> 5;
   const int f0 = tile * kTileFrames;  // first frame of the tile
   const int g0 = f0 - 1;              // chunk index of local chunk 0
-  if (tid == 0) {  // the row's projection scale, its partials added in order
+  if (kScale && tid == 0) {  // the row's projection scale, partials in order
     float num = 0.f, den = 0.f;
     for (int i = 0; i < kScaleSplits; ++i) {
       num += scale_partial[((size_t)b * kScaleSplits + i) * 2];
@@ -135,20 +150,20 @@ __global__ void __launch_bounds__(kThreads) lsd_frames_kernel(
     s_scale = num / (den + eps);
   }
   __syncthreads();
-  const float sc = s_scale;
+  const float sc = kScale ? s_scale : 1.f;
 
-  // stage chunks g0 .. g0 + kTileFrames of both signals; outside 0..nc-1
-  // they are the zero padding of the centered STFT
+  // stage chunks g0 .. g0 + kTileFrames of both signals; samples before 0
+  // and from T on are the zero padding of the centered STFT
   float* chunks = smem;
   for (int i = tid; i < kChunkFloats; i += kThreads) {
     const int s = i / (kTileChunks * kHop);
     const int r = (i / kHop) % kTileChunks;
     const int n = i % kHop;
-    const int g = g0 + r;
+    const long long idx = (long long)(g0 + r) * kHop + n;
     float v = 0.f;
-    if (g >= 0 && g < nc) {
-      const size_t off = ((size_t)b * nc + g) * kHop + n;
-      v = s == 0 ? c[off] : d[off] * sc;
+    if (idx >= 0 && idx < t_len) {
+      const size_t off = (size_t)b * t_len + idx;
+      v = s == 0 ? c[off] : (kScale ? d[off] * sc : d[off]);
     }
     chunks[i] = v;
   }
@@ -219,7 +234,7 @@ __global__ void __launch_bounds__(kThreads) lsd_frames_kernel(
 
   // per frame: mean over bins of the squared log ratio, then its sqrt
   float total = 0.f;
-  for (int f = warp; f < kTileFrames && f0 + f <= nc; f += kWarps) {
+  for (int f = warp; f < kTileFrames && f0 + f < n_frames; f += kWarps) {
     const float* cre = spec_re + f * kRow;
     const float* cim = spec_im + f * kRow;
     const float* dre = spec_re + (kTileFrames + f) * kRow;
@@ -254,26 +269,50 @@ __global__ void lsd_finalize_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) out[b] = s / (float)n_frames;
 }
 
+// Sets the frame kernel's shared-memory limit and launches it, then the
+// finalize kernel. scale_partial is read only when kScale.
+template <bool kScale>
+int launch_frames(const float* clean, const float* denoised, const float* table,
+                  const float* scale_partial, float* partial, float* out,
+                  int batch, long long t_len, float eps, cudaStream_t stream) {
+  const int n_frames = (int)(t_len / kHop) + 1;
+  const int n_tiles = (n_frames + kTileFrames - 1) / kTileFrames;
+  const size_t smem = kSmemFloats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      lsd_frames_kernel<kScale>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  lsd_frames_kernel<kScale><<<dim3(n_tiles, batch), kThreads, smem, stream>>>(
+      clean, denoised, scale_partial, table, partial, t_len, n_frames, n_tiles, eps);
+  lsd_finalize_kernel<<<batch, 32, 0, stream>>>(partial, out, n_tiles, n_frames);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// clean, denoised: (batch, nc * 256) float32; table: (256, 512) packed
-// cos|sin chunk-DFT matrix; scale_partial: (batch, 16, 2) scratch; partial: (batch,
-// ceil((nc + 1) / 16)) scratch; out: (batch,) LSD scores.
+// A1. clean, denoised: (batch, nc * 256) float32; table: (256, 512) packed
+// cos|sin chunk-DFT matrix; scale_partial: (batch, 16, 2) scratch; partial:
+// (batch, ceil((nc + 1) / 16)) scratch; out: (batch,) LSD scores.
 extern "C" int fsem_lsd_wholesig_raw(const float* clean, const float* denoised,
                                      const float* table, float* scale_partial,
                                      float* partial, float* out, int batch,
                                      int nc, float eps, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int n_frames = nc + 1;
-  const int n_tiles = (n_frames + kTileFrames - 1) / kTileFrames;
-  const size_t smem = kSmemFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      lsd_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const long long t_len = (long long)nc * kHop;
   lsd_scale_kernel<<<dim3(kScaleSplits, batch), 256, 0, stream>>>(
-      clean, denoised, scale_partial, (long long)nc * kHop);
-  lsd_frames_kernel<<<dim3(n_tiles, batch), kThreads, smem, stream>>>(
-      clean, denoised, scale_partial, table, partial, nc, n_tiles, eps);
-  lsd_finalize_kernel<<<batch, 32, 0, stream>>>(partial, out, n_tiles, n_frames);
-  return (int)cudaGetLastError();
+      clean, denoised, scale_partial, t_len);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_frames<true>(clean, denoised, table, scale_partial, partial, out,
+                             batch, t_len, eps, stream);
+}
+
+// A2/A3. clean, denoised (pre-scaled): (batch, t_len) float32, any t_len;
+// table as above; partial: (batch, ceil((t_len / 256 + 1) / 16)) scratch;
+// out: (batch,) LSD scores.
+extern "C" int fsem_lsd_wholesig(const float* clean, const float* denoised,
+                                 const float* table, float* partial, float* out,
+                                 int batch, long long t_len, float eps,
+                                 void* stream_ptr) {
+  return launch_frames<false>(clean, denoised, table, nullptr, partial, out, batch,
+                              t_len, eps, static_cast<cudaStream_t>(stream_ptr));
 }

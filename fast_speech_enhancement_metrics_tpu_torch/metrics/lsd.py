@@ -21,12 +21,12 @@ class LSD(BaseMetric):
     EXPECTED_SAMPLING_RATE = 16000
 
     def __init__(self, sample_rate: int = 16000, spectral_impl: str = "auto", **kw):
-        """``spectral_impl``: "fused" (kernel A1, ``ops/lsd_fused.py``: the
-        spectrogram never reaches device memory; its plain version on the
-        CPU), "xla" (framed-DFT matmuls + elementwise epilogue), or "auto"
-        (fused on a CUDA device, xla otherwise). On the card, clips that
-        are not hop-aligned need kernel A2, not ported yet: "auto" raises
-        ``NotImplementedError`` for them, and "xla" scores them."""
+        """``spectral_impl``: "fused" (kernels A1-A3, ``ops/lsd_fused.py``:
+        the spectrogram never reaches device memory; their plain versions
+        on the CPU), "xla" (framed-DFT matmuls + elementwise epilogue), or
+        "auto" (fused on a CUDA device, xla otherwise). The fused path
+        scores every clip length: hop-aligned clips take A1, the others A2,
+        or A3 past 1023 frames."""
         super().__init__(sample_rate, **kw)
         self.nfft = int(self.EXPECTED_SAMPLING_RATE * 0.032)
         self.hop = int(self.EXPECTED_SAMPLING_RATE * 0.016)

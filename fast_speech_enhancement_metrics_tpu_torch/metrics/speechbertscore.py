@@ -1,0 +1,183 @@
+"""SpeechBERTScore: semantic similarity of mHuBERT-147 embeddings.
+
+Counterpart of the JAX package's ``metrics/speechbertscore.py``. Per pair,
+the layer-8 hidden states of clean and denoised audio; the cosine
+similarity matrix's row-max mean (precision), column-max mean (recall),
+and their harmonic mean (F1). Clean and denoised ride one doubled batch
+through the encoder (``models/hubert.py``), which runs only the layers
+that matter; the F1 of the whole batch is one batched product.
+
+On a CUDA device the default precision runs each post-LN layer on kernels
+A7 (attention block) and A8 (FFN block); ``precision="highest"`` runs the
+plain float32 tensor path. Weights load from a converted ``.npz``
+(``utils/convert_hubert.py``); there is no hub download.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+from fast_speech_enhancement_metrics_tpu_torch.base import BaseMetric
+from fast_speech_enhancement_metrics_tpu_torch.models.hubert import (
+    ATTENTION_IMPLS,
+    MHUBERT_147_CONFIG,
+    HubertConfig,
+    HubertEncoder,
+    from_jax_params,
+    hubert_hidden_state,
+)
+from fast_speech_enhancement_metrics_tpu_torch.ops.attn_block_pallas import KERNEL_HEAD_DIM
+
+DEFAULT_CHECKPOINT = Path(__file__).parent.parent / "checkpoints" / "mhubert147.npz"
+#: attention paths of the JAX package that the port does not have yet
+NOT_PORTED_IMPLS = ("flash", "sdpa", "sdpa_exp2", "sdpa_exp2_bf16", "block", "block_int8", "layer_block")
+
+
+class SpeechBERTScore(BaseMetric):
+    higher_is_better = True
+    EXPECTED_SAMPLING_RATE = 16000
+
+    def __init__(
+        self,
+        sample_rate: int = 16000,
+        checkpoint: str | Path | None = None,
+        params=None,
+        config: HubertConfig = MHUBERT_147_CONFIG,
+        output_layer: int = 8,
+        precision: str | None = "default",
+        batch_chunk: int | None = None,
+        attention_impl: str = "auto",
+        host_chunk: int | None = None,
+        act_dtype: torch.dtype | None = None,
+        gelu: str = "auto",
+        softmax: str = "auto",
+        device: torch.device | str | None = None,
+    ):
+        """``params``: the JAX package's parameter pytree (numpy leaves, as
+        ``init_params`` or ``load_params`` give) or a ``HubertEncoder``;
+        without it the weights load from ``checkpoint`` (default
+        ``checkpoints/mhubert147.npz`` in this package).
+        ``precision="default"`` is the bf16 block-kernel class on the card,
+        ``"highest"`` the float32 tensor path. ``attention_impl``: "einsum",
+        "block_ffn" (kernels A7 + A8) or "auto". ``gelu="auto"`` is tanh at
+        the default precision and erf at "highest"; ``softmax="auto"`` exp2
+        and exact likewise. ``act_dtype=torch.bfloat16`` runs the encoder's
+        activation stream in bf16. ``batch_chunk`` encodes the doubled batch
+        in row chunks (the same scores). ``host_chunk`` is an alias of it,
+        kept for the JAX package's signature, where it splits the jit graph
+        on the host; it wins where both are given."""
+        super().__init__(sample_rate, device=device)
+        for name, value, allowed in (
+            ("precision", precision, (None, "default", "highest")),
+            ("gelu", gelu, ("auto", "erf", "tanh")),
+            ("softmax", softmax, ("auto", "exact", "exp2", "exp2_bf16")),
+        ):
+            if value not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+        if attention_impl in NOT_PORTED_IMPLS:
+            raise NotImplementedError(f"attention_impl={attention_impl!r} is not ported; use 'einsum', 'block_ffn' or 'auto'")
+        if attention_impl != "auto" and attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention impl: {attention_impl!r}")
+        self.output_layer = output_layer
+        self.precision = precision
+        self.act_dtype = act_dtype
+        self.gelu = ("erf" if precision == "highest" else "tanh") if gelu == "auto" else gelu
+        self.softmax = ("exact" if precision == "highest" else "exp2") if softmax == "auto" else softmax
+        self.batch_chunk = batch_chunk
+        self.attention_impl = attention_impl
+        self.host_chunk = host_chunk
+        if params is None:
+            params = self._load_params(checkpoint)
+        encoder = params if isinstance(params, HubertEncoder) else from_jax_params(params, config)
+        self.config = encoder.config
+        self.encoder = encoder.to(self.device)
+
+    @staticmethod
+    def _load_params(checkpoint):
+        from fast_speech_enhancement_metrics_tpu_torch.utils.convert_hubert import load_params
+
+        path = Path(checkpoint) if checkpoint is not None else DEFAULT_CHECKPOINT
+        if not path.exists():
+            raise FileNotFoundError(
+                f"HuBERT checkpoint not found: {path}. Convert the HF model once, on a "
+                "machine that has it: load utter-project/mHuBERT-147 with transformers, "
+                "then utils.convert_hubert.save_params(convert_hf_hubert(model.state_dict(), "
+                f"config_from_hf(model.config)), '{DEFAULT_CHECKPOINT}'); or pass params=..."
+            )
+        return load_params(str(path))
+
+    def _resolve_impl(self, num_samples: int, rows: int) -> str:
+        """The attention path for (rows, num_samples) inputs. On a CUDA device,
+        "auto" takes the block kernels A7 + A8 for short clips at the default
+        precision with a post-LN config and an even head count, as the JAX
+        package does. What the kernels cannot run raises: clips of 1500
+        frames (30 s) and more, or logits over 4 GB, need the long-audio
+        kernel A9, which is not ported; A7 is built for heads of 64."""
+        impl = self.attention_impl
+        on_cuda = self._on_cuda()
+        if impl == "auto":
+            if not on_cuda:
+                return "einsum"
+            frames = num_samples // 320
+            heads = self.config.num_attention_heads
+            logits_gb = rows * heads * frames * frames * 4 / 1e9
+            if frames >= 1500 or logits_gb > 4.0:
+                raise NotImplementedError(
+                    f"SpeechBERTScore on the card at {frames} frames x {rows} rows needs kernel A9 "
+                    "(ops/sdpa_pallas.py::_sdpa_kernel), which is not ported yet; "
+                    "attention_impl='einsum' scores these clips"
+                )
+            use_block = (
+                self.precision in (None, "default")
+                and not self.config.do_stable_layer_norm
+                and heads % 2 == 0
+            )
+            impl = "block_ffn" if use_block else "einsum"
+        head_dim = self.config.hidden_size // self.config.num_attention_heads
+        if impl == "block_ffn" and on_cuda and head_dim != KERNEL_HEAD_DIM:
+            raise NotImplementedError(
+                f"the attention-block kernel A7 is built for heads of {KERNEL_HEAD_DIM}, this config's "
+                f"are {head_dim}; attention_impl='einsum' scores it"
+            )
+        return impl
+
+    @staticmethod
+    def _f1_from_embeddings(clean_emb: torch.Tensor, denoised_emb: torch.Tensor) -> dict:
+        norm_c = clean_emb / torch.linalg.norm(clean_emb, dim=2, keepdim=True)
+        norm_d = denoised_emb / torch.linalg.norm(denoised_emb, dim=2, keepdim=True)
+        sim = torch.bmm(norm_d, norm_c.transpose(1, 2))  # fp32, no TF32
+        precision_score = torch.amax(sim, dim=2).mean(dim=1)
+        recall = torch.amax(sim, dim=1).mean(dim=1)
+        return {"SpeechBERTScore": 2.0 * precision_score * recall / (precision_score + recall)}
+
+    def _encode(self, audio: torch.Tensor, impl: str) -> torch.Tensor:
+        with torch.inference_mode():
+            return hubert_hidden_state(
+                self.encoder, audio, output_layer=self.output_layer, attention_impl=impl,
+                act_dtype=self.act_dtype, gelu=self.gelu, softmax=self.softmax,
+            )
+
+    def _compute(self, clean, denoised):
+        assert clean is not None
+        batch = clean.shape[0]
+        speech = torch.cat([clean, denoised], dim=0)
+        n, samples = speech.shape
+        chunk = self.host_chunk if self.host_chunk is not None else self.batch_chunk
+        if chunk is None:
+            # the conv encoder's first activation is (rows, T/5, 512): past
+            # ~8 GB, split into the fewest equal row chunks that fit
+            bytes_per = 2 if self.act_dtype is not None else 4
+            fe_gb = n * (samples // 5) * 512 * bytes_per / 1e9
+            if fe_gb > 8.0:
+                per_chunk = -(-n // int(-(-fe_gb // 8.0)))
+                chunk = max(8, -(-per_chunk // 8) * 8)
+        impl = self._resolve_impl(samples, n if chunk is None else min(n, chunk))
+        if chunk is not None and n > chunk and n % chunk:
+            speech = torch.cat([speech, speech[: chunk - n % chunk]], dim=0)
+        if chunk is not None and speech.shape[0] > chunk:
+            emb = torch.cat([self._encode(speech[i:i + chunk], impl) for i in range(0, speech.shape[0], chunk)])[:n]
+        else:
+            emb = self._encode(speech, impl)[:n]
+        return self._f1_from_embeddings(emb[:batch], emb[batch:])

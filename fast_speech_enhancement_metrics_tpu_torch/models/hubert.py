@@ -1,0 +1,316 @@
+"""HuBERT speech encoder in PyTorch, with the post-LN layers on kernels A7 and A8.
+
+Counterpart of the JAX package's ``models/hubert.py``. Architecture
+contract: Hugging Face ``HubertModel`` (SpeechBERTScore's reference loads
+``utter-project/mHuBERT-147``): a strided conv feature encoder (group-norm
+variant), feature projection, a grouped positional conv (batch-norm
+pre-affine for mHuBERT-147), and a post-LN transformer stack of which only
+the first ``output_layer`` layers run.
+
+Parameters come in the JAX package's pytree layout (``init_params``,
+``utils/convert_hubert.py``; (in, out) matmul weights, (K, in/groups, out)
+conv weights) and ``from_jax_params`` carries them into ``HubertEncoder``,
+which holds the conv weights transposed once to PyTorch's (out, in/groups,
+K). Every float32 conv runs with cuDNN's TF32 off and every float32 matmul
+without TF32, on the card as on the CPU.
+
+``attention_impl``: ``"einsum"`` (plain tensor ops, either softmax) or
+``"block_ffn"`` (post-LN only: each layer's attention block is kernel A7
+and, with the tanh GELU or on the CPU, its FFN block is kernel A8; on the
+card the erf GELU takes the plain FFN after A7, as the JAX package does on
+the TPU, whose FFN kernel has no erf).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas
+
+
+@dataclasses.dataclass(frozen=True)
+class HubertConfig:
+    """The subset of HF ``HubertConfig`` that affects inference."""
+
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    conv_dim: tuple = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernel: tuple = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: tuple = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = False
+    feat_extract_norm: str = "group"  # "group" | "layer"
+    feat_proj_layer_norm: bool = True
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    do_stable_layer_norm: bool = False
+    layer_norm_eps: float = 1e-5
+
+
+#: mHuBERT-147 is HuBERT-base with a batch-norm positional conv
+MHUBERT_147_CONFIG = HubertConfig()
+
+ATTENTION_IMPLS = ("einsum", "block_ffn")
+
+
+def _conv_flags():
+    """cuDNN on, TF32 off: float32 convs stay float32 on the card."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis: fp32 statistics, result in x's dtype."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return out.to(x.dtype)
+
+
+def _gelu(x: torch.Tensor, gelu: str) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh" if gelu == "tanh" else "none")
+
+
+def _param(a) -> nn.Parameter:
+    return nn.Parameter(torch.from_numpy(np.array(a, dtype=np.float32)), requires_grad=False)
+
+
+class HubertEncoder(nn.Module):
+    """The encoder's parameters in the port's layout, built by
+    ``from_jax_params``; run it with ``hubert_hidden_state``. Packed block
+    operands for kernels A7/A8 are made on first use and kept per layer,
+    softmax mode and device."""
+
+    def __init__(self, params: dict, config: HubertConfig = MHUBERT_147_CONFIG):
+        super().__init__()
+        self.config = config
+        fe = []
+        for layer in params["feature_encoder"]:
+            d = {k: _param(v) for k, v in layer.items() if k != "w"}
+            d["w"] = _param(np.transpose(np.asarray(layer["w"]), (2, 1, 0)))  # KIO -> OIK
+            fe.append(nn.ParameterDict(d))
+        self.feature_encoder = nn.ModuleList(fe)
+        self.feature_projection = nn.ParameterDict({k: _param(v) for k, v in params["feature_projection"].items()})
+        pos = {k: _param(v) for k, v in params["pos_conv"].items() if k != "w"}
+        pos["w"] = _param(np.transpose(np.asarray(params["pos_conv"]["w"]), (2, 1, 0)))
+        self.pos_conv = nn.ParameterDict(pos)
+        self.encoder_ln = nn.ParameterDict({k: _param(v) for k, v in params["encoder_ln"].items()})
+        self.layers = nn.ModuleList(
+            nn.ParameterDict({k: _param(v) for k, v in layer.items()}) for layer in params["layers"]
+        )
+        self._packed: dict = {}
+
+    def _apply(self, fn, recurse=True):
+        self._packed.clear()  # packed operands follow the parameters' device
+        return super()._apply(fn, recurse)
+
+    def packed_blocks(self, i: int, softmax: str) -> tuple:
+        """(A7 operands, A8 operands) of layer i."""
+        p = self.layers[i]
+        key = (i, softmax, str(p["q_w"].device))
+        hit = self._packed.get(key)
+        if hit is None:
+            heads = self.config.num_attention_heads
+            hit = (
+                attn_block_pallas.pack_attn_block_params(p, heads, softmax),
+                attn_block_pallas.pack_ffn_block_params(p),
+            )
+            self._packed[key] = hit
+        return hit
+
+
+def from_jax_params(params_np: dict, config: HubertConfig = MHUBERT_147_CONFIG) -> HubertEncoder:
+    """The JAX package's parameter pytree (numpy-convertible leaves) -> a
+    ``HubertEncoder`` on the CPU (move it with ``.to(device)``)."""
+    return HubertEncoder(params_np, config)
+
+
+def feature_encoder(enc: HubertEncoder, audio: torch.Tensor, gelu: str = "erf") -> torch.Tensor:
+    """(B, T) raw audio -> (B, frames, conv_dim[-1]) conv features."""
+    config = enc.config
+    x = audio[:, None, :]  # (B, 1, T): channels first
+    for i, layer in enumerate(enc.feature_encoder):
+        with _conv_flags():
+            x = F.conv1d(x, layer["w"].to(x.dtype), stride=config.conv_stride[i])
+        if "b" in layer:
+            x = x + layer["b"].to(x.dtype)[:, None]
+        if config.feat_extract_norm == "group" and i == 0:
+            # GroupNorm(groups == channels): per-channel norm over time, fp32
+            # one-pass statistics
+            xf = x.float()
+            mean = torch.mean(xf, dim=2, keepdim=True)
+            var = torch.clamp(torch.mean(xf * xf, dim=2, keepdim=True) - mean * mean, min=0.0)
+            xf = (xf - mean) * torch.rsqrt(var + config.layer_norm_eps)
+            x = (xf * layer["norm_scale"].float()[:, None] + layer["norm_bias"].float()[:, None]).to(x.dtype)
+        elif config.feat_extract_norm == "layer":
+            x = _layer_norm(x.transpose(1, 2), layer["norm_scale"], layer["norm_bias"],
+                            config.layer_norm_eps).transpose(1, 2)
+        x = _gelu(x, gelu)
+    return x.transpose(1, 2)
+
+
+def _attention(p, x: torch.Tensor, num_heads: int, softmax: str = "exact") -> torch.Tensor:
+    """Multi-head self-attention as plain tensor ops (the ``"einsum"`` path),
+    with the fused (d, 3d) QKV projection."""
+    b, t, d = x.shape
+    hd = d // num_heads
+    scaling = hd**-0.5
+    dt = x.dtype
+
+    def split(h):
+        return h.reshape(b, t, num_heads, hd).transpose(1, 2)
+
+    qkv_w = torch.cat([p["q_w"], p["k_w"], p["v_w"]], dim=1).to(dt)
+    qkv_b = torch.cat([p["q_b"], p["k_b"], p["v_b"]]).to(dt)
+    qkv = torch.matmul(x, qkv_w) + qkv_b
+    q, k, v = split(qkv[..., :d]), split(qkv[..., d:2 * d]), split(qkv[..., 2 * d:])
+    if softmax == "exp2":
+        # max-free softmax: log2(e) folded into the logit scale, unshifted
+        # 2^s normalised, overflow-guarded by the clamp
+        logits = torch.matmul(q * (scaling * 1.4426950408889634), k.transpose(-1, -2))
+        pw = torch.exp2(torch.clamp(logits.float(), -100.0, 120.0))
+        weights = (pw / torch.sum(pw, dim=-1, keepdim=True)).to(logits.dtype)
+    else:  # "exact"; the einsum path has no bf16 exponential, as in the JAX package
+        logits = torch.matmul(q * scaling, k.transpose(-1, -2))
+        weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+    ctx = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, d)
+    return torch.matmul(ctx, p["o_w"].to(dt)) + p["o_b"].to(dt)
+
+
+def _ffn(p, x: torch.Tensor, gelu: str) -> torch.Tensor:
+    dt = x.dtype
+    h = _gelu(torch.matmul(x, p["ff_w1"].to(dt)) + p["ff_b1"].to(dt), gelu)
+    return torch.matmul(h, p["ff_w2"].to(dt)) + p["ff_b2"].to(dt)
+
+
+def _encoder_layer(
+    enc: HubertEncoder, i: int, x: torch.Tensor, attention_impl: str = "einsum",
+    gelu: str = "erf", softmax: str = "exact",
+) -> torch.Tensor:
+    config = enc.config
+    p = enc.layers[i]
+    eps = config.layer_norm_eps
+    heads = config.num_attention_heads
+    if config.do_stable_layer_norm:
+        if attention_impl != "einsum":
+            raise ValueError(f"pre-LN layers run on the einsum path only, got {attention_impl!r}")
+        x = x + _attention(p, _layer_norm(x, p["ln1_s"], p["ln1_b"], eps), heads, softmax)
+        return x + _ffn(p, _layer_norm(x, p["ln2_s"], p["ln2_b"], eps), gelu)
+    if attention_impl == "block_ffn":
+        attn_ops, ffn_ops = enc.packed_blocks(i, softmax)
+        x = attn_block_pallas.attn_block(x, attn_ops, heads, eps, softmax=softmax)
+        if gelu == "tanh" or x.device.type == "cpu":
+            return attn_block_pallas.ffn_block(x, ffn_ops, eps, gelu=gelu)
+    elif attention_impl == "einsum":
+        x = _layer_norm(x + _attention(p, x, heads, softmax), p["ln1_s"], p["ln1_b"], eps)
+    else:
+        raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
+    return _layer_norm(x + _ffn(p, x, gelu), p["ln2_s"], p["ln2_b"], eps)
+
+
+def hubert_hidden_state(
+    enc: HubertEncoder,
+    audio: torch.Tensor,
+    output_layer: int = 8,
+    attention_impl: str = "einsum",
+    act_dtype: torch.dtype | None = None,
+    gelu: str = "erf",
+    softmax: str = "exact",
+) -> torch.Tensor:
+    """(B, T) audio -> (B, frames, hidden) == HF ``hidden_states[output_layer]``:
+    the output of the first ``output_layer`` encoder layers (only those run).
+
+    ``act_dtype=torch.bfloat16`` runs the activation stream in bf16 (norm
+    statistics and the softmax stay fp32); the result is then fp32.
+    ``softmax``: ``"exact"``, ``"exp2"`` or ``"exp2_bf16"``; the einsum path
+    runs the last as ``"exact"``, as the JAX package does.
+    """
+    config = enc.config
+    dt = act_dtype or torch.float32
+    x = feature_encoder(enc, audio.to(dt), gelu=gelu)
+
+    fp = enc.feature_projection
+    if config.feat_proj_layer_norm:
+        x = _layer_norm(x, fp["ln_s"], fp["ln_b"], config.layer_norm_eps)
+    x = torch.matmul(x, fp["w"].to(dt)) + fp["b"].to(dt)
+
+    pc = enc.pos_conv
+    pos_in = x
+    if "bn_scale" in pc:
+        pos_in = x * pc["bn_scale"].to(dt) + pc["bn_shift"].to(dt)
+    with _conv_flags():
+        pos = F.conv1d(
+            pos_in.transpose(1, 2), pc["w"].to(dt),
+            padding=config.num_conv_pos_embeddings // 2,
+            groups=config.num_conv_pos_embedding_groups,
+        ).transpose(1, 2)
+    if config.num_conv_pos_embeddings % 2 == 0:
+        pos = pos[:, :-1, :]
+    x = x + _gelu(pos + pc["b"].to(dt), "erf")  # exact GELU, always
+
+    enc_ln = enc.encoder_ln
+    if not config.do_stable_layer_norm:
+        # post-LN stack: the encoder LayerNorm applies before the layers
+        x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
+    for i in range(min(output_layer, len(enc.layers))):
+        x = _encoder_layer(enc, i, x, attention_impl, gelu=gelu, softmax=softmax)
+    if config.do_stable_layer_norm and output_layer == config.num_hidden_layers:
+        # pre-LN stack: the encoder LayerNorm applies after the final layer
+        x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
+    return x.float() if act_dtype is not None else x
+
+
+def init_params(generator: torch.Generator, config: HubertConfig = MHUBERT_147_CONFIG) -> dict:
+    """Seeded random parameter pytree in the JAX package's layout (numpy
+    float32 leaves; the shapes and scales of its ``init_params``, not its
+    values), for runs that need no real weights."""
+
+    def nxt(*shape, scale=0.02):
+        return (torch.randn(shape, generator=generator) * scale).numpy()
+
+    def zeros(*shape):
+        return np.zeros(shape, np.float32)
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    d = config.hidden_size
+    params: dict = {"feature_encoder": []}
+    for i, out_c in enumerate(config.conv_dim):
+        in_c = 1 if i == 0 else config.conv_dim[i - 1]
+        layer = {"w": nxt(config.conv_kernel[i], in_c, out_c, scale=0.1)}
+        if config.conv_bias:
+            layer["b"] = zeros(out_c)
+        if (config.feat_extract_norm == "group" and i == 0) or config.feat_extract_norm == "layer":
+            layer["norm_scale"] = ones(out_c)
+            layer["norm_bias"] = zeros(out_c)
+        params["feature_encoder"].append(layer)
+    params["feature_projection"] = {"w": nxt(config.conv_dim[-1], d), "b": zeros(d)}
+    if config.feat_proj_layer_norm:
+        params["feature_projection"]["ln_s"] = ones(config.conv_dim[-1])
+        params["feature_projection"]["ln_b"] = zeros(config.conv_dim[-1])
+    groups = config.num_conv_pos_embedding_groups
+    params["pos_conv"] = {"w": nxt(config.num_conv_pos_embeddings, d // groups, d), "b": zeros(d)}
+    params["encoder_ln"] = {"s": ones(d), "b": zeros(d)}
+    params["layers"] = [
+        {
+            "q_w": nxt(d, d), "q_b": zeros(d),
+            "k_w": nxt(d, d), "k_b": zeros(d),
+            "v_w": nxt(d, d), "v_b": zeros(d),
+            "o_w": nxt(d, d), "o_b": zeros(d),
+            "ln1_s": ones(d), "ln1_b": zeros(d),
+            "ff_w1": nxt(d, config.intermediate_size),
+            "ff_b1": zeros(config.intermediate_size),
+            "ff_w2": nxt(config.intermediate_size, d),
+            "ff_b2": zeros(d),
+            "ln2_s": ones(d), "ln2_b": zeros(d),
+        }
+        for _ in range(config.num_hidden_layers)
+    ]
+    return params

@@ -29,23 +29,34 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 HEADERS = ("common.cuh",)
-SOURCES = ("runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu")
+SOURCES = (
+    "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
+    "attn_block.cu",
+)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: launches per kernel wrapper; a wrapper adds one where it launches
 launch_counts: collections.Counter = collections.Counter()
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     # (clean, denoised, table, scale partials, tile partials, out, batch, chunks, eps, stream)
     "fsem_lsd_wholesig_raw": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # (clean, denoised, table, tile partials, out, batch, samples, eps, stream)
+    "fsem_lsd_wholesig": (_P, _P, _P, _P, _P, _I, _L, _F, _P),
     # (clean, denoised, slab partials, r_auto, r_cross, batch, samples, stream)
     "fsem_correlation_lags_gram": (_P, _P, _P, _P, _P, _I, _I, _P),
     # (r0, b, x, batch, order, stream)
     "fsem_levinson_solve": (_P, _P, _P, _I, _I, _P),
     # (tob clean, tob denoised, num_segments, tile partials, out, batch, frames, stream)
     "fsem_stoi_segment_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # (x, wqkv, bqkv, wo, bo, ln scale, ln shift, qkv, ctx, y, out, rows, frames,
+    #  width, heads, softmax mode, x and out are bf16, eps, stream)
+    "fsem_attn_block": (_P,) * 11 + (_I,) * 6 + (_F, _P),
+    # (x, w1, b1, w2, b2, ln scale, ln shift, hidden, y, out, rows, width, ffn,
+    #  x and out are bf16, eps, stream)
+    "fsem_ffn_block": (_P,) * 10 + (_I,) * 4 + (_F, _P),
 }
 
 _lock = threading.Lock()

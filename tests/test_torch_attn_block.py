@@ -1,0 +1,99 @@
+"""PyTorch port, kernels A7 (attention block) and A8 (FFN block): their plain
+versions against the JAX package's Pallas kernels in interpret mode.
+
+Both sides emulate the same bf16 roundings with fp32 accumulation, so they
+agree far inside the block's bf16 class: max abs 1e-2, median abs 1e-4.
+The packing's q-scale fold must match the JAX packing exactly.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fast_speech_enhancement_metrics_tpu.ops import attn_block_pallas as jax_blocks
+from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas
+
+D, HEADS, FFN, T = 64, 4, 256, 43  # T deliberately not a multiple of 8 or 16
+
+
+def _params(seed=7):
+    rs = np.random.RandomState(seed)
+    p = {k: rs.randn(D, D) * 0.1 for k in ("q_w", "k_w", "v_w", "o_w")}
+    p.update({k: rs.randn(D) * 0.1 for k in ("q_b", "k_b", "v_b", "o_b", "ff_b2")})
+    p.update(ff_w1=rs.randn(D, FFN) * 0.1, ff_b1=rs.randn(FFN) * 0.1, ff_w2=rs.randn(FFN, D) * 0.1,
+             ln1_s=1 + 0.1 * rs.randn(D), ln1_b=0.1 * rs.randn(D),
+             ln2_s=1 + 0.1 * rs.randn(D), ln2_b=0.1 * rs.randn(D))
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    x = (np.random.RandomState(seed + 1).randn(2, T, D) * 0.5).astype(np.float32)
+    return p, x
+
+
+def _close(ours, theirs):
+    diff = np.abs(np.asarray(ours, dtype=np.float32) - np.asarray(theirs, dtype=np.float32))
+    assert diff.max() <= 1e-2 and np.median(diff) <= 1e-4, (diff.max(), np.median(diff))
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exact", "exp2_bf16"])
+def test_attn_block_plain_matches_pallas(softmax):
+    p, x = _params()
+    theirs = jax_blocks.attn_block({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+                                   HEADS, 1e-5, softmax=softmax, interpret=True)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    packed = attn_block_pallas.pack_attn_block_params(tp, HEADS, softmax)
+    ours = attn_block_pallas.attn_block(torch.from_numpy(x), packed, HEADS, 1e-5, softmax=softmax)
+    assert ours.dtype == torch.float32 and ours.shape == x.shape
+    _close(ours.numpy(), theirs)
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "erf"])
+def test_ffn_block_plain_matches_pallas(gelu):
+    p, x = _params(seed=9)
+    theirs = jax_blocks.ffn_block({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+                                  1e-5, gelu=gelu, interpret=True)
+    packed = attn_block_pallas.pack_ffn_block_params({k: torch.from_numpy(v) for k, v in p.items()})
+    ours = attn_block_pallas.ffn_block(torch.from_numpy(x), packed, 1e-5, gelu=gelu)
+    _close(ours.numpy(), theirs)
+
+
+def test_bf16_input_keeps_dtype():
+    """A bf16 activation stream stays bf16 through both blocks."""
+    p, x = _params(seed=3)
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    y = attn_block_pallas.attn_block(xb, attn_block_pallas.pack_attn_block_params(tp, HEADS, "exp2"), HEADS, 1e-5)
+    y = attn_block_pallas.ffn_block(y, attn_block_pallas.pack_ffn_block_params(tp), 1e-5)
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exact"])
+def test_packing_folds_the_q_scale_like_jax(softmax):
+    """Same fp32 fold of the attention scale (and log2 e) into q before the
+    bf16 cast; the JAX packing interleaves heads as [q|k|v] per head, the
+    port keeps [q heads | k heads | v heads]."""
+    p, _ = _params()
+    wqkv_j, bqkv_j, wo_j, bo_j, lns_j, lnb_j = (
+        np.asarray(a.astype(jnp.float32)) for a in
+        jax_blocks.pack_attn_block_params({k: jnp.asarray(v) for k, v in p.items()}, HEADS, softmax)
+    )
+    packed = attn_block_pallas.pack_attn_block_params({k: torch.from_numpy(v) for k, v in p.items()}, HEADS, softmax)
+    wqkv, bqkv, wo, bo, lns, lnb = (a.float().numpy() for a in packed)
+    hd = D // HEADS
+    # JAX column of (part, head, i) is head * 3 hd + part * hd + i
+    order = [h * 3 * hd + part * hd + i for part in range(3) for h in range(HEADS) for i in range(hd)]
+    np.testing.assert_array_equal(wqkv, wqkv_j[:, order])
+    np.testing.assert_array_equal(bqkv, bqkv_j[0, order])
+    for ours, theirs in ((wo, wo_j), (bo, bo_j[0]), (lns, lns_j[0]), (lnb, lnb_j[0])):
+        np.testing.assert_array_equal(ours, theirs)
+
+
+def test_block_wrappers_reject_other_devices():
+    p, x = _params()
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    meta = torch.zeros(2, T, D, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        attn_block_pallas.attn_block(meta, attn_block_pallas.pack_attn_block_params(tp, HEADS, "exp2"), HEADS, 1e-5)
+    with pytest.raises(ValueError, match="device"):
+        attn_block_pallas.ffn_block(meta, attn_block_pallas.pack_ffn_block_params(tp), 1e-5)
+    with pytest.raises(ValueError, match="softmax"):
+        attn_block_pallas.pack_attn_block_params(tp, HEADS, "exp")

@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI
+from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI, SpeechBERTScore
+from fast_speech_enhancement_metrics_tpu_torch.models.hubert import HubertConfig, init_params
 from fast_speech_enhancement_metrics_tpu_torch.ops import (
+    attn_block_pallas,
     cuda_lib,
     levinson_pallas,
     lsd_fused,
@@ -87,20 +89,91 @@ def test_stoi_kernel_matches_plain(dev):
     torch.testing.assert_close(e / 30 / per, pe / 30 / per, rtol=0, atol=5e-4)
 
 
+@pytest.mark.parametrize("t", [32768 + 7, 16100, 300])
+def test_lsd_a2_a3_kernels_match_plain(dev, t):
+    c, d = _audio(dev, t=t)
+    for wrapper, plain, kname in (
+        (lsd_fused.lsd_wholesig, lsd_fused._lsd_wholesig_plain, lsd_fused.KERNEL_A2),
+        (lsd_fused.lsd_framed, lsd_fused._lsd_framed_plain, lsd_fused.KERNEL_A3),
+    ):
+        before = cuda_lib.launch_counts[kname]
+        got = wrapper(c, d, 256, 1e-8)
+        assert cuda_lib.launch_counts[kname] == before + 1
+        torch.testing.assert_close(got, plain(c, d, 256, 1e-8), rtol=2e-4, atol=2e-4)
+
+
+def _block_params(d, ffn, seed, qk_scale=0.12):
+    rs = np.random.RandomState(seed)
+    p = {k: rs.randn(d, d) * (qk_scale if k in ("q_w", "k_w") else 0.05) for k in ("q_w", "k_w", "v_w", "o_w")}
+    p.update({k: rs.randn(d) * 0.1 for k in ("q_b", "k_b", "v_b", "o_b", "ff_b2")})
+    p.update(ff_w1=rs.randn(d, ffn) * 0.05, ff_b1=rs.randn(ffn) * 0.1, ff_w2=rs.randn(ffn, d) * 0.05,
+             ln1_s=1 + 0.1 * rs.randn(d), ln1_b=0.1 * rs.randn(d), ln2_s=1 + 0.1 * rs.randn(d), ln2_b=0.1 * rs.randn(d))
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in p.items()}
+
+
+def _bf16_class(got, want):
+    """The JAX block tests' bf16 class: max abs 3e-2, median abs 1e-3."""
+    diff = (got.float() - want.float()).abs()
+    assert diff.max().item() <= 3e-2 and diff.median().item() <= 1e-3, (diff.max().item(), diff.median().item())
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exact", "exp2_bf16"])
+@pytest.mark.parametrize("t", [43, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_block_kernel_matches_plain(dev, softmax, t, dtype):
+    d, heads = 128, 2  # heads of 64, the kernel's width
+    p = _block_params(d, 256, seed=t)
+    x = torch.tensor(np.random.RandomState(1).randn(2, t, d), dtype=dtype)
+    packed = attn_block_pallas.pack_attn_block_params(p, heads, softmax)
+    before = cuda_lib.launch_counts[attn_block_pallas.KERNEL_A7]
+    got = attn_block_pallas.attn_block(x.to(dev), tuple(a.to(dev) for a in packed), heads, 1e-5, softmax=softmax)
+    assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_A7] == before + 1
+    assert got.dtype == dtype
+    _bf16_class(got.cpu(), attn_block_pallas.attn_block(x, packed, heads, 1e-5, softmax=softmax))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_block_kernel_matches_plain(dev, dtype):
+    d, ffn = 128, 256
+    p = _block_params(d, ffn, seed=3)
+    x = torch.tensor(np.random.RandomState(2).randn(2, 43, d), dtype=dtype)
+    packed = attn_block_pallas.pack_ffn_block_params(p)
+    before = cuda_lib.launch_counts[attn_block_pallas.KERNEL_A8]
+    got = attn_block_pallas.ffn_block(x.to(dev), tuple(a.to(dev) for a in packed), 1e-5)
+    assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_A8] == before + 1
+    _bf16_class(got.cpu(), attn_block_pallas.ffn_block(x, packed, 1e-5))
+
+
+def test_speechbertscore_on_card_matches_cpu(dev):
+    """The block path (A7 + A8 on every layer) through ``__call__`` against
+    the CPU plain path, F1 atol 2e-4."""
+    config = HubertConfig(hidden_size=128, num_hidden_layers=3, num_attention_heads=2,
+                          intermediate_size=256, conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3),
+                          conv_stride=(5, 2, 2), num_conv_pos_embeddings=16,
+                          num_conv_pos_embedding_groups=4)
+    params = init_params(torch.Generator().manual_seed(0), config)
+    clean, noisy, _ = load_audio_data(1.0, 2, 16000)
+    kw = dict(params=params, config=config, output_layer=3)
+    before = dict(cuda_lib.launch_counts)
+    on_card = SpeechBERTScore(device=dev, **kw)(clean, noisy)
+    for kname in (attn_block_pallas.KERNEL_A7, attn_block_pallas.KERNEL_A8):
+        assert cuda_lib.launch_counts[kname] == before.get(kname, 0) + 3
+    on_cpu = SpeechBERTScore(device="cpu", attention_impl="block_ffn", **kw)(clean, noisy)
+    for a, b in zip(on_card, on_cpu):
+        assert a["SpeechBERTScore"] == pytest.approx(b["SpeechBERTScore"], abs=2e-4)
+
+
 @pytest.mark.parametrize("t", [32768, 30000])
 def test_metrics_on_card_match_cpu(dev, t):
     """The metrics through ``__call__`` on the card against the CPU plain
-    path; 30000 samples is not hop-aligned, so LSD on the card raises
-    there (kernel A2 is not ported) unless asked for its framed-DFT path."""
+    path; 30000 samples is not hop-aligned, so LSD takes kernel A2 there."""
     clean, noisy, _ = load_audio_data(t / 16000, 3, 16000)
-    aligned = t % 256 == 0
-    if not aligned:
-        with pytest.raises(NotImplementedError, match="A2"):
-            LSD(device=dev)(clean, noisy)
-    lsd_kw = {} if aligned else {"spectral_impl": "xla"}
-    for cls, kw, tol in ((LSD, lsd_kw, 2e-4), (SDR, {}, 1e-2), (STOI, {"sample_rate": 16000}, 5e-4)):
+    kname = lsd_fused.KERNEL if t % 256 == 0 else lsd_fused.KERNEL_A2
+    before = cuda_lib.launch_counts[kname]
+    for cls, kw, tol in ((LSD, {}, 2e-4), (SDR, {}, 1e-2), (STOI, {"sample_rate": 16000}, 5e-4)):
         on_card = cls(device=dev, **kw)(clean, noisy)
         on_cpu = cls(device="cpu", **kw)(clean, noisy)
         for a, b in zip(on_card, on_cpu):
             for k, v in b.items():
                 assert a[k] == pytest.approx(v, rel=tol if cls is LSD else 0, abs=tol)
+    assert cuda_lib.launch_counts[kname] == before + 1

@@ -1,4 +1,4 @@
-"""PyTorch port, LSD: kernel A1's plain version and the metric against JAX.
+"""PyTorch port, LSD: the plain versions of kernels A1-A3 and the metric against JAX.
 
 The JAX side runs on the CPU: its Pallas kernel in interpret mode, its
 metric through the XLA path that ``"auto"`` picks there. Tolerance: the
@@ -10,10 +10,12 @@ import pytest
 import torch
 
 from fast_speech_enhancement_metrics_tpu import LSD as JaxLSD
+from fast_speech_enhancement_metrics_tpu.ops.lsd_fused import _lsd_framed as jax_lsd_framed
 from fast_speech_enhancement_metrics_tpu.ops.lsd_fused import lsd_scores as jax_lsd_scores
 from fast_speech_enhancement_metrics_tpu_torch import LSD
 from fast_speech_enhancement_metrics_tpu_torch.ops import lsd_fused
 from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_data
+from tests.oracles.lsd_oracle import lsd_oracle
 
 
 def _pairs(seconds, rows=3, seed=42):
@@ -57,16 +59,15 @@ def test_lsd_48k_input_resamples():
 
 
 def test_lsd_auto_takes_plain_path_for_unaligned_clips():
-    """A clip that is not hop-aligned needs kernel A2: ``lsd_scores`` says
-    so. On the CPU ``"auto"`` scores it on the framed-DFT path; on a CUDA
-    device ``"auto"`` means the kernel whatever the length, so such a clip
-    raises there instead of leaving the kernel path."""
+    """A clip that is not hop-aligned: ``lsd_scores`` scores it (kernel A2's
+    route) as the JAX package does. On the CPU the metric's ``"auto"`` is
+    the framed-DFT path; on a CUDA device it is the kernel route, which now
+    takes A2 for such a clip instead of raising."""
     clean, noisy = _pairs(1.0, rows=2)  # 16000 % 256 != 0
     ct, nt = torch.from_numpy(clean), torch.from_numpy(noisy)
-    with pytest.raises(NotImplementedError, match="A2"):
-        lsd_fused.lsd_scores(ct, nt, 512, 256, 1e-8)
-    with pytest.raises(NotImplementedError, match="A2"):
-        lsd_fused.lsd_scores(torch.zeros(1, 512), torch.zeros(1, 512), 512, 256, 1e-8, denoised_scale=None)
+    ours = lsd_fused.lsd_scores(ct, nt, 512, 256, 1e-8)
+    theirs = jax_lsd_scores(clean, noisy, 512, 256, 1e-8, interpret=True, denoised_scale="auto")
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-4, atol=2e-4)
     assert not LSD(device="cpu")._use_fused()
     ours = [r["LSD"] for r in LSD(device="cpu")(clean, noisy)]
     theirs = [r["LSD"] for r in JaxLSD()(clean, noisy)]
@@ -75,11 +76,89 @@ def test_lsd_auto_takes_plain_path_for_unaligned_clips():
     on_card = LSD(device="cpu")
     on_card._on_cuda = lambda: True
     assert on_card._use_fused()
-    with pytest.raises(NotImplementedError, match="A2"):
-        on_card._compute(ct, nt)
+    routes = []
+    real = lsd_fused.lsd_wholesig
+    lsd_fused.lsd_wholesig = lambda *a: routes.append("A2") or real(*a)
+    try:
+        got = on_card._compute(ct, nt)["LSD"]
+    finally:
+        lsd_fused.lsd_wholesig = real
+    assert routes == ["A2"]
+    np.testing.assert_allclose(got.numpy(), ours, rtol=2e-4, atol=2e-4)
+
+
+def _noise_pairs(t, rows=3, seed=0):
+    rs = np.random.RandomState(seed)
+    clean = rs.randn(rows, t).astype(np.float32)
+    return clean, (0.7 * clean + 0.5 * rs.randn(rows, t)).astype(np.float32)
+
+
+@pytest.mark.parametrize("t", [16000, 16100, 32768 + 7])
+def test_lsd_a2_plain_matches_pallas_kernel(t):
+    """Clips that are not hop-aligned take A2 in both packages.
+
+    Seeded noise pairs: the JAX kernel's chunk DFT is bf16x3, and on a
+    synthetic-speech frame with deep spectral nulls that alone moves its
+    score 1.4e-3 from the float64 oracle (16100 samples, seed 42, row 2),
+    where the port's float32 DFT stays within 1e-5; the oracle case below
+    holds the port on speech."""
+    clean, noisy = _noise_pairs(t)
+    ours = lsd_fused.lsd_scores(torch.from_numpy(clean), torch.from_numpy(noisy), 512, 256, 1e-8)
+    theirs = jax_lsd_scores(clean, noisy, 512, 256, 1e-8, interpret=True, denoised_scale="auto")
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("t", [16100, 32768 + 7])
+def test_lsd_a2_plain_matches_oracle_on_speech(t):
+    clean, noisy = _pairs(t / 16000)
+    clean, noisy = clean[:, :t], noisy[:, :t]
+    ours = lsd_fused.lsd_scores(torch.from_numpy(clean), torch.from_numpy(noisy), 512, 256, 1e-8)
+    np.testing.assert_allclose(ours.numpy(), lsd_oracle(clean, noisy), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("t", [16000, 16384])
+def test_lsd_a3_plain_matches_pallas_kernel(t):
+    """A3's plain version against the JAX frame-blocked kernel at a small
+    block, so that the kernel's several blocks and ragged last one are
+    exercised on a short clip."""
+    clean, noisy = _pairs(t / 16000, rows=2)
+    clean, noisy = clean[:, :t], noisy[:, :t]
+    ours = lsd_fused._lsd_framed_plain(torch.from_numpy(clean), torch.from_numpy(noisy), 256, 1e-8)
+    theirs = jax_lsd_framed(clean, noisy, 512, 256, 1e-8, 8, "high", True)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("t", [16000, 16384])
+def test_lsd_prescaled_matches_pallas_kernel(t):
+    """``denoised_scale=None``: the caller has scaled; both take A2."""
+    clean, noisy = _pairs(t / 16000, rows=2)
+    clean, noisy = clean[:, :t], (0.8 * noisy[:, :t]).astype(np.float32)
+    ours = lsd_fused.lsd_scores(torch.from_numpy(clean), torch.from_numpy(noisy), 512, 256, 1e-8, denoised_scale=None)
+    theirs = jax_lsd_scores(clean, noisy, 512, 256, 1e-8, interpret=True, denoised_scale=None)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-4, atol=2e-4)
+
+
+def test_lsd_long_clip_routes_to_a3():
+    """Past 1023 frames ``lsd_scores`` takes A3's route, with A2's value."""
+    t = 256 * 1030 + 7
+    rs = np.random.RandomState(3)
+    c = torch.tensor(rs.randn(1, t), dtype=torch.float32)
+    d = 0.6 * c + torch.tensor(rs.randn(1, t), dtype=torch.float32)
+    routes = []
+    real = lsd_fused.lsd_framed
+    lsd_fused.lsd_framed = lambda *a: routes.append("A3") or real(*a)
+    try:
+        got = lsd_fused.lsd_scores(c, d, 512, 256, 1e-8)
+    finally:
+        lsd_fused.lsd_framed = real
+    assert routes == ["A3"]
+    scale = torch.sum(c * d, dim=1) / (torch.sum(d * d, dim=1) + 1e-8)
+    want = lsd_fused._lsd_wholesig_plain(c, d * scale[:, None], 256, 1e-8)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_lsd_kernel_wrapper_rejects_other_devices():
     x = torch.zeros(1, 512, device="meta")
-    with pytest.raises(ValueError, match="device"):
-        lsd_fused.lsd_wholesig_raw(x, x, 256, 1e-8)
+    for wrapper in (lsd_fused.lsd_wholesig_raw, lsd_fused.lsd_wholesig, lsd_fused.lsd_framed):
+        with pytest.raises(ValueError, match="device"):
+            wrapper(x, x, 256, 1e-8)

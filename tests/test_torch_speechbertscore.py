@@ -1,0 +1,107 @@
+"""PyTorch port, SpeechBERTScore: the whole metric on the CPU against JAX.
+
+The small HuBERT config of tests/test_torch_hubert.py with the JAX
+package's ``init_params``; F1 atol 2e-4 on the shared 4 x 4 s fixture, on
+the float32 path ("auto" off the card) and on the block path (kernels
+A7 + A8 as plain versions; Pallas in interpret mode on the JAX side).
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from fast_speech_enhancement_metrics_tpu import SpeechBERTScore as JaxSpeechBERTScore
+from fast_speech_enhancement_metrics_tpu.models import hubert as jax_hubert
+from fast_speech_enhancement_metrics_tpu_torch import SpeechBERTScore
+from fast_speech_enhancement_metrics_tpu_torch.models import hubert
+
+SMALL = dict(
+    hidden_size=64, num_hidden_layers=3, num_attention_heads=4, intermediate_size=256,
+    conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3), conv_stride=(5, 2, 2),
+    num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
+)
+
+
+@pytest.fixture(scope="module")
+def small():
+    jcfg = jax_hubert.HubertConfig(**SMALL)
+    params = jax.tree.map(np.asarray, jax_hubert.init_params(jax.random.key(0), jcfg))
+    return jcfg, params, hubert.HubertConfig(**SMALL)
+
+
+def _f1(rows):
+    return np.array([r["SpeechBERTScore"] for r in rows])
+
+
+@pytest.mark.parametrize("impl", ["auto", "block_ffn"])
+def test_metric_matches_jax(speech_data, small, impl):
+    jcfg, params, cfg = small
+    clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
+    ours = SpeechBERTScore(device="cpu", params=params, config=cfg, output_layer=3, attention_impl=impl)(clean, noisy)
+    theirs = JaxSpeechBERTScore(params=params, config=jcfg, output_layer=3, attention_impl=impl)(clean, noisy)
+    np.testing.assert_allclose(_f1(ours), _f1(theirs), atol=2e-4, rtol=0)
+    assert np.all(_f1(ours) <= 1.0)
+
+
+def test_identical_inputs_score_one(speech_data, small):
+    _, params, cfg = small
+    clean = speech_data["speech"]
+    rows = SpeechBERTScore(device="cpu", params=params, config=cfg, output_layer=3)(clean, clean)
+    np.testing.assert_allclose(_f1(rows), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("chunking", [{"batch_chunk": 2}, {"host_chunk": 2}, {"host_chunk": 3}])
+def test_chunking_gives_the_same_scores(speech_data, small, chunking):
+    _, params, cfg = small
+    clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
+    kw = dict(device="cpu", params=params, config=cfg, output_layer=3)
+    full = SpeechBERTScore(**kw)(clean, noisy)
+    chunked = SpeechBERTScore(**chunking, **kw)(clean, noisy)
+    np.testing.assert_allclose(_f1(chunked), _f1(full), atol=1e-6, rtol=0)
+
+
+def test_resolve_impl_on_a_card():
+    """On a CUDA device "auto" takes the block kernels at 799 frames and
+    raises, naming the unported A9, at 1500 frames; off the card it is the
+    float32 path."""
+    cfg = hubert.HubertConfig(**{**SMALL, "hidden_size": 128, "num_attention_heads": 2})
+    params = hubert.init_params(torch.Generator().manual_seed(0), cfg)
+    metric = SpeechBERTScore(device="cpu", params=params, config=cfg)
+    assert metric._resolve_impl(16 * 16000, 64) == "einsum"
+    metric._on_cuda = lambda: True
+    assert metric._resolve_impl(16 * 16000, 64) == "block_ffn"
+    with pytest.raises(NotImplementedError, match="A9"):
+        metric._resolve_impl(1500 * 320, 2)
+    exact = SpeechBERTScore(device="cpu", params=params, config=cfg, precision="highest")
+    exact._on_cuda = lambda: True
+    assert exact._resolve_impl(16 * 16000, 64) == "einsum"
+    assert (exact.gelu, exact.softmax, metric.gelu, metric.softmax) == ("erf", "exact", "tanh", "exp2")
+
+
+@pytest.mark.parametrize("impl", ["auto", "block_ffn"])
+def test_resolve_impl_raises_for_heads_the_kernel_lacks(small, impl):
+    """The JAX rule takes the block path for any head width; on a CUDA
+    device A7 runs heads of 64 only, so a config with heads of 16 raises
+    there (naming the limit) instead of leaving the kernel path, and takes
+    its path as usual off the card."""
+    _, params, cfg = small
+    metric = SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl=impl)
+    assert metric._resolve_impl(16 * 16000, 8) == ("einsum" if impl == "auto" else "block_ffn")
+    metric._on_cuda = lambda: True
+    with pytest.raises(NotImplementedError, match="heads of 64"):
+        metric._resolve_impl(16 * 16000, 8)
+    einsum = SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl="einsum")
+    einsum._on_cuda = lambda: True
+    assert einsum._resolve_impl(16 * 16000, 8) == "einsum"
+
+
+def test_unported_paths_and_missing_weights_raise(tmp_path, small):
+    _, params, cfg = small
+    for impl in ("sdpa", "flash", "layer_block", "block_int8"):
+        with pytest.raises(NotImplementedError):
+            SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl=impl)
+    with pytest.raises(ValueError):
+        SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl="nope")
+    with pytest.raises(FileNotFoundError, match="mhubert"):
+        SpeechBERTScore(device="cpu", checkpoint=tmp_path / "mhubert147.npz")

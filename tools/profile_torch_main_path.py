@@ -4,12 +4,13 @@ Usage, from the repository root, on a machine with a CUDA card:
 
     python3 tools/profile_torch_main_path.py [--batch 64] [--seconds 16]
 
-For each of LSD, SDR and STOI(sample_rate=16000), scores a batch of the
-package's synthetic audio (already on the card, as a benchmark would hold
-it) a few times under ``torch.profiler`` and prints one JSON line: the wall
-time per call, the device-busy time per call (the sum of all kernel times),
-the device idle share, and the ten kernels with the most device time. Needs
-a CUDA card; raises without one.
+For each of LSD, SDR, STOI(sample_rate=16000) and SpeechBERTScore (at
+mHuBERT-147's width with seeded random weights, ``init_params`` seed 0),
+scores a batch of the package's synthetic audio (already on the card, as a
+benchmark would hold it) a few times under ``torch.profiler`` and prints
+one JSON line: the wall time per call, the device-busy time per call (the
+sum of all kernel times), the device idle share, and the ten kernels with
+the most device time. Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI  # noqa: E402
+from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI, SpeechBERTScore  # noqa: E402
+from fast_speech_enhancement_metrics_tpu_torch.models.hubert import init_params  # noqa: E402
 from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_data  # noqa: E402
 
 CALLS = 5  # profiled calls per metric, after 3 warm-ups
@@ -42,7 +44,10 @@ def main() -> None:
     clean, noisy, _ = load_audio_data(args.seconds, args.batch, 16000)
     c = torch.from_numpy(clean).cuda()
     d = torch.from_numpy(noisy).cuda()
-    metrics = {"LSD": LSD(), "SDR": SDR(), "STOI": STOI(sample_rate=16000)}
+    metrics = {
+        "LSD": LSD(), "SDR": SDR(), "STOI": STOI(sample_rate=16000),
+        "SpeechBERTScore": SpeechBERTScore(params=init_params(torch.Generator().manual_seed(0))),
+    }
     for name, metric in metrics.items():
         for _ in range(3):
             metric(c, d)
