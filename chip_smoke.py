@@ -13,17 +13,25 @@ Phases, in order; any failure exits non-zero and prints no result:
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
    generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
-   A2 and A3; one mHuBERT-147 layer at 64 x 799 frames for A7 and A8),
+   A2 and A3; one mHuBERT-147 layer at 64 x 799 frames for A7 and A8, and
+   at 8 x 799 with heads of 32 and 80; A9 at 16 x 12 heads x 2999 frames x
+   64 in its three softmax modes in bf16 and "exact" in float32, and at
+   4 x 16 heads x 1499 x 80; A15 at 2 x 12 x 40 999 x 64; A10 at 64 x 16 s
+   and 64 x (16 s + 100)),
 4. the main paths, each with every kernel's launch count set to 0 before
    it and read after it: ``LSD()``, ``SDR()`` and
    ``STOI(sample_rate=16000)`` through ``__call__`` on the 16 s batch;
    ``LSD()`` on the two unaligned batches; ``SpeechBERTScore`` at
-   mHuBERT-147's full width with seeded random weights on the 16 s batch.
+   mHuBERT-147's full width with seeded random weights on the 16 s batch
+   (A7, A8), on 16 x 60 s (A9) and on one pair of 820 s clips (A15);
+   ``SDR(corr_impl="fused")`` on the 16 s and 16 s + 100 batches (A10).
    The first rows are scored again on the CPU (plain path) for agreement,
-   and SpeechBERTScore's also by the card's float32 path,
+   and SpeechBERTScore's also by the card's float32 path (the 820 s pair:
+   by the exact A9 path); fused SDR also against ``SDR()``,
 5. times: each kernel, its plain version, a PyTorch library call (or, for
    A7 and A8, a composite of library calls) for the same function where
-   one exists, and each metric end to end,
+   one exists, and each metric end to end (SpeechBERTScore also on
+   16 x 60 s, SDR also fused),
 6. the result: a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -48,6 +56,9 @@ SBS_CPU_ROWS = 2
 HOP, EPS, LAGS = 256, 1e-8, 512
 #: unaligned clip lengths for LSD's A2 (F + 1 <= 1024 frames) and A3 (beyond)
 A2_SAMPLES, A3_SAMPLES = 16 * RATE + 100, 20 * RATE + 100
+#: SpeechBERTScore's long-audio paths: 16 x 60 s (2999 frames, A9) and one
+#: pair of 820 s clips (40 999 frames, A15)
+LONG_BATCH, LONG_SECONDS, FLASH_SECONDS = 16, 60, 820
 #: published H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores
 PEAK_BF16_TC_FLOPS = 989e12  # bf16 tensor cores, dense
@@ -123,6 +134,8 @@ def main() -> int:
         cuda_lib,
         levinson_pallas,
         lsd_fused,
+        sdpa_pallas,
+        sdr_corr_fused,
         sdr_corr_gram,
         stoi_fused,
         toeplitz,
@@ -171,7 +184,7 @@ def main() -> int:
         results[kid] = {
             "name": name, "id": kid, "route": "cuda",
             "source": f"{PACKAGE}/csrc/{src}",
-            "replaces": f"{JAX_PACKAGE}/ops/{replaces}",
+            "replaces": f"{JAX_PACKAGE}/{replaces if replaces.startswith('models/') else 'ops/' + replaces}",
             "max_abs_err": err, "tolerance": tol,
         }
 
@@ -276,12 +289,107 @@ def main() -> int:
                   f"A7 softmax={mode}")
         for mode in attn_block_pallas.SOFTMAX_MODES
     )
+    # A7 at other head widths, 8 x 799: heads of 32 (768 / 24) and 80
+    # (HuBERT-xlarge's 1280 / 16)
+    for d_w, h_w in ((768, 24), (1280, 16)):
+        lw = {name: rnd(d_w, d_w, scale=0.06 if name in ("q_w", "k_w") else 0.02)
+              for name in ("q_w", "k_w", "v_w", "o_w")}
+        lw.update({name: rnd(d_w, scale=0.02) for name in ("q_b", "k_b", "v_b", "o_b")})
+        lw.update(ln1_s=1 + rnd(d_w, scale=0.1), ln1_b=rnd(d_w, scale=0.1))
+        xw = rnd(8, blk_frames, d_w, scale=1.0)
+        for mode in attn_block_pallas.SOFTMAX_MODES:
+            pw = attn_block_pallas.pack_attn_block_params(lw, h_w, mode)
+            err = max(err, block_err(attn_block_pallas.attn_block(xw, pw, h_w, cfg.layer_norm_eps, mode),
+                                     attn_block_pallas._attn_block_plain(xw, pw, h_w, cfg.layer_norm_eps, mode),
+                                     f"A7 heads of {d_w // h_w} softmax={mode}"))
+        del xw, lw
     record("A7", attn_block_pallas.KERNEL_A7, "attn_block.cu", "attn_block_pallas.py:64", err, blk_tol)
     ffn_packed = attn_block_pallas.pack_ffn_block_params(layer)
     err = block_err(attn_block_pallas.ffn_block(x_blk, ffn_packed, cfg.layer_norm_eps),
                     attn_block_pallas._ffn_block_plain(x_blk, ffn_packed, cfg.layer_norm_eps, "tanh"),
                     "A8 gelu=tanh")
     record("A8", attn_block_pallas.KERNEL_A8, "attn_block.cu", "attn_block_pallas.py:213", err, blk_tol)
+
+    # A9 at the 16 x 60 s path's shape (16 rows x 12 heads x 2999 frames x
+    # 64): the three softmax modes in bf16 and "exact" in float32 (atol
+    # 1e-4: float32 sums over 2999 keys in another order); then heads of 80
+    # (HuBERT-xlarge: 16 heads) at 4 x 1499. An attention context is a
+    # weighted mean of v: most query rows are far below the ~1 of A7's
+    # LayerNorm output, a few that fix on one key are near max|v|. So in
+    # bf16 the block class holds per query row, each error over its row's
+    # max|want|: max 3e-2, median 1e-3
+    long_frames = LONG_SECONDS * RATE // 320 - 1  # 2999, as the conv stack gives
+    f32_tol = 1e-4
+
+    def qkv(shape, dtype):
+        return [rnd(*shape, scale=1.2).to(dtype) for _ in range(3)]
+
+    def f32_err(got, want, what):
+        mx = torch.max(torch.abs(got - want)).item()
+        log(f"  {what}: max abs {mx:.3e} (tolerance {f32_tol})")
+        check(math.isfinite(mx) and mx <= f32_tol, f"{what}: max abs error {mx:.3e} over {f32_tol}")
+        return mx
+
+    def context_err(got, want, what, worst):
+        """Check one bf16 context against the per-row class; return the
+        worse of ``worst`` and this case as (error / row max|want|, max abs
+        error, the limit at that element)."""
+        diff = torch.abs(got.float() - want.float())
+        row = torch.amax(torch.abs(want.float()), dim=-1, keepdim=True).expand_as(diff)
+        rel = diff / row
+        rmax, rmed = torch.max(rel).item(), torch.median(rel).item()
+        at = torch.argmax(diff)
+        mx, limit = diff.flatten()[at].item(), blk_tol * row.flatten()[at].item()
+        log(f"  {what}: max abs {mx:.3e} (limit there {limit:.3e}); error / the row's max|want|: max "
+            f"{rmax:.3e} (limit {blk_tol}), median {rmed:.3e} (limit {blk_med_tol}); row max|want| "
+            f"{torch.min(row).item():.3e} to {torch.max(row).item():.3e}")
+        check(math.isfinite(rmax) and rmax <= blk_tol and rmed <= blk_med_tol,
+              f"{what}: beyond the per-row bf16 class")
+        return max(worst, (rmax, mx, limit))
+
+    worst = (0.0, 0.0, 1.0)
+    for b_, h_, t_, d_ in ((LONG_BATCH, heads, long_frames, 64), (4, 16, 1499, 80)):
+        q9, k9, v9 = qkv((b_, h_, t_, d_), torch.bfloat16)
+        for mode in sdpa_pallas.SOFTMAX_MODES:
+            worst = context_err(sdpa_pallas.sdpa(q9, k9, v9, d_**-0.5, softmax=mode),
+                                sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, mode),
+                                f"A9 {b_}x{h_}x{t_}x{d_} bf16 softmax={mode}", worst)
+        q9, k9, v9 = (a.float() for a in (q9, k9, v9))
+        f32_err(sdpa_pallas.sdpa(q9, k9, v9, d_**-0.5, softmax="exact"),
+                sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, "exact"),
+                f"A9 {b_}x{h_}x{t_}x{d_} float32 softmax=exact")
+    record("A9", sdpa_pallas.KERNEL_A9, "sdpa.cu", "sdpa_pallas.py:36", *worst[1:],
+           " (the bf16 case nearest its limit)")
+    a9_inputs = qkv((LONG_BATCH, heads, long_frames, 64), torch.bfloat16)
+    del q9, k9, v9
+
+    # A15 at one 820 s pair's shape (2 x 12 x 40 999 x 64, bf16), every
+    # query, in the per-row class: the plain version walks key blocks of 128
+    # as the kernel does, so it never holds the (T, T) logits (161 GB in
+    # float32)
+    flash_frames = FLASH_SECONDS * RATE // 320 - 1
+    a15_inputs = qkv((2, heads, flash_frames, 64), torch.bfloat16)
+    worst = context_err(sdpa_pallas.flash_sdpa(*a15_inputs, 0.125), sdpa_pallas._flash_sdpa_plain(*a15_inputs, 0.125),
+                        f"A15 2x{heads}x{flash_frames}x64", (0.0, 0.0, 1.0))
+    record("A15", sdpa_pallas.KERNEL_A15, "sdpa.cu", "models/hubert.py:157", *worst[1:],
+           " (the upstream flash_attention kernel that _flash_sdpa calls)")
+
+    # A10 on the normalised signals, as SDR(corr_impl="fused") feeds it: the
+    # raw variant at 64 x 16 s, the padded one at 64 x (16 s + 100); atol
+    # 2e-4 * max|r_auto|, as A4
+    def normalised(x):
+        return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-6)
+
+    a10_inputs = {"A10r": (normalised(c), normalised(d)),
+                  "A10": (normalised(unaligned["A2"][2]), normalised(torch.from_numpy(unaligned["A2"][1]).to(dev)))}
+    for kid, (cn, dn) in a10_inputs.items():
+        ra_k, rc_k = sdr_corr_fused.correlation_lags_fused(cn, dn, LAGS)
+        ra_p, rc_p = sdr_corr_fused._correlation_lags_fused_plain(cn, dn, LAGS)
+        scale = torch.max(torch.abs(ra_p)).item()
+        err = max(torch.max(torch.abs(ra_k - ra_p)).item(), torch.max(torch.abs(rc_k - rc_p)).item())
+        kname, line = ((sdr_corr_fused.KERNEL_A10_RAW, "sdr_corr_fused.py:131") if kid == "A10r"
+                       else (sdr_corr_fused.KERNEL_A10, "sdr_corr_fused.py:64"))
+        record(kid, kname, "sdr_corr_fused.cu", line, err, 2e-4 * scale, f" ({cn.shape[1]} samples)")
 
     # -- 4. main path -----------------------------------------------------------
     metrics = {
@@ -363,6 +471,81 @@ def main() -> int:
         f"max diff {dev_cpu:.3e} (atol 2e-4; the CPU took {cpu_s:.1f} s); vs the card's float32 "
         f"einsum path (precision='highest'): {dev_fp32:.3e} (atol 2e-3)")
     del sbs_cpu, exact
+
+    def f1_of(rows, n):
+        f1_ = np.array([r["SpeechBERTScore"] for r in rows])
+        check(len(f1_) == n and bool(np.all(np.isfinite(f1_))) and bool(np.all(np.abs(f1_) <= 1.0 + 1e-6)),
+              "SpeechBERTScore: bad scores")
+        return f1_
+
+    def only(kernels, what):
+        """The last driven path launched exactly ``kernels`` (name -> count) of the attention kernels."""
+        counts = dict(cuda_lib.launch_counts)
+        for kname, n in kernels.items():
+            check(counts.get(kname, 0) == n, f"{what}: {counts.get(kname, 0)} launches of {kname}, expected {n}")
+
+    attn_kernels = (attn_block_pallas.KERNEL_A7, attn_block_pallas.KERNEL_A8,
+                    sdpa_pallas.KERNEL_A9, sdpa_pallas.KERNEL_A15)
+
+    # 16 x 60 s: 32 doubled rows of 2999 frames, auto-chunked into 2 x 16
+    # rows -> A9 once per layer and chunk, no A7 / A8
+    c60_np, d60_np, _ = load_audio_data(LONG_SECONDS, LONG_BATCH, RATE)
+    t0 = time.perf_counter()
+    f1_60 = f1_of(drive(lambda: sbs(c60_np, d60_np), f"SpeechBERTScore {LONG_BATCH} x {LONG_SECONDS} s", ("A9",)),
+                  LONG_BATCH)
+    first_s = time.perf_counter() - t0
+    only(dict(zip(attn_kernels, (0, 0, 2 * sbs.output_layer, 0))), "SpeechBERTScore 16 x 60 s")
+    t0 = time.perf_counter()
+    cpu60 = pkg.SpeechBERTScore(params=sbs_params, device="cpu", attention_impl="sdpa")
+    cpu_f1 = f1_of(cpu60(c60_np[:1], d60_np[:1]), 1)
+    cpu_s = time.perf_counter() - t0
+    dev_cpu = float(np.max(np.abs(f1_60[:1] - cpu_f1)))
+    check(dev_cpu <= 2e-4, f"SpeechBERTScore 60 s: card vs CPU plain path {dev_cpu:.3e} (atol 2e-4)")
+    exact60 = pkg.SpeechBERTScore(params=sbs_params, precision="highest")
+    dev_fp32 = float(np.max(np.abs(f1_60[:1] - f1_of(exact60(c60_np[:1], d60_np[:1]), 1))))
+    check(dev_fp32 <= 2e-3, f"SpeechBERTScore 60 s: bf16 A9 path vs the card's float32 A9 path {dev_fp32:.3e} "
+                            "(atol 2e-3)")
+    log(f"SpeechBERTScore {LONG_BATCH} x {LONG_SECONDS} s: batch mean {f1_60.mean()} (first call {first_s:.1f} s); "
+        f"card vs CPU plain path on 1 pair: {dev_cpu:.3e} (atol 2e-4; the CPU took {cpu_s:.1f} s); vs the "
+        f"card's float32 path (precision='highest', A9's float32 arm): {dev_fp32:.3e} (atol 2e-3)")
+    del cpu60, exact60
+
+    # one pair of 820 s clips, 40 999 frames: "auto" takes A15 once per
+    # layer; the same pair on A9's exact softmax for agreement
+    c820_np, d820_np, _ = load_audio_data(FLASH_SECONDS, 1, RATE)
+    torch.cuda.empty_cache()
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    f1_820 =f1_of(drive(lambda: sbs(c820_np, d820_np), f"SpeechBERTScore 1 x {FLASH_SECONDS} s", ("A15",)), 1)
+    flash_s = time.perf_counter() - t0
+    peak_820 = torch.cuda.max_memory_allocated() / 2**30
+    only(dict(zip(attn_kernels, (0, 0, 0, sbs.output_layer))), "SpeechBERTScore 820 s")
+    exact820 = pkg.SpeechBERTScore(params=sbs_params, attention_impl="sdpa", softmax="exact")
+    t0 = time.perf_counter()
+    f1_820_sdpa = f1_of(exact820(c820_np, d820_np), 1)
+    sdpa_s = time.perf_counter() - t0
+    dev_820 = float(np.max(np.abs(f1_820 - f1_820_sdpa)))
+    check(dev_820 <= 2e-4, f"SpeechBERTScore 820 s: flash path vs exact sdpa path {dev_820:.3e} (atol 2e-4)")
+    log(f"SpeechBERTScore 1 x {FLASH_SECONDS} s: F1 {f1_820[0]} in {flash_s:.2f} s (peak device memory "
+        f"{peak_820:.2f} GiB); the exact sdpa path (A9) {f1_820_sdpa[0]} in {sdpa_s:.2f} s: diff {dev_820:.3e} "
+        "(atol 2e-4)")
+    del exact820
+
+    # SDR(corr_impl="fused"): A10's raw variant on the 16 s batch, its padded
+    # one on 16 s + 100; against the CPU plain path and SDR() at 1e-2 dB
+    sdr_fused = pkg.SDR(corr_impl="fused")
+    for kid, (c_np, d_np) in (("A10r", (clean_np, noisy_np)), ("A10", unaligned["A2"][:2])):
+        rows = drive(lambda: sdr_fused(c_np, d_np), f"SDR fused {c_np.shape[1]} samples", (kid,))
+        vals = np.array([r["SDR"] for r in rows])
+        check(len(rows) == BATCH and bool(np.all(np.isfinite(vals))), f"SDR fused {kid}: bad scores")
+        ref = np.array([r["SDR"] for r in metrics["SDR"](c_np, d_np)])
+        cpu = np.array([r["SDR"] for r in pkg.SDR(device="cpu", corr_impl="fused")(c_np[:CPU_ROWS], d_np[:CPU_ROWS])])
+        dev_ref, dev_cpu = float(np.max(np.abs(vals - ref))), float(np.max(np.abs(vals[:CPU_ROWS] - cpu)))
+        check(dev_ref <= 1e-2 and dev_cpu <= 1e-2,
+              f"SDR fused {kid}: vs SDR() {dev_ref:.3e} dB, vs the CPU plain path {dev_cpu:.3e} dB (atol 1e-2)")
+        log(f"SDR fused {c_np.shape[1]} samples ({kid}): batch mean {vals.mean()}; vs SDR() on the card "
+            f"{dev_ref:.3e} dB, vs the CPU plain path on {CPU_ROWS} rows {dev_cpu:.3e} dB (atol 1e-2)")
 
     # -- 5. times ---------------------------------------------------------------
     nc = t_len // HOP
@@ -462,13 +645,59 @@ def main() -> int:
         lambda: attn_block_pallas._ffn_block_plain(x_blk, ffn_packed, cfg.layer_norm_eps, "tanh"),
         a8_library, a8_ops, a8_ops, io_bytes + 2 * d_model * ffn * 2 + (ffn + 3 * d_model) * 4,
     )
-    tensor_core = {"A7", "A8"}
+    # A9 at the 16 x 60 s path's shape in its mode there (exp2), A15 at the
+    # 820 s pair's: the least work is q k^T and p v (4 T^2 D per row and
+    # head) on the bf16 tensor cores; the yardstick is
+    # scaled_dot_product_attention on the same q, k, v
+    for kid, (q_, k_, v_), kern in (
+        ("A9", a9_inputs, lambda q_, k_, v_: sdpa_pallas.sdpa(q_, k_, v_, 0.125, softmax="exp2")),
+        ("A15", a15_inputs, lambda q_, k_, v_: sdpa_pallas.flash_sdpa(q_, k_, v_, 0.125)),
+    ):
+        b_, h_, t_, d_ = q_.shape
+        plain = (sdpa_pallas._flash_sdpa_plain if kid == "A15"
+                 else lambda q_, k_, v_, s_: sdpa_pallas._sdpa_plain(q_, k_, v_, s_, "exp2"))
+        ops = 4 * b_ * h_ * t_ * t_ * d_
+        timing[kid] = (
+            lambda kern=kern, a=(q_, k_, v_): kern(*a),
+            lambda plain=plain, a=(q_, k_, v_): plain(*a, 0.125),
+            lambda a=(q_, k_, v_): fn.scaled_dot_product_attention(*a, scale=0.125),
+            ops, ops, 4 * b_ * h_ * t_ * d_ * 2,
+        )
+
+    # A10 at both variants' shapes on the normalised signals, FFT-level
+    # operations as A4; "direct" is the kernel's chunk DFT: 257 chunk rows
+    # (128 windows' clean chunks, one before, 128 denoised) per group, each
+    # an (h) x (h, 2h) product; the yardstick is A4's grouped conv1d
+    for kid, (cn, dn) in a10_inputs.items():
+        n = cn.shape[1]
+        kb = -(-n // LAGS)
+        groups = -(-kb // sdr_corr_fused.KERNEL_CHUNK_BLOCK)
+        pairs_n = torch.nn.functional.pad(torch.cat([cn, dn], dim=0)[None], (0, LAGS - 1))
+        lagged_n = torch.cat([cn, cn], dim=0)[:, None]
+
+        def conv_library(pairs_n=pairs_n, lagged_n=lagged_n):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return torch.nn.functional.conv1d(pairs_n, lagged_n, groups=2 * BATCH)
+
+        timing[kid] = (
+            lambda cn=cn, dn=dn: sdr_corr_fused.correlation_lags_fused(cn, dn, LAGS),
+            lambda cn=cn, dn=dn: sdr_corr_fused._correlation_lags_fused_plain(cn, dn, LAGS),
+            conv_library,
+            BATCH * ((2 * kb + 1) * rfft_flops(2 * LAGS) + kb * (LAGS + 1) * (4 + 2 * 8)
+                     + 2 * rfft_flops(2 * LAGS)),
+            BATCH * groups * (2 * sdr_corr_fused.KERNEL_CHUNK_BLOCK + 1) * 2 * LAGS * 2 * LAGS,
+            2 * BATCH * n * 4 + 2 * BATCH * LAGS * 4,
+        )
+
+    tensor_core = {"A7", "A8", "A9", "A15"}
+    slow = {"A15": 3}  # one A15 launch takes ~0.1 s or more: fewer repetitions
     for kid, (kern, plain, library, ops, direct_ops, nbytes) in timing.items():
         r = results[kid]
         peak = PEAK_BF16_TC_FLOPS if kid in tensor_core else PEAK_FP32_FLOPS
-        r["ms"] = cuda_ms(kern)
-        r["plain_ms"] = cuda_ms(plain, warmup=1, reps=10)
-        r["library_ms"] = None if library is None else cuda_ms(library, warmup=1, reps=10)
+        reps = slow.get(kid, 10)
+        r["ms"] = cuda_ms(kern, warmup=min(3, reps), reps=reps)
+        r["plain_ms"] = cuda_ms(plain, warmup=1, reps=reps)
+        r["library_ms"] = None if library is None else cuda_ms(library, warmup=1, reps=reps)
         r["bound_ms"], r["bound_by"] = bound(ops, nbytes, peak)
         r["direct_bound_ms"], _ = bound(direct_ops, nbytes, peak)
         log(f"{kid} {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
@@ -480,12 +709,21 @@ def main() -> int:
         ms = host_ms(lambda m=m: m(c, d))
         log(json.dumps({"metric": name, "batch": BATCH, "seconds": SECONDS, "ms": ms,
                         "audio_seconds_per_s": audio_s / (ms / 1e3)}))
-    peak_all = torch.cuda.max_memory_allocated()
+    peak_all = max(peak_before, torch.cuda.max_memory_allocated())
     torch.cuda.reset_peak_memory_stats()
     ms = host_ms(lambda: sbs(c, d), warmup=1, reps=3)
     log(json.dumps({"metric": "SpeechBERTScore", "batch": BATCH, "seconds": SECONDS, "ms": ms,
                     "audio_seconds_per_s": audio_s / (ms / 1e3),
                     "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    c60, d60 = torch.from_numpy(c60_np).to(dev), torch.from_numpy(d60_np).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: sbs(c60, d60), warmup=1, reps=3)
+    log(json.dumps({"metric": "SpeechBERTScore", "batch": LONG_BATCH, "seconds": LONG_SECONDS, "ms": ms,
+                    "audio_seconds_per_s": LONG_BATCH * LONG_SECONDS / (ms / 1e3),
+                    "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    ms = host_ms(lambda: sdr_fused(c, d))
+    log(json.dumps({"metric": "SDR", "corr_impl": "fused", "batch": BATCH, "seconds": SECONDS, "ms": ms,
+                    "audio_seconds_per_s": audio_s / (ms / 1e3)}))
     log(f"peak device memory: {peak_all / 2**30:.2f} GiB up to the end-to-end times")
 
     # -- 6. result ---------------------------------------------------------------

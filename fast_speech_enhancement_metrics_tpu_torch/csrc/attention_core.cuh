@@ -1,0 +1,431 @@
+// Non-causal attention over one (row, head) per grid (y, z), 64 queries per
+// block: the core shared by A7 (attn_block.cu, heads of a (rows T, 3 d) qkv
+// buffer) and A9 / A15 (sdpa.cu and sdpa_f32.cu, (B H, T, D) tensors).
+//
+// A block of 4 warps owns 64 queries; each warp owns 16. Key tiles stream
+// through shared memory (K/V of one head at 40 000 frames is 10 MB, far
+// beyond one SM, so nothing is resident as in the TPU kernel's VMEM). Per
+// key tile: S = Q K^T in fp32 into the warp's scratch, the softmax
+// element by element, then P V.
+//
+// Template parameters:
+// * T: bf16 (nvcuda::wmma 16x16x16, fp32 accumulation, P rounded to bf16 for
+//   the P V product) or float (SIMT FMAs in fp32, no TF32: the arm that
+//   precision="highest" takes);
+// * HDP: the head width zero-padded to a multiple of 16, at most 128. Rows
+//   load zeros past the real width hd, so the padded columns add nothing;
+// * kMode: kExp2 (p = 2^clamp(s, -100, 60); the scale and log2 e are in q
+//   already), kExp2Bf16 (jnp.exp2 of the clamped logit in bf16:
+//   bf16(exp(bf16(bf16(s) * bf16(ln 2))))), kExact (a first pass over all
+//   key tiles for the row max, then p = exp(s - max), so p is rounded
+//   against the true max as on the TPU), kOnline (the upstream JAX flash
+//   kernel's online softmax: s *= scale, per key tile of 128 the running
+//   max m, p = exp(s - m_next), l_next = sum p + exp(m_prev - m_next) l_prev,
+//   acc = acc * (l_corr / l_next) + (p V) / l_next, so acc is normalised at
+//   every step).
+//
+// Keys at or past t_len contribute p = 0 (the JAX kernels' masked keys; the
+// exp2 modes' clamped 2^-100 per padded key arrives as l_pad). The kOnline
+// arm walks n_keys keys (t_len padded to the flash kernel's 512) so its
+// per-tile rescales match the upstream kernel's. The output is ctx / l (or
+// acc) rounded to T; queries past t_len and columns past hd are not stored.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+namespace attn {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+enum Softmax { kExp2 = 0, kExp2Bf16 = 1, kExact = 2, kOnline = 3 };
+constexpr float kLn2Bf16 = 0.69140625f;  // ln 2 rounded to bf16
+constexpr int kQTile = 64, kWarps = 4, kThreads = kWarps * 32, kMaxHead = 128;
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long row_stride, head_stride;      // elements between grid z rows / y heads of q, k, v
+  long long o_row_stride, o_head_stride;  // the same for o
+  int ld, ld_o;                           // elements between frames
+  int t_len;                              // frames: queries and keys
+  int n_keys;                             // keys walked (kOnline: t_len padded)
+  int hd;                                 // real head width
+  float scale;                            // kOnline: multiplies the fp32 logits
+  float l_pad;                            // added to l at the end (not kOnline)
+  int vec;                                // rows load 16 bytes at a time
+};
+
+template <typename T, int HDP, int kMode>
+struct Shape {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int KT = kMode == kOnline ? 128 : 64;  // keys per tile
+  static constexpr int LDT = HDP + (kF32 ? 4 : 8);        // Q / K / V tiles
+  static constexpr int LDS = (KT > HDP ? KT : HDP) + 4;   // fp32 S (and the ctx epilogue)
+  static constexpr int LDP = KT + 8;                      // bf16 P
+  static constexpr int LDO = HDP + 4;                     // fp32 accumulator
+  static constexpr bool kAccSmem = kF32 || kMode == kOnline;
+  static constexpr bool kShareKV = kF32;  // fp32: V reuses K's tile
+  static constexpr size_t kQ = (size_t)kQTile * LDT * sizeof(T);
+  static constexpr size_t kKV = (size_t)KT * LDT * sizeof(T);
+  static constexpr size_t kS = (size_t)kWarps * 16 * LDS * sizeof(float);
+  static constexpr size_t kP = kF32 ? 0 : (size_t)kWarps * 16 * LDP * sizeof(bf16);
+  static constexpr size_t kAcc = kAccSmem ? (size_t)kWarps * 16 * LDO * sizeof(float) : 0;
+  static constexpr size_t kSmem = kQ + (kShareKV ? 1 : 2) * kKV + kS + kP + kAcc;
+  static_assert(HDP % 16 == 0 && HDP <= kMaxHead, "head width");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+template <typename T>
+__device__ __forceinline__ T zero_val() { return T(0.f); }
+template <>
+__device__ __forceinline__ bf16 zero_val<bf16>() { return __float2bfloat16(0.f); }
+
+__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_val(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// rows [r0, r0 + n_rows) of one head (frame stride ld, width hd) into an
+// (n_rows, LDT) tile of HDP columns; rows >= t_len and columns >= hd are zeros
+template <typename T, int HDP, int LDT>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int n_rows, int t_len,
+                                          int ld, int hd, bool vec, int tid) {
+  if (vec) {  // hd, ld and the head offsets are multiples of 16 bytes
+    constexpr int kV = 16 / sizeof(T);
+    constexpr int kPerRow = HDP / kV;
+    for (int idx = tid; idx < n_rows * kPerRow; idx += kThreads) {
+      const int r = idx / kPerRow, c = (idx % kPerRow) * kV;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + r < t_len && c < hd) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c);
+      *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
+    }
+  } else {
+    for (int idx = tid; idx < n_rows * HDP; idx += kThreads) {
+      const int r = idx / HDP, c = idx % HDP;
+      T val = zero_val<T>();
+      if (r0 + r < t_len && c < hd) val = src[(size_t)(r0 + r) * ld + c];
+      dst[r * LDT + c] = val;
+    }
+  }
+}
+
+// the warp's 16 x KT logits of the key tile in shared memory into s (ld LDS)
+template <typename T, int HDP, int KT, int LDT, int LDS>
+__device__ __forceinline__ void warp_logits(float* s, const T* q, const T* k, int lane) {
+  if constexpr (std::is_same<T, float>::value) {
+    // lane: query row lane / 2, keys (lane % 2) KT/2 .. + KT/2
+    const int r = lane >> 1, c0 = (lane & 1) * (KT / 2);
+    const float4* qr = reinterpret_cast<const float4*>(q + r * LDT);
+    for (int c = c0; c < c0 + KT / 2; ++c) {
+      const float4* kr = reinterpret_cast<const float4*>(k + c * LDT);
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < HDP / 4; ++i) {
+        const float4 a = qr[i], b = kr[i];
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
+        acc = fmaf(a.z, b.z, acc);
+        acc = fmaf(a.w, b.w, acc);
+      }
+      s[r * LDS + c] = acc;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < KT / 16; ++j) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < HDP; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+        wmma::load_matrix_sync(a, q + kk, LDT);
+        wmma::load_matrix_sync(b, k + j * 16 * LDT + kk, LDT);  // K^T
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      wmma::store_matrix_sync(s + j * 16, acc, LDS, wmma::mem_row_major);
+    }
+  }
+}
+
+// o (16 x HDP, fp32, ld LDO) = P (16 x KT fp32, ld LDS) V for the lane's
+// row and half of the columns, combined into the accumulator:
+// acc = acc * keep + o * add
+template <int HDP, int KT, int LDT, int LDS, int LDO>
+__device__ __forceinline__ void simt_pv(float* acc, const float* p, const float* v, int lane,
+                                        float keep, float add) {
+  const int r = lane >> 1, c0 = (lane & 1) * (HDP / 2);
+  for (int c = c0; c < c0 + HDP / 2; c += 4) {
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < KT; ++j) {
+      const float pv = p[r * LDS + j];
+      const float4 vv = *reinterpret_cast<const float4*>(v + j * LDT + c);
+      o.x = fmaf(pv, vv.x, o.x);
+      o.y = fmaf(pv, vv.y, o.y);
+      o.z = fmaf(pv, vv.z, o.z);
+      o.w = fmaf(pv, vv.w, o.w);
+    }
+    float4* a = reinterpret_cast<float4*>(acc + r * LDO + c);
+    float4 cur = *a;
+    cur.x = cur.x * keep + o.x * add;
+    cur.y = cur.y * keep + o.y * add;
+    cur.z = cur.z * keep + o.z * add;
+    cur.w = cur.w * keep + o.w * add;
+    *a = cur;
+  }
+}
+
+template <typename T, int HDP, int kMode>
+__global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
+  using Sh = Shape<T, HDP, kMode>;
+  constexpr int KT = Sh::KT, LDT = Sh::LDT, LDS = Sh::LDS, LDP = Sh::LDP, LDO = Sh::LDO;
+  constexpr bool kF32 = Sh::kF32;
+  extern __shared__ float4 smem4[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  T* qs = reinterpret_cast<T*>(base);
+  T* ks = reinterpret_cast<T*>(base + Sh::kQ);
+  T* vs = Sh::kShareKV ? ks : reinterpret_cast<T*>(base + Sh::kQ + Sh::kKV);
+  unsigned char* after_kv = base + Sh::kQ + (Sh::kShareKV ? 1 : 2) * Sh::kKV;
+  float* s_all = reinterpret_cast<float*>(after_kv);
+  bf16* p_all = reinterpret_cast<bf16*>(after_kv + Sh::kS);
+  float* acc_all = reinterpret_cast<float*>(after_kv + Sh::kS + Sh::kP);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, row = blockIdx.z;
+  const long long off = row * a.row_stride + h * a.head_stride;
+  const T* qb = static_cast<const T*>(a.q) + off;
+  const T* kb = static_cast<const T*>(a.k) + off;
+  const T* vb = static_cast<const T*>(a.v) + off;
+  const int t_len = a.t_len, ld = a.ld, hd = a.hd;
+  const bool vec = a.vec != 0;
+  float* s = s_all + warp * 16 * LDS;
+  bf16* p = p_all + warp * 16 * LDP;
+  float* acc_s = acc_all + warp * 16 * LDO;
+  const T* qw = qs + warp * 16 * LDT;
+  // lane -> (query row r of the warp's 16, key columns c0 .. c0 + KT/2 and
+  // accumulator columns oc0 .. oc0 + HDP/2)
+  const int r = lane >> 1, c0 = (lane & 1) * (KT / 2), oc0 = (lane & 1) * (HDP / 2);
+  const int n_ktiles = (a.n_keys + KT - 1) / KT;
+  const float kNegInf = -__int_as_float(0x7f800000);
+
+  load_rows<T, HDP, LDT>(qs, qb, q0, kQTile, t_len, ld, hd, vec, tid);
+  if constexpr (Sh::kAccSmem) {
+    for (int c = oc0; c < oc0 + HDP / 2; ++c) acc_s[r * LDO + c] = 0.f;
+  }
+
+  float row_max = 0.f;
+  if constexpr (kMode == kExact) {  // pass 1: the row max over every valid key
+    row_max = kNegInf;
+    for (int kt = 0; kt < n_ktiles; ++kt) {
+      __syncthreads();
+      load_rows<T, HDP, LDT>(ks, kb, kt * KT, KT, t_len, ld, hd, vec, tid);
+      __syncthreads();
+      warp_logits<T, HDP, KT, LDT, LDS>(s, qw, ks, lane);
+      __syncwarp();
+      for (int c = 0; c < KT / 2; ++c) {
+        if (kt * KT + c0 + c < t_len) row_max = fmaxf(row_max, s[r * LDS + c0 + c]);
+      }
+      __syncwarp();
+    }
+    row_max = fmaxf(row_max, __shfl_xor_sync(fsem::kFullMask, row_max, 1));
+  }
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kF32 ? 1 : HDP / 16];
+  if constexpr (!Sh::kAccSmem) {
+#pragma unroll
+    for (int j = 0; j < HDP / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
+  }
+  float l = 0.f;                // row sum (the lane's half until the end; kOnline: the row's)
+  float m_run = kNegInf;        // kOnline: running max
+  for (int kt = 0; kt < n_ktiles; ++kt) {
+    __syncthreads();
+    load_rows<T, HDP, LDT>(ks, kb, kt * KT, KT, t_len, ld, hd, vec, tid);
+    if constexpr (!Sh::kShareKV) load_rows<T, HDP, LDT>(vs, vb, kt * KT, KT, t_len, ld, hd, vec, tid);
+    __syncthreads();
+    warp_logits<T, HDP, KT, LDT, LDS>(s, qw, ks, lane);
+    __syncwarp();
+
+    float m_next = 0.f, keep = 1.f, add = 1.f;
+    if constexpr (kMode == kOnline) {
+      float m_cur = kNegInf;
+      for (int c = 0; c < KT / 2; ++c) {
+        if (kt * KT + c0 + c < t_len) m_cur = fmaxf(m_cur, s[r * LDS + c0 + c] * a.scale);
+      }
+      m_cur = fmaxf(m_cur, __shfl_xor_sync(fsem::kFullMask, m_cur, 1));
+      m_next = fmaxf(m_run, m_cur);
+    }
+    float l_tile = 0.f;
+    for (int c = 0; c < KT / 2; ++c) {
+      const float sv = s[r * LDS + c0 + c];
+      float pv = 0.f;
+      if (kt * KT + c0 + c < t_len) {
+        if constexpr (kMode == kOnline) {
+          pv = expf(sv * a.scale - m_next);
+        } else if constexpr (kMode == kExact) {
+          pv = expf(sv - row_max);
+        } else {
+          const float cl = fminf(fmaxf(sv, -100.f), 60.f);
+          if constexpr (kMode == kExp2Bf16) {
+            pv = bf16_round(expf(bf16_round(bf16_round(cl) * kLn2Bf16)));
+          } else {
+            pv = exp2f(cl);
+          }
+        }
+      }
+      l_tile += pv;
+      if constexpr (kF32) {
+        s[r * LDS + c0 + c] = pv;  // P in place, fp32 (v's dtype)
+      } else {
+        p[r * LDP + c0 + c] = __float2bfloat16(pv);
+      }
+    }
+    if constexpr (kMode == kOnline) {
+      l_tile += __shfl_xor_sync(fsem::kFullMask, l_tile, 1);
+      const float l_corr = expf(m_run - m_next) * l;
+      const float l_next = l_tile + l_corr;
+      const float inv = l_next == 0.f ? 1.f : 1.f / l_next;
+      keep = l_corr * inv;
+      add = inv;
+      m_run = m_next;
+      l = l_next;
+    } else {
+      l += l_tile;
+    }
+    __syncwarp();
+
+    if constexpr (kF32) {
+      if constexpr (Sh::kShareKV) {  // V into K's tile once every warp has its logits
+        __syncthreads();
+        load_rows<T, HDP, LDT>(vs, vb, kt * KT, KT, t_len, ld, hd, vec, tid);
+        __syncthreads();
+      }
+      simt_pv<HDP, KT, LDT, LDS, LDO>(acc_s, s, reinterpret_cast<const float*>(vs), lane, keep, add);
+    } else {
+      // o = bf16(P) V by wmma: across tiles in fragments, or (kOnline) per
+      // tile through the warp's S scratch into the accumulator
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kMode == kOnline ? HDP / 16 : 1];
+      if constexpr (kMode == kOnline) {
+#pragma unroll
+        for (int j = 0; j < HDP / 16; ++j) wmma::fill_fragment(o[j], 0.f);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KT; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, p + kk, LDP);
+#pragma unroll
+        for (int j = 0; j < HDP / 16; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, reinterpret_cast<const bf16*>(vs) + kk * LDT + j * 16, LDT);
+          if constexpr (kMode == kOnline) {
+            wmma::mma_sync(o[j], fa, fb, o[j]);
+          } else {
+            wmma::mma_sync(acc[j], fa, fb, acc[j]);
+          }
+        }
+      }
+      if constexpr (kMode == kOnline) {
+#pragma unroll
+        for (int j = 0; j < HDP / 16; ++j) wmma::store_matrix_sync(s + j * 16, o[j], LDS, wmma::mem_row_major);
+        __syncwarp();
+        for (int c = oc0; c < oc0 + HDP / 2; ++c) {
+          acc_s[r * LDO + c] = acc_s[r * LDO + c] * keep + s[r * LDS + c] * add;
+        }
+      }
+    }
+    __syncwarp();
+  }
+
+  // the output: acc (kOnline, normalised already) or ctx / l, rounded to T
+  float denom = 1.f;
+  const float* src = acc_s;
+  int ld_src = LDO;
+  if constexpr (kMode != kOnline) {
+    l += __shfl_xor_sync(fsem::kFullMask, l, 1);
+    denom = l + a.l_pad;
+  }
+  if constexpr (!Sh::kAccSmem) {
+#pragma unroll
+    for (int j = 0; j < HDP / 16; ++j) wmma::store_matrix_sync(s + j * 16, acc[j], LDS, wmma::mem_row_major);
+    __syncwarp();
+    src = s;
+    ld_src = LDS;
+  }
+  const int q = q0 + warp * 16 + r;
+  if (q < t_len) {
+    T* out = static_cast<T*>(a.o) + row * a.o_row_stride + h * a.o_head_stride + (size_t)q * a.ld_o;
+    for (int c = oc0; c < oc0 + HDP / 2 && c < hd; ++c) {
+      const float val = src[r * ld_src + c];
+      store_val(out + c, kMode == kOnline ? val : val / denom);
+    }
+  }
+}
+
+template <typename T, int HDP, int kMode>
+cudaError_t launch(const Args& a, int heads, int rows, cudaStream_t stream) {
+  constexpr size_t smem = Shape<T, HDP, kMode>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, HDP, kMode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.t_len + kQTile - 1) / kQTile, heads, rows);
+  attention_kernel<T, HDP, kMode><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the instantiation for hd padded to a multiple of 16; wider than 128 is refused
+template <typename T, int kMode>
+cudaError_t launch_any_width(const Args& a, int heads, int rows, cudaStream_t stream) {
+  switch ((a.hd + 15) / 16) {
+    case 1: return launch<T, 16, kMode>(a, heads, rows, stream);
+    case 2: return launch<T, 32, kMode>(a, heads, rows, stream);
+    case 3: return launch<T, 48, kMode>(a, heads, rows, stream);
+    case 4: return launch<T, 64, kMode>(a, heads, rows, stream);
+    case 5: return launch<T, 80, kMode>(a, heads, rows, stream);
+    case 6: return launch<T, 96, kMode>(a, heads, rows, stream);
+    case 7: return launch<T, 112, kMode>(a, heads, rows, stream);
+    case 8: return launch<T, 128, kMode>(a, heads, rows, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// A9 / A15 layout: q, k, v, o contiguous (batch, heads, t_len, head_dim)
+inline Args bhtd_args(const void* q, const void* k, const void* v, void* o, int heads, int t_len,
+                      int n_keys, int head_dim, float scale, float l_pad, int elem_bytes) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.head_stride = a.o_head_stride = (long long)t_len * head_dim;
+  a.row_stride = a.o_row_stride = a.head_stride * heads;
+  a.ld = a.ld_o = head_dim;
+  a.t_len = t_len;
+  a.n_keys = n_keys;
+  a.hd = head_dim;
+  a.scale = scale;
+  a.l_pad = l_pad;
+  a.vec = (head_dim * elem_bytes) % 16 == 0;
+  return a;
+}
+
+// the instantiation for a runtime softmax mode
+template <typename T>
+cudaError_t launch_mode(const Args& a, int mode, int heads, int rows, cudaStream_t stream) {
+  switch (mode) {
+    case kExp2: return launch_any_width<T, kExp2>(a, heads, rows, stream);
+    case kExp2Bf16: return launch_any_width<T, kExp2Bf16>(a, heads, rows, stream);
+    case kExact: return launch_any_width<T, kExact>(a, heads, rows, stream);
+    case kOnline: return launch_any_width<T, kOnline>(a, heads, rows, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace attn
+}  // namespace

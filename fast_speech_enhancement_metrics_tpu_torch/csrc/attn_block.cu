@@ -27,17 +27,11 @@
 //   padded in device memory. The epilogue adds the bias and either rounds
 //   to bf16 (QKV), applies the tanh GELU in fp32 and rounds to bf16 (FFN
 //   W_1), or keeps fp32 (W_o, W_2).
-// * attention_kernel: one block of 4 warps per (row, head, tile of 64
-//   queries); each warp owns 16 queries. Key tiles of 64 stream through
-//   shared memory; S = Q K^T in fp32 by wmma, then per element
-//   p = exp2(clamp(s, -100, 60)) (exp2; exp2_bf16 is jnp.exp2 of the
-//   bf16-rounded clamped logit, i.e. bf16(exp(bf16(s * bf16(ln 2))))), keys >= T masked to 0, l += p in fp32, bf16(p) staged
-//   and ctx += bf16(p) V by wmma, accumulated across key tiles. The exp2
-//   softmax is max-free, so one pass needs no rescaling. "exact" runs a
-//   first pass over all key tiles for the row max and then
-//   p = exp(s - max), so p and its bf16 rounding are the TPU kernel's (an
-//   online softmax would round p against a running max). The context is
-//   ctx / l rounded to bf16.
+// * attention: attention_core.cuh (shared with A9 / A15), bf16 arm, one
+//   block of 4 warps per (row, head, tile of 64 queries), key tiles of 64
+//   through shared memory, any head width up to 128 (zero-padded to a
+//   multiple of 16), softmax exp2 / exp2_bf16 / exact; ctx / l rounded to
+//   bf16.
 // * residual_ln_kernel: one warp per row of d: r = y + bf16(x), mean and
 //   centered variance in fp32, r' = (r - mean) rsqrt(var + eps) s + b.
 // The (rows x T, 3d) qkv, the context and the (rows x T, ffn) hidden pass
@@ -45,6 +39,7 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 
+#include "attention_core.cuh"
 #include "common.cuh"
 
 namespace {
@@ -198,165 +193,10 @@ cudaError_t gemm(const TA* A, const bf16* B, const float* bias, TC* C, int M, in
   return cudaGetLastError();
 }
 
-// -- attention ------------------------------------------------------------------
-
-constexpr int kHeadDim = 64;
-constexpr int kQTile = 64, kKTile = 64;
-constexpr int kAttnWarps = kQTile / 16;
-constexpr int kAttnThreads = kAttnWarps * 32;
-constexpr int kLdT = kHeadDim + 8;  // bf16 tiles
-constexpr int kLdS = kKTile + 4;    // fp32 logits
-constexpr int kLdP = kKTile + 8;    // bf16 probabilities
-constexpr size_t kAttnSmem = 3 * kQTile * kLdT * sizeof(bf16)       // Q, K, V
-                             + kAttnWarps * 16 * kLdS * sizeof(float)  // S per warp
-                             + kAttnWarps * 16 * kLdP * sizeof(bf16);  // P per warp
-
-enum Softmax { kExp2 = 0, kExp2Bf16 = 1, kExact = 2 };
-constexpr float kLn2Bf16 = 0.69140625f;  // ln 2 rounded to bf16
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ float bf16_round(bf16 v) { return __bfloat162float(v); }
-
-
-// rows [r0, r0 + 64) of one head's column slice (qkv row stride ld) into a
-// (64, kLdT) tile; rows >= t_len are zeros
-__device__ __forceinline__ void load_head_tile(bf16* dst, const bf16* src, int r0, int t_len,
-                                               int ld, int tid) {
-  // 64 rows x 8 uint4
-  for (int idx = tid; idx < kQTile * 8; idx += kAttnThreads) {
-    const int r = idx >> 3, c = (idx & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t_len) v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdT + c) = v;
-  }
-}
-
-// the warp's 16 x 64 logits of key tile k0 into its S scratch
-__device__ __forceinline__ void warp_logits(float* s, const bf16* q, const bf16* k) {
-#pragma unroll
-  for (int j = 0; j < kKTile / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, q + kk, kLdT);
-      wmma::load_matrix_sync(b, k + j * 16 * kLdT + kk, kLdT);  // K^T
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(s + j * 16, acc, kLdS, wmma::mem_row_major);
-  }
-}
-
-// qkv: (rows * t_len, 3 d) bf16, columns [q heads | k heads | v heads];
-// ctx: (rows * t_len, d) bf16. grid (query tiles, heads, rows).
-template <int kMode>
-__global__ void __launch_bounds__(kAttnThreads) attention_kernel(
-    const bf16* __restrict__ qkv, bf16* __restrict__ ctx, int t_len, int d) {
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* ks = qs + kQTile * kLdT;
-  bf16* vs = ks + kKTile * kLdT;
-  float* s_all = reinterpret_cast<float*>(vs + kKTile * kLdT);
-  bf16* p_all = reinterpret_cast<bf16*>(s_all + kAttnWarps * 16 * kLdS);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, row = blockIdx.z;
-  const int ld = 3 * d;
-  const bf16* base = qkv + (size_t)row * t_len * ld;
-  float* s = s_all + warp * 16 * kLdS;
-  bf16* p = p_all + warp * 16 * kLdP;
-  const bf16* qw = qs + warp * 16 * kLdT;
-  // lane -> (query row r of the warp's 16, key columns c0 .. c0 + 31)
-  const int r = lane >> 1, c0 = (lane & 1) * 32;
-  const int n_ktiles = (t_len + kKTile - 1) / kKTile;
-
-  load_head_tile(qs, base + h * kHeadDim, q0, t_len, ld, tid);
-
-  float row_max = 0.f;
-  if (kMode == kExact) {  // pass 1: the row max over every valid key
-    row_max = -__int_as_float(0x7f800000);  // -inf
-    for (int kt = 0; kt < n_ktiles; ++kt) {
-      __syncthreads();
-      load_head_tile(ks, base + d + h * kHeadDim, kt * kKTile, t_len, ld, tid);
-      __syncthreads();
-      warp_logits(s, qw, ks);
-      __syncwarp();
-      for (int c = 0; c < 32; ++c) {
-        if (kt * kKTile + c0 + c < t_len) row_max = fmaxf(row_max, s[r * kLdS + c0 + c]);
-      }
-      __syncwarp();
-    }
-    row_max = fmaxf(row_max, __shfl_xor_sync(fsem::kFullMask, row_max, 1));
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kHeadDim / 16];
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-  float l = 0.f;
-  for (int kt = 0; kt < n_ktiles; ++kt) {
-    __syncthreads();
-    load_head_tile(ks, base + d + h * kHeadDim, kt * kKTile, t_len, ld, tid);
-    load_head_tile(vs, base + 2 * d + h * kHeadDim, kt * kKTile, t_len, ld, tid);
-    __syncthreads();
-    warp_logits(s, qw, ks);
-    __syncwarp();
-    for (int c = 0; c < 32; ++c) {
-      const float sv = s[r * kLdS + c0 + c];
-      float pv = 0.f;
-      if (kt * kKTile + c0 + c < t_len) {
-        if (kMode == kExact) {
-          pv = expf(sv - row_max);
-        } else {
-          const float cl = fminf(fmaxf(sv, -100.f), 60.f);
-          if (kMode == kExp2Bf16) {  // jnp.exp2 on bf16: exp(bf16(s * bf16(ln 2)))
-            const float arg = bf16_round(bf16_round(cl) * kLn2Bf16);
-            pv = bf16_round(expf(arg));
-          } else {
-            pv = exp2f(cl);
-          }
-        }
-      }
-      l += pv;
-      p[r * kLdP + c0 + c] = __float2bfloat16(pv);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < kKTile; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, p + kk, kLdP);
-#pragma unroll
-      for (int j = 0; j < kHeadDim / 16; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, vs + kk * kLdT + j * 16, kLdT);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-  l += __shfl_xor_sync(fsem::kFullMask, l, 1);
-
-  // ctx / l -> bf16, through the warp's S scratch
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 16; ++j)
-    wmma::store_matrix_sync(s + j * 16, acc[j], kLdS, wmma::mem_row_major);
-  __syncwarp();
-  const int q = q0 + warp * 16 + r;
-  if (q < t_len) {
-    bf16* out = ctx + ((size_t)row * t_len + q) * d + h * kHeadDim + c0;
-    const float inv = 1.f / l;
-    for (int c = 0; c < 32; c += 2) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(s[r * kLdS + c0 + c] * inv,
-                                                     s[r * kLdS + c0 + c + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(out + c) = v;
-    }
-  }
-}
-
 // -- residual + LayerNorm -----------------------------------------------------------
+
+using attn::bf16_round;
+__device__ __forceinline__ float bf16_round(bf16 v) { return __bfloat162float(v); }
 
 constexpr int kLnWarps = 8;
 
@@ -405,24 +245,33 @@ int attn_block(const void* xv, const bf16* wqkv, const float* bqkv, const bf16* 
   const int M = rows * t_len;
   cudaError_t err = gemm<TX, kBiasBf16, bf16>(x, wqkv, bqkv, qkv, M, 3 * d, d, stream);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t_len + kQTile - 1) / kQTile, heads, rows);
-  if (mode == kExp2) {
-    err = cudaFuncSetAttribute(attention_kernel<kExp2>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAttnSmem);
-    if (err != cudaSuccess) return (int)err;
-    attention_kernel<kExp2><<<grid, kAttnThreads, kAttnSmem, stream>>>(qkv, ctx, t_len, d);
-  } else if (mode == kExp2Bf16) {
-    err = cudaFuncSetAttribute(attention_kernel<kExp2Bf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAttnSmem);
-    if (err != cudaSuccess) return (int)err;
-    attention_kernel<kExp2Bf16><<<grid, kAttnThreads, kAttnSmem, stream>>>(qkv, ctx, t_len, d);
+  const int hd = d / heads;
+  attn::Args a{};
+  a.q = qkv;
+  a.k = qkv + d;
+  a.v = qkv + 2 * d;
+  a.o = ctx;
+  a.row_stride = (long long)t_len * 3 * d;
+  a.head_stride = hd;
+  a.o_row_stride = (long long)t_len * d;
+  a.o_head_stride = hd;
+  a.ld = 3 * d;
+  a.ld_o = d;
+  a.t_len = t_len;
+  a.n_keys = t_len;
+  a.hd = hd;
+  a.scale = 1.f;
+  a.l_pad = 0.f;
+  a.vec = hd % 8 == 0;
+  if (mode == attn::kExp2) {
+    err = attn::launch_any_width<bf16, attn::kExp2>(a, heads, rows, stream);
+  } else if (mode == attn::kExp2Bf16) {
+    err = attn::launch_any_width<bf16, attn::kExp2Bf16>(a, heads, rows, stream);
+  } else if (mode == attn::kExact) {
+    err = attn::launch_any_width<bf16, attn::kExact>(a, heads, rows, stream);
   } else {
-    err = cudaFuncSetAttribute(attention_kernel<kExact>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAttnSmem);
-    if (err != cudaSuccess) return (int)err;
-    attention_kernel<kExact><<<grid, kAttnThreads, kAttnSmem, stream>>>(qkv, ctx, t_len, d);
+    err = cudaErrorInvalidValue;
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   err = gemm<bf16, kBiasF32, float>(ctx, wo, bo, y, M, d, d, stream);
   if (err != cudaSuccess) return (int)err;
@@ -447,14 +296,14 @@ int ffn_block(const void* xv, const bf16* w1, const float* b1, const bf16* w2, c
 // (d, 3 d) bf16, columns [q | k | v], q pre-scaled; bqkv: (3 d,) fp32;
 // wo: (d, d) bf16; bo, lns, lnb: (d,) fp32; scratch qkv (rows t_len, 3 d)
 // bf16, ctx (rows t_len, d) bf16, y (rows t_len, d) fp32. d % 32 == 0,
-// d / heads == 64; mode 0 exp2, 1 exp2_bf16, 2 exact.
+// d % heads == 0, d / heads <= 128; mode 0 exp2, 1 exp2_bf16, 2 exact.
 extern "C" int fsem_attn_block(const void* x, const void* wqkv, const float* bqkv,
                                const void* wo, const float* bo, const float* lns,
                                const float* lnb, void* qkv, void* ctx, float* y, void* out,
                                int rows, int t_len, int d, int heads, int mode, int x_bf16,
                                float eps, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (d / heads != kHeadDim || d % kBK) return (int)cudaErrorInvalidValue;
+  if (heads <= 0 || d % heads || d / heads > attn::kMaxHead || d % kBK) return (int)cudaErrorInvalidValue;
   auto block = x_bf16 ? attn_block<bf16> : attn_block<float>;
   return block(x, static_cast<const bf16*>(wqkv), bqkv, static_cast<const bf16*>(wo), bo, lns,
                lnb, static_cast<bf16*>(qkv), static_cast<bf16*>(ctx), y, out, rows, t_len, d,

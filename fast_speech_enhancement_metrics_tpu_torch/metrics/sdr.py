@@ -16,6 +16,7 @@ import torch
 from fast_speech_enhancement_metrics_tpu_torch.base import BaseMetric
 from fast_speech_enhancement_metrics_tpu_torch.ops.dft import correlation_lags
 from fast_speech_enhancement_metrics_tpu_torch.ops.levinson_pallas import levinson_solve_fused
+from fast_speech_enhancement_metrics_tpu_torch.ops.sdr_corr_fused import correlation_lags_fused
 from fast_speech_enhancement_metrics_tpu_torch.ops.sdr_corr_gram import correlation_lags_gram
 from fast_speech_enhancement_metrics_tpu_torch.ops.toeplitz import (
     levinson_solve,
@@ -37,8 +38,10 @@ class SDR(BaseMetric):
         """``corr_impl``: "gram_x4" (kernel A4, ``ops/sdr_corr_gram.py``:
         correlate the raw signals in float32, then normalize), "xla"
         (normalize, then overlap-save DFT matmuls), or "auto" (gram_x4 on a
-        CUDA device, xla otherwise). The JAX package's "fused" (kernel A10)
-        and its reduced-precision "gram" / "gram_x1" modes are not ported.
+        CUDA device, xla otherwise), or "fused" (kernel A10,
+        ``ops/sdr_corr_fused.py``: normalize, then chunk spectra and their
+        products reduced on chip). The JAX package's reduced-precision
+        "gram" / "gram_x1" modes are not ported.
 
         ``solver``: "levinson" (kernel A5 on a CUDA device, its plain
         version elsewhere), "levinson_xla" (the plain recursion everywhere),
@@ -46,12 +49,11 @@ class SDR(BaseMetric):
         Cholesky fails)."""
         super().__init__(sample_rate, **kw)
         self.filter_length = 512
-        if corr_impl in ("fused", "gram", "gram_x1"):
+        if corr_impl in ("gram", "gram_x1"):
             raise NotImplementedError(
-                f"corr_impl={corr_impl!r} is not ported (fused needs kernel "
-                "A10; the float32 kernel serves gram_x4)"
+                f"corr_impl={corr_impl!r} is not ported (the float32 kernel serves gram_x4)"
             )
-        assert corr_impl in ("auto", "gram_x4", "xla")
+        assert corr_impl in ("auto", "gram_x4", "fused", "xla")
         self.corr_impl = corr_impl
         assert solver in ("levinson", "levinson_xla", "cholesky")
         self.solver = solver
@@ -81,7 +83,10 @@ class SDR(BaseMetric):
         else:
             c = self._preprocess(clean)
             d = self._preprocess(denoised)
-            r0, b = correlation_lags(c, (c, d), corr_len)
+            if impl == "fused":
+                r0, b = correlation_lags_fused(c, d, corr_len)
+            else:
+                r0, b = correlation_lags(c, (c, d), corr_len)
 
         if self.solver == "levinson":
             sol = levinson_solve_fused(r0.contiguous(), b.contiguous())

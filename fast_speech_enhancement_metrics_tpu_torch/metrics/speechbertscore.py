@@ -7,10 +7,14 @@ and their harmonic mean (F1). Clean and denoised ride one doubled batch
 through the encoder (``models/hubert.py``), which runs only the layers
 that matter; the F1 of the whole batch is one batched product.
 
-On a CUDA device the default precision runs each post-LN layer on kernels
-A7 (attention block) and A8 (FFN block); ``precision="highest"`` runs the
-plain float32 tensor path. Weights load from a converted ``.npz``
-(``utils/convert_hubert.py``); there is no hub download.
+On a CUDA device "auto" follows the JAX package's rule: clips of 1500
+frames (30 s) and more, or chunks whose logits would pass 4 GB, take the
+attention kernel A9 (``sdpa``; bf16 at the default precision, float32 at
+``"highest"``), and past 40 000 frames A15 (``flash``); shorter clips at
+the default precision run each post-LN layer on kernels A7 (attention
+block) and A8 (FFN block), and ``precision="highest"`` the plain float32
+tensor path. The kernels take heads of up to 128. Weights load from a
+converted ``.npz`` (``utils/convert_hubert.py``); there is no hub download.
 """
 
 from __future__ import annotations
@@ -28,11 +32,13 @@ from fast_speech_enhancement_metrics_tpu_torch.models.hubert import (
     from_jax_params,
     hubert_hidden_state,
 )
-from fast_speech_enhancement_metrics_tpu_torch.ops.attn_block_pallas import KERNEL_HEAD_DIM
+from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import MAX_HEAD_DIM
 
 DEFAULT_CHECKPOINT = Path(__file__).parent.parent / "checkpoints" / "mhubert147.npz"
 #: attention paths of the JAX package that the port does not have yet
-NOT_PORTED_IMPLS = ("flash", "sdpa", "sdpa_exp2", "sdpa_exp2_bf16", "block", "block_int8", "layer_block")
+NOT_PORTED_IMPLS = ("block_int8", "layer_block")
+#: past this many frames "auto" takes the flash kernel instead of sdpa
+SDPA_MAX_FRAMES = 40000
 
 
 class SpeechBERTScore(BaseMetric):
@@ -61,7 +67,8 @@ class SpeechBERTScore(BaseMetric):
         ``checkpoints/mhubert147.npz`` in this package).
         ``precision="default"`` is the bf16 block-kernel class on the card,
         ``"highest"`` the float32 tensor path. ``attention_impl``: "einsum",
-        "block_ffn" (kernels A7 + A8) or "auto". ``gelu="auto"`` is tanh at
+        "sdpa" / "sdpa_exp2" / "sdpa_exp2_bf16" (kernel A9), "flash" (A15),
+        "block" (A7), "block_ffn" (A7 + A8) or "auto". ``gelu="auto"`` is tanh at
         the default precision and erf at "highest"; ``softmax="auto"`` exp2
         and exact likewise. ``act_dtype=torch.bfloat16`` runs the encoder's
         activation stream in bf16. ``batch_chunk`` encodes the doubled batch
@@ -77,7 +84,8 @@ class SpeechBERTScore(BaseMetric):
             if value not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
         if attention_impl in NOT_PORTED_IMPLS:
-            raise NotImplementedError(f"attention_impl={attention_impl!r} is not ported; use 'einsum', 'block_ffn' or 'auto'")
+            raise NotImplementedError(f"attention_impl={attention_impl!r} is not ported; use one of "
+                                      f"{ATTENTION_IMPLS} or 'auto'")
         if attention_impl != "auto" and attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl: {attention_impl!r}")
         self.output_layer = output_layer
@@ -110,11 +118,13 @@ class SpeechBERTScore(BaseMetric):
 
     def _resolve_impl(self, num_samples: int, rows: int) -> str:
         """The attention path for (rows, num_samples) inputs. On a CUDA device,
-        "auto" takes the block kernels A7 + A8 for short clips at the default
-        precision with a post-LN config and an even head count, as the JAX
-        package does. What the kernels cannot run raises: clips of 1500
-        frames (30 s) and more, or logits over 4 GB, need the long-audio
-        kernel A9, which is not ported; A7 is built for heads of 64."""
+        "auto" follows the JAX package: 1500 frames (30 s) and more, or one
+        chunk's logits over 4 GB, take the long-audio kernel A9 ("sdpa") up
+        to 40 000 frames and A15 ("flash") past that, at any precision;
+        shorter clips at the default precision with a post-LN config and an
+        even head count take the block kernels A7 + A8. The kernels take
+        heads of up to 128: a wider head raises on the card, naming the
+        limit."""
         impl = self.attention_impl
         on_cuda = self._on_cuda()
         if impl == "auto":
@@ -124,22 +134,20 @@ class SpeechBERTScore(BaseMetric):
             heads = self.config.num_attention_heads
             logits_gb = rows * heads * frames * frames * 4 / 1e9
             if frames >= 1500 or logits_gb > 4.0:
-                raise NotImplementedError(
-                    f"SpeechBERTScore on the card at {frames} frames x {rows} rows needs kernel A9 "
-                    "(ops/sdpa_pallas.py::_sdpa_kernel), which is not ported yet; "
-                    "attention_impl='einsum' scores these clips"
-                )
-            use_block = (
+                impl = "sdpa" if frames <= SDPA_MAX_FRAMES else "flash"
+            elif (
                 self.precision in (None, "default")
                 and not self.config.do_stable_layer_norm
                 and heads % 2 == 0
-            )
-            impl = "block_ffn" if use_block else "einsum"
+            ):
+                impl = "block_ffn"
+            else:
+                impl = "einsum"
         head_dim = self.config.hidden_size // self.config.num_attention_heads
-        if impl == "block_ffn" and on_cuda and head_dim != KERNEL_HEAD_DIM:
+        if impl != "einsum" and on_cuda and head_dim > MAX_HEAD_DIM:
             raise NotImplementedError(
-                f"the attention-block kernel A7 is built for heads of {KERNEL_HEAD_DIM}, this config's "
-                f"are {head_dim}; attention_impl='einsum' scores it"
+                f"the attention kernels take heads of at most {MAX_HEAD_DIM}, this config's are "
+                f"{head_dim}; attention_impl='einsum' scores it"
             )
         return impl
 
@@ -157,6 +165,7 @@ class SpeechBERTScore(BaseMetric):
             return hubert_hidden_state(
                 self.encoder, audio, output_layer=self.output_layer, attention_impl=impl,
                 act_dtype=self.act_dtype, gelu=self.gelu, softmax=self.softmax,
+                precision=self.precision,
             )
 
     def _compute(self, clean, denoised):

@@ -14,23 +14,27 @@ which holds the conv weights transposed once to PyTorch's (out, in/groups,
 K). Every float32 conv runs with cuDNN's TF32 off and every float32 matmul
 without TF32, on the card as on the CPU.
 
-``attention_impl``: ``"einsum"`` (plain tensor ops, either softmax) or
-``"block_ffn"`` (post-LN only: each layer's attention block is kernel A7
-and, with the tanh GELU or on the CPU, its FFN block is kernel A8; on the
-card the erf GELU takes the plain FFN after A7, as the JAX package does on
-the TPU, whose FFN kernel has no erf).
+``attention_impl``: ``"einsum"`` (plain tensor ops, either softmax);
+``"sdpa"``, ``"sdpa_exp2"``, ``"sdpa_exp2_bf16"`` (the attention itself on
+kernel A9) and ``"flash"`` (on kernel A15), whose q, k, v go to the kernel
+in bf16 at the default precision; ``"block"`` (post-LN only: each layer's
+attention block is kernel A7, its FFN plain tensor ops) and
+``"block_ffn"`` (A7 and, with the tanh GELU or on the CPU, the FFN block on
+kernel A8; on the card the erf GELU takes the plain FFN after A7, as the
+JAX package does on the TPU, whose FFN kernel has no erf).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas
+from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, sdpa_pallas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +60,11 @@ class HubertConfig:
 #: mHuBERT-147 is HuBERT-base with a batch-norm positional conv
 MHUBERT_147_CONFIG = HubertConfig()
 
-ATTENTION_IMPLS = ("einsum", "block_ffn")
+#: attention paths whose attention is one kernel (A9, A15) over (B, H, T, D)
+KERNEL_ATTENTION_IMPLS = ("sdpa", "sdpa_exp2", "sdpa_exp2_bf16", "flash")
+#: post-LN paths whose attention block is kernel A7
+BLOCK_IMPLS = ("block", "block_ffn")
+ATTENTION_IMPLS = ("einsum",) + KERNEL_ATTENTION_IMPLS + BLOCK_IMPLS
 
 
 def _conv_flags():
@@ -155,9 +163,14 @@ def feature_encoder(enc: HubertEncoder, audio: torch.Tensor, gelu: str = "erf") 
     return x.transpose(1, 2)
 
 
-def _attention(p, x: torch.Tensor, num_heads: int, softmax: str = "exact") -> torch.Tensor:
-    """Multi-head self-attention as plain tensor ops (the ``"einsum"`` path),
-    with the fused (d, 3d) QKV projection."""
+def _attention(
+    p, x: torch.Tensor, num_heads: int, softmax: str = "exact", impl: str = "einsum",
+    bf16_kernel: bool = False,
+) -> torch.Tensor:
+    """Multi-head self-attention with the fused (d, 3d) QKV projection: plain
+    tensor ops (``impl="einsum"``) or one attention kernel (``"sdpa*"``: A9,
+    ``"flash"``: A15). ``bf16_kernel`` (the default precision) casts q, k, v
+    to bf16 for the kernel and its context back, as the JAX package does."""
     b, t, d = x.shape
     hd = d // num_heads
     scaling = hd**-0.5
@@ -170,16 +183,31 @@ def _attention(p, x: torch.Tensor, num_heads: int, softmax: str = "exact") -> to
     qkv_b = torch.cat([p["q_b"], p["k_b"], p["v_b"]]).to(dt)
     qkv = torch.matmul(x, qkv_w) + qkv_b
     q, k, v = split(qkv[..., :d]), split(qkv[..., d:2 * d]), split(qkv[..., 2 * d:])
-    if softmax == "exp2":
-        # max-free softmax: log2(e) folded into the logit scale, unshifted
-        # 2^s normalised, overflow-guarded by the clamp
-        logits = torch.matmul(q * (scaling * 1.4426950408889634), k.transpose(-1, -2))
-        pw = torch.exp2(torch.clamp(logits.float(), -100.0, 120.0))
-        weights = (pw / torch.sum(pw, dim=-1, keepdim=True)).to(logits.dtype)
-    else:  # "exact"; the einsum path has no bf16 exponential, as in the JAX package
-        logits = torch.matmul(q * scaling, k.transpose(-1, -2))
-        weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
-    ctx = torch.matmul(weights, v).transpose(1, 2).reshape(b, t, d)
+    if impl in KERNEL_ATTENTION_IMPLS:
+        if impl == "flash":  # the flash kernel's softmax is always the exact one
+            kernel = sdpa_pallas.flash_sdpa
+        else:
+            # "sdpa" inherits "exact" / "exp2"; the other two force a mode
+            mode = {"sdpa": softmax if softmax in ("exact", "exp2") else "exact",
+                    "sdpa_exp2": "exp2", "sdpa_exp2_bf16": "exp2_bf16"}[impl]
+            kernel = functools.partial(sdpa_pallas.sdpa, softmax=mode)
+        if bf16_kernel:
+            q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+        ctx = kernel(q, k, v, scaling).to(dt)
+    elif impl == "einsum":
+        if softmax == "exp2":
+            # max-free softmax: log2(e) folded into the logit scale, unshifted
+            # 2^s normalised, overflow-guarded by the clamp
+            logits = torch.matmul(q * (scaling * 1.4426950408889634), k.transpose(-1, -2))
+            pw = torch.exp2(torch.clamp(logits.float(), -100.0, 120.0))
+            weights = (pw / torch.sum(pw, dim=-1, keepdim=True)).to(logits.dtype)
+        else:  # "exact"; the einsum path has no bf16 exponential, as in the JAX package
+            logits = torch.matmul(q * scaling, k.transpose(-1, -2))
+            weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
+        ctx = torch.matmul(weights, v)
+    else:
+        raise ValueError(f"unknown attention impl: {impl!r}")
+    ctx = ctx.transpose(1, 2).reshape(b, t, d)
     return torch.matmul(ctx, p["o_w"].to(dt)) + p["o_b"].to(dt)
 
 
@@ -191,26 +219,28 @@ def _ffn(p, x: torch.Tensor, gelu: str) -> torch.Tensor:
 
 def _encoder_layer(
     enc: HubertEncoder, i: int, x: torch.Tensor, attention_impl: str = "einsum",
-    gelu: str = "erf", softmax: str = "exact",
+    gelu: str = "erf", softmax: str = "exact", bf16_kernel: bool = False,
 ) -> torch.Tensor:
     config = enc.config
     p = enc.layers[i]
     eps = config.layer_norm_eps
     heads = config.num_attention_heads
+    if attention_impl not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
     if config.do_stable_layer_norm:
-        if attention_impl != "einsum":
-            raise ValueError(f"pre-LN layers run on the einsum path only, got {attention_impl!r}")
-        x = x + _attention(p, _layer_norm(x, p["ln1_s"], p["ln1_b"], eps), heads, softmax)
+        if attention_impl in BLOCK_IMPLS:
+            raise ValueError(f"pre-LN layers have no block path, got {attention_impl!r}")
+        h = _layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
+        x = x + _attention(p, h, heads, softmax, attention_impl, bf16_kernel)
         return x + _ffn(p, _layer_norm(x, p["ln2_s"], p["ln2_b"], eps), gelu)
-    if attention_impl == "block_ffn":
+    if attention_impl in BLOCK_IMPLS:
         attn_ops, ffn_ops = enc.packed_blocks(i, softmax)
         x = attn_block_pallas.attn_block(x, attn_ops, heads, eps, softmax=softmax)
-        if gelu == "tanh" or x.device.type == "cpu":
+        if attention_impl == "block_ffn" and (gelu == "tanh" or x.device.type == "cpu"):
             return attn_block_pallas.ffn_block(x, ffn_ops, eps, gelu=gelu)
-    elif attention_impl == "einsum":
-        x = _layer_norm(x + _attention(p, x, heads, softmax), p["ln1_s"], p["ln1_b"], eps)
     else:
-        raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
+        x = _layer_norm(x + _attention(p, x, heads, softmax, attention_impl, bf16_kernel),
+                        p["ln1_s"], p["ln1_b"], eps)
     return _layer_norm(x + _ffn(p, x, gelu), p["ln2_s"], p["ln2_b"], eps)
 
 
@@ -222,9 +252,15 @@ def hubert_hidden_state(
     act_dtype: torch.dtype | None = None,
     gelu: str = "erf",
     softmax: str = "exact",
+    precision: str | None = "highest",
 ) -> torch.Tensor:
     """(B, T) audio -> (B, frames, hidden) == HF ``hidden_states[output_layer]``:
     the output of the first ``output_layer`` encoder layers (only those run).
+
+    ``precision``: at ``None`` or ``"default"`` the attention kernels of the
+    ``"sdpa*"`` and ``"flash"`` paths take q, k, v in bf16, as the JAX
+    package feeds its kernels; at ``"highest"`` in the activation dtype.
+    The plain tensor ops run in the activation dtype at either.
 
     ``act_dtype=torch.bfloat16`` runs the activation stream in bf16 (norm
     statistics and the softmax stay fp32); the result is then fp32.
@@ -259,7 +295,8 @@ def hubert_hidden_state(
         # post-LN stack: the encoder LayerNorm applies before the layers
         x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
     for i in range(min(output_layer, len(enc.layers))):
-        x = _encoder_layer(enc, i, x, attention_impl, gelu=gelu, softmax=softmax)
+        x = _encoder_layer(enc, i, x, attention_impl, gelu=gelu, softmax=softmax,
+                           bf16_kernel=precision in (None, "default"))
     if config.do_stable_layer_norm and output_layer == config.num_hidden_layers:
         # pre-LN stack: the encoder LayerNorm applies after the final layer
         x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)

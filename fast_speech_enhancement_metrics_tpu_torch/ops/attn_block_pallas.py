@@ -17,8 +17,10 @@ logit rounded to bf16, which is bf16(exp(bf16(s * bf16(ln 2))))) or
 ``"exact"`` (exp(s - rowmax)). The plain versions emulate "bf16 operands,
 fp32 accumulation" as float32 products of bf16-rounded values.
 
-The CUDA kernels are ``csrc/attn_block.cu``. CPU tensors take the plain
-versions; CUDA tensors launch the kernels or raise.
+The CUDA kernels are ``csrc/attn_block.cu``; A7's attention is
+``csrc/attention_core.cuh``, shared with A9, for any head width up to 128.
+CPU tensors take the plain versions; CUDA tensors launch the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -26,26 +28,21 @@ from __future__ import annotations
 import torch
 
 from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
+from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import (
+    LOG2E,
+    MAX_HEAD_DIM,
+    SOFTMAX_MODES,
+    round_bf16,
+    softmax_p,
+)
 
 KERNEL_A7 = "attn_block"
 KERNEL_A8 = "ffn_block"
-LOG2E = 1.4426950408889634
-#: ln 2 rounded to bf16: ``jnp.exp2`` of a bf16 array is exp(bf16(x * ln 2))
-#: with ln 2 and the product in bf16, and the exp2_bf16 mode inherits that
-LN2_BF16 = 0.69140625
-SOFTMAX_MODES = ("exp2", "exp2_bf16", "exact")
-#: the CUDA attention kernel's head width
-KERNEL_HEAD_DIM = 64
-
-
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    """Round to bf16 and back to fp32."""
-    return t.to(torch.bfloat16).float()
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16-valued operands, fp32 accumulation (exact products, fp32 sums)."""
-    return torch.matmul(_bf16(a), _bf16(b))
+    return torch.matmul(round_bf16(a), round_bf16(b))
 
 
 def pack_attn_block_params(p: dict, num_heads: int, softmax: str) -> tuple:
@@ -104,18 +101,12 @@ def _attn_block_plain(x: torch.Tensor, packed: tuple, num_heads: int, eps: float
     wqkv, bqkv, wo, bo, lns, lnb = packed
     b, t, d = x.shape
     hd = d // num_heads
-    xb = _bf16(x)
-    qkv = _bf16(_dot(xb, wqkv.float()) + bqkv)  # (b, t, 3d)
+    xb = round_bf16(x)
+    qkv = round_bf16(_dot(xb, wqkv.float()) + bqkv)  # (b, t, 3d)
     q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, t, num_heads, hd).transpose(1, 2) for i in range(3))
-    s = torch.matmul(q, k.transpose(-1, -2))  # (b, h, t, t) fp32
-    if softmax == "exact":
-        p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    elif softmax == "exp2":
-        p = torch.exp2(torch.clamp(s, -100.0, 60.0))
-    else:
-        p = _bf16(torch.exp(_bf16(_bf16(torch.clamp(s, -100.0, 60.0)) * LN2_BF16)))
+    p = softmax_p(torch.matmul(q, k.transpose(-1, -2)), softmax)  # of the (b, h, t, t) fp32 logits
     l = torch.sum(p, dim=-1, keepdim=True)
-    ctx = _bf16(torch.matmul(_bf16(p), v) / l)  # (b, h, t, hd)
+    ctx = round_bf16(torch.matmul(round_bf16(p), v) / l)  # (b, h, t, hd)
     ctx = ctx.transpose(1, 2).reshape(b, t, d)
     return _residual_ln(_dot(ctx, wo.float()) + bo, xb, lns, lnb, eps).to(x.dtype)
 
@@ -127,8 +118,8 @@ def _gelu(h: torch.Tensor, gelu: str) -> torch.Tensor:
 def _ffn_block_plain(x: torch.Tensor, packed: tuple, eps: float, gelu: str) -> torch.Tensor:
     """Plain PyTorch version of kernel A8 (either GELU)."""
     w1, b1, w2, b2, lns, lnb = packed
-    xb = _bf16(x)
-    h = _bf16(_gelu(_dot(xb, w1.float()) + b1, gelu))
+    xb = round_bf16(x)
+    h = round_bf16(_gelu(_dot(xb, w1.float()) + b1, gelu))
     return _residual_ln(_dot(h, w2.float()) + b2, xb, lns, lnb, eps).to(x.dtype)
 
 
@@ -147,8 +138,8 @@ def _check_block_input(x: torch.Tensor, packed: tuple) -> None:
 def _attn_block_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:
     _check_block_input(x, packed)
     rows, t, d = x.shape
-    if d % num_heads or d // num_heads != KERNEL_HEAD_DIM or d % 32:
-        raise ValueError(f"the attention kernel needs heads of {KERNEL_HEAD_DIM} and d % 32 == 0, "
+    if d % num_heads or d // num_heads > MAX_HEAD_DIM or d % 32:
+        raise ValueError(f"the attention kernel needs heads of at most {MAX_HEAD_DIM} and d % 32 == 0, "
                          f"got d={d}, heads={num_heads}")
     if rows == 0 or t == 0:
         raise ValueError(f"need at least one row and one frame, got {tuple(x.shape)}")

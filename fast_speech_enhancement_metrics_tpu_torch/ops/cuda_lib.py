@@ -28,10 +28,10 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "attention_core.cuh")
 SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
-    "attn_block.cu",
+    "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,6 +57,13 @@ _SIGNATURES = {
     # (x, w1, b1, w2, b2, ln scale, ln shift, hidden, y, out, rows, width, ffn,
     #  x and out are bf16, eps, stream)
     "fsem_ffn_block": (_P,) * 10 + (_I,) * 4 + (_F, _P),
+    # (q, k, v, out, batch, heads, frames, keys walked, head width, softmax
+    #  mode, logit scale, row-sum pad, stream); bf16 and float32
+    "fsem_sdpa": (_P,) * 4 + (_I,) * 6 + (_F, _F, _P),
+    "fsem_sdpa_f32": (_P,) * 4 + (_I,) * 6 + (_F, _F, _P),
+    # (clean, denoised, packed DFT table, partials, batch, samples, lags,
+    #  chunk groups, stream)
+    "fsem_corr_fused": (_P,) * 4 + (_I, _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()

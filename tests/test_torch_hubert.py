@@ -9,8 +9,13 @@ same places; a bf16 rounding that flips between the two (their fp32 sums
 differ in order) moves one residual by one bf16 step, up to 1.6e-2 at
 |x| ~ 4, and such flips add up over layers: one layer is held at atol
 1e-2, three at the JAX block tests' bf16 class (max 3e-2) with a median
-of at most 1e-4.
+of at most 1e-4. The long-audio paths ("sdpa*": kernel A9, "flash": A15,
+plain versions here; the JAX sdpa kernel in interpret mode) agree at atol
+1e-4 in float32 (precision "highest") and at the bf16 class at the default
+precision, where q, k, v go to the kernel in bf16.
 """
+
+import functools
 
 import jax
 import numpy as np
@@ -18,6 +23,7 @@ import pytest
 import torch
 
 from fast_speech_enhancement_metrics_tpu.models import hubert as jax_hubert
+from fast_speech_enhancement_metrics_tpu.ops import sdpa_pallas as jax_sdpa
 from fast_speech_enhancement_metrics_tpu.utils.convert_hubert import save_params as jax_save_params
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert
 from fast_speech_enhancement_metrics_tpu_torch.utils import convert_hubert
@@ -73,6 +79,36 @@ def test_hidden_state_block_path_matches_jax(gelu):
         assert diff.max() <= max_tol and np.median(diff) <= 1e-4 and np.mean(diff > 1e-2) <= 1e-4, stats
 
 
+@pytest.fixture
+def jax_sdpa_interpret(monkeypatch):
+    monkeypatch.setattr(jax_sdpa, "sdpa", functools.partial(jax_sdpa.sdpa, interpret=True))
+
+
+@pytest.mark.parametrize("impl", ["sdpa", "sdpa_exp2", "flash"])
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_hidden_state_long_audio_paths_match_jax(jax_sdpa_interpret, impl, precision):
+    """"flash" against the JAX exact "sdpa" (the JAX flash kernel runs only on a TPU)."""
+    jcfg, params, enc = _setup()
+    jax_impl = "sdpa" if impl == "flash" else impl
+    theirs = np.asarray(jax_hubert.hubert_hidden_state(params, AUDIO, jcfg, output_layer=2, precision=precision,
+                                                       attention_impl=jax_impl, softmax="exact"))
+    ours = _ours(enc, output_layer=2, precision=precision, attention_impl=impl, softmax="exact")
+    diff = np.abs(ours - theirs)
+    if precision == "highest":
+        assert diff.max() <= 1e-4, diff.max()
+    else:
+        assert diff.max() <= 3e-2 and np.median(diff) <= 1e-4, (diff.max(), np.median(diff))
+
+
+def test_hidden_state_block_matches_jax():
+    """"block": A7, then the plain FFN (erf GELU), as in the JAX package."""
+    jcfg, params, enc = _setup()
+    theirs = np.asarray(jax_hubert.hubert_hidden_state(params, AUDIO, jcfg, output_layer=1, precision="highest",
+                                                       attention_impl="block", softmax="exp2"))
+    diff = np.abs(_ours(enc, output_layer=1, attention_impl="block", softmax="exp2") - theirs)
+    assert diff.max() <= 1e-2 and np.median(diff) <= 1e-4, (diff.max(), np.median(diff))
+
+
 def test_hidden_state_batch_norm_pos_conv():
     jcfg, params, enc = _setup(bn=True)
     theirs = jax_hubert.hubert_hidden_state(params, AUDIO, jcfg, output_layer=2, precision="highest")
@@ -87,6 +123,15 @@ def test_hidden_state_pre_ln_layer_norm_features():
     np.testing.assert_allclose(_ours(enc, output_layer=3), np.asarray(theirs), atol=1e-4, rtol=0)
     with pytest.raises(ValueError, match="pre-LN"):
         _ours(enc, output_layer=1, attention_impl="block_ffn")
+
+
+def test_hidden_state_pre_ln_flash(jax_sdpa_interpret):
+    """HuBERT-xlarge's structure takes the long-audio kernels too."""
+    jcfg, params, enc = _setup(feat_extract_norm="layer", conv_bias=True, do_stable_layer_norm=True)
+    theirs = jax_hubert.hubert_hidden_state(params, AUDIO, jcfg, output_layer=3, precision="highest",
+                                            attention_impl="sdpa", softmax="exact")
+    ours = _ours(enc, output_layer=3, precision="highest", attention_impl="flash")
+    np.testing.assert_allclose(ours, np.asarray(theirs), atol=1e-4, rtol=0)
 
 
 def test_bf16_activations_return_float32():

@@ -22,6 +22,8 @@ from fast_speech_enhancement_metrics_tpu_torch.ops import (
     cuda_lib,
     levinson_pallas,
     lsd_fused,
+    sdpa_pallas,
+    sdr_corr_fused,
     sdr_corr_gram,
     stoi_fused,
     toeplitz,
@@ -117,6 +119,15 @@ def _bf16_class(got, want):
     assert diff.max().item() <= 3e-2 and diff.median().item() <= 1e-3, (diff.max().item(), diff.median().item())
 
 
+def _context_class(got, want):
+    """The bf16 class per query row of an attention context, each error over
+    its row's max|want|: a context is a weighted mean of v, far below the
+    ~1 of a LayerNorm output in most rows."""
+    row = want.float().abs().amax(-1, keepdim=True)
+    rel = (got.float() - want.float()).abs() / row
+    assert rel.max().item() <= 3e-2 and rel.median().item() <= 1e-3, (rel.max().item(), rel.median().item())
+
+
 @pytest.mark.parametrize("softmax", ["exp2", "exact", "exp2_bf16"])
 @pytest.mark.parametrize("t", [43, 130])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -130,6 +141,70 @@ def test_attn_block_kernel_matches_plain(dev, softmax, t, dtype):
     assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_A7] == before + 1
     assert got.dtype == dtype
     _bf16_class(got.cpu(), attn_block_pallas.attn_block(x, packed, heads, 1e-5, softmax=softmax))
+
+
+@pytest.mark.parametrize("d,heads", [(64, 2), (160, 2), (96, 1), (96, 8)])
+def test_attn_block_kernel_any_head_width(dev, d, heads):
+    """Heads of 32, 80, 96 and 12 (not a multiple of 8: the scalar loads)."""
+    p = _block_params(d, 128, seed=d)
+    x = torch.tensor(np.random.RandomState(4).randn(2, 70, d), dtype=torch.float32)
+    for softmax in ("exp2", "exact"):
+        packed = attn_block_pallas.pack_attn_block_params(p, heads, softmax)
+        before = cuda_lib.launch_counts[attn_block_pallas.KERNEL_A7]
+        got = attn_block_pallas.attn_block(x.to(dev), tuple(a.to(dev) for a in packed), heads, 1e-5,
+                                           softmax=softmax)
+        assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_A7] == before + 1
+        _bf16_class(got.cpu(), attn_block_pallas.attn_block(x, packed, heads, 1e-5, softmax=softmax))
+
+
+def _qkv(dev, shape, dtype, seed=0):
+    rs = np.random.RandomState(seed)
+    return [torch.tensor(0.8 * rs.randn(*shape), dtype=dtype, device=dev) for _ in range(3)]
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exp2_bf16", "exact"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 80])
+def test_sdpa_kernel_matches_plain(dev, softmax, dtype, d):
+    q, k, v = _qkv(dev, (2, 3, 259, d), dtype)
+    before = cuda_lib.launch_counts[sdpa_pallas.KERNEL_A9]
+    got = sdpa_pallas.sdpa(q, k, v, d**-0.5, softmax=softmax)
+    assert cuda_lib.launch_counts[sdpa_pallas.KERNEL_A9] == before + 1
+    assert got.dtype == dtype
+    want = sdpa_pallas._sdpa_plain(q, k, v, d**-0.5, softmax)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+    else:
+        _context_class(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 80])
+def test_flash_kernel_matches_plain_on_query_slices(dev, dtype, d):
+    t = 1300
+    q, k, v = _qkv(dev, (1, 2, t, d), dtype, seed=1)
+    before = cuda_lib.launch_counts[sdpa_pallas.KERNEL_A15]
+    got = sdpa_pallas.flash_sdpa(q, k, v, d**-0.5)
+    assert cuda_lib.launch_counts[sdpa_pallas.KERNEL_A15] == before + 1
+    for sl in (slice(0, 128), slice(t - 128, t)):
+        want = sdpa_pallas._flash_sdpa_plain(q[:, :, sl], k, v, d**-0.5)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got[:, :, sl], want, rtol=0, atol=2e-5)
+        else:
+            _context_class(got[:, :, sl], want)
+
+
+@pytest.mark.parametrize("t", [512 * 300, 512 * 300 + 100, 700])
+def test_fused_corr_kernel_matches_plain(dev, t):
+    c, d = _audio(dev, t=t)
+    kname = sdr_corr_fused.KERNEL_A10_RAW if t % 512 == 0 else sdr_corr_fused.KERNEL_A10
+    before = cuda_lib.launch_counts[kname]
+    ra, rc = sdr_corr_fused.correlation_lags_fused(c, d, 512)
+    assert cuda_lib.launch_counts[kname] == before + 1
+    pa, pc = sdr_corr_gram._correlation_lags_plain(c, d, 512)
+    scale = pa.abs().max().item()
+    torch.testing.assert_close(ra, pa, rtol=0, atol=2e-4 * scale)
+    torch.testing.assert_close(rc, pc, rtol=0, atol=2e-4 * scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -163,6 +238,26 @@ def test_speechbertscore_on_card_matches_cpu(dev):
         assert a["SpeechBERTScore"] == pytest.approx(b["SpeechBERTScore"], abs=2e-4)
 
 
+@pytest.mark.parametrize("impl", ["sdpa", "flash"])
+def test_speechbertscore_long_audio_paths_on_card(dev, impl):
+    """The sdpa and flash paths through ``__call__`` against the CPU plain
+    path, F1 atol 2e-4; one launch per layer."""
+    config = HubertConfig(hidden_size=160, num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=256, conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3),
+                          conv_stride=(5, 2, 2), num_conv_pos_embeddings=16,
+                          num_conv_pos_embedding_groups=4)
+    params = init_params(torch.Generator().manual_seed(0), config)
+    clean, noisy, _ = load_audio_data(1.0, 2, 16000)
+    kw = dict(params=params, config=config, output_layer=2, attention_impl=impl)
+    kname = sdpa_pallas.KERNEL_A9 if impl == "sdpa" else sdpa_pallas.KERNEL_A15
+    before = cuda_lib.launch_counts[kname]
+    on_card = SpeechBERTScore(device=dev, **kw)(clean, noisy)
+    assert cuda_lib.launch_counts[kname] == before + 2
+    on_cpu = SpeechBERTScore(device="cpu", **kw)(clean, noisy)
+    for a, b in zip(on_card, on_cpu):
+        assert a["SpeechBERTScore"] == pytest.approx(b["SpeechBERTScore"], abs=2e-4)
+
+
 @pytest.mark.parametrize("t", [32768, 30000])
 def test_metrics_on_card_match_cpu(dev, t):
     """The metrics through ``__call__`` on the card against the CPU plain
@@ -170,7 +265,8 @@ def test_metrics_on_card_match_cpu(dev, t):
     clean, noisy, _ = load_audio_data(t / 16000, 3, 16000)
     kname = lsd_fused.KERNEL if t % 256 == 0 else lsd_fused.KERNEL_A2
     before = cuda_lib.launch_counts[kname]
-    for cls, kw, tol in ((LSD, {}, 2e-4), (SDR, {}, 1e-2), (STOI, {"sample_rate": 16000}, 5e-4)):
+    for cls, kw, tol in ((LSD, {}, 2e-4), (SDR, {}, 1e-2), (SDR, {"corr_impl": "fused"}, 1e-2),
+                         (STOI, {"sample_rate": 16000}, 5e-4)):
         on_card = cls(device=dev, **kw)(clean, noisy)
         on_cpu = cls(device="cpu", **kw)(clean, noisy)
         for a, b in zip(on_card, on_cpu):

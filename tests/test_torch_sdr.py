@@ -1,7 +1,9 @@
-"""PyTorch port, SDR: kernels A4 and A5 (plain versions) and the metric
+"""PyTorch port, SDR: kernels A4, A5 and A10 (plain versions) and the metric
 against JAX on the CPU. Tolerances: correlations atol 2e-4 of max|r_auto|
-(as tests/test_ops.py holds the Gram kernel), Levinson solutions 2e-3 (as
-tests/test_ops.py holds the Levinson kernel), SDR atol 1e-2 dB."""
+(as tests/test_ops.py holds the Gram kernel), A10's 2e-3 of max|r| (as
+tests/test_ops.py holds the fused kernel, whose chunk DFT is bf16x3),
+Levinson solutions 2e-3 (as tests/test_ops.py holds the Levinson kernel),
+SDR atol 1e-2 dB."""
 
 import numpy as np
 import pytest
@@ -9,6 +11,7 @@ import torch
 from scipy.linalg import solve_toeplitz
 
 from fast_speech_enhancement_metrics_tpu import SDR as JaxSDR
+from fast_speech_enhancement_metrics_tpu.ops import sdr_corr_fused as jax_corr_fused
 from fast_speech_enhancement_metrics_tpu.ops.levinson_pallas import (
     levinson_solve_fused as jax_levinson_fused,
 )
@@ -17,7 +20,7 @@ from fast_speech_enhancement_metrics_tpu.ops.sdr_corr_gram import (
 )
 from fast_speech_enhancement_metrics_tpu.ops.toeplitz import levinson_solve as jax_levinson
 from fast_speech_enhancement_metrics_tpu_torch import SDR
-from fast_speech_enhancement_metrics_tpu_torch.ops import levinson_pallas, sdr_corr_gram
+from fast_speech_enhancement_metrics_tpu_torch.ops import levinson_pallas, sdr_corr_fused, sdr_corr_gram
 
 
 @pytest.mark.parametrize("t", [16384, 7000, 150])
@@ -97,8 +100,59 @@ def test_sdr_self_reference_saturates(speech_data):
 
 @pytest.mark.parametrize("impl", ["fused", "gram", "gram_x1"])
 def test_sdr_unported_corr_modes_raise(impl):
+    """gram / gram_x1 are not ported and raise; fused (A10) is ported and
+    scores a noisy pair as the default path does, at 1e-2 dB."""
+    if impl == "fused":
+        rs = np.random.RandomState(25)
+        clean = rs.randn(2, 5000).astype(np.float32)
+        noisy = (clean + 0.5 * rs.randn(2, 5000)).astype(np.float32)
+        fused = [r["SDR"] for r in SDR(device="cpu", corr_impl="fused")(clean, noisy)]
+        np.testing.assert_allclose(fused, [r["SDR"] for r in SDR(device="cpu")(clean, noisy)], atol=1e-2)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         SDR(device="cpu", corr_impl=impl)
+
+
+@pytest.mark.parametrize("t", [16384, 7000, 300])
+def test_fused_corr_plain_matches_pallas_kernel(t):
+    """T % 512 == 0 takes the JAX raw variant, the others its padded one."""
+    rs = np.random.RandomState(26)
+    c = rs.randn(3, t).astype(np.float32)
+    d = (0.6 * c + 0.4 * rs.randn(3, t)).astype(np.float32)
+    ra, rc = sdr_corr_fused.correlation_lags_fused(torch.from_numpy(c), torch.from_numpy(d), 512)
+    ja, jc = jax_corr_fused.correlation_lags_fused(c, d, 512, interpret=True)
+    scale = float(np.abs(np.asarray(ja)).max())
+    np.testing.assert_allclose(ra.numpy(), np.asarray(ja), atol=2e-3 * scale)
+    np.testing.assert_allclose(rc.numpy(), np.asarray(jc), atol=2e-3 * scale)
+
+
+def test_fused_corr_matches_direct_correlation():
+    """The plain partials against a float64 direct sum, over several groups
+    (chunk_block 4) and a ragged tail."""
+    rs = np.random.RandomState(27)
+    c = rs.randn(2, 64 * 37 + 5)
+    d = rs.randn(2, c.shape[1])
+    ra, rc = sdr_corr_fused.correlation_lags_fused(torch.tensor(c, dtype=torch.float32),
+                                                   torch.tensor(d, dtype=torch.float32), 64, chunk_block=4)
+    t = c.shape[1]
+    want_a = np.array([[np.dot(c[b, :t - l], c[b, l:]) for l in range(64)] for b in range(2)])
+    want_c = np.array([[np.dot(c[b, :t - l], d[b, l:]) for l in range(64)] for b in range(2)])
+    np.testing.assert_allclose(ra.numpy(), want_a, atol=1e-5 * np.abs(want_a).max())
+    np.testing.assert_allclose(rc.numpy(), want_c, atol=1e-5 * np.abs(want_a).max())
+
+
+def test_fused_corr_table_is_jax_table():
+    np.testing.assert_array_equal(sdr_corr_fused._packed_corr_matrix(512), jax_corr_fused._packed_corr_matrix(512))
+
+
+@pytest.mark.parametrize("seconds", [4, 4 + 100 / 16000])
+def test_sdr_fused_metric_matches_jax(seconds):
+    from fast_speech_enhancement_metrics_tpu.utils.audio import load_audio_data
+
+    clean, noisy, _ = load_audio_data(seconds, 3, 16000)
+    ours = [r["SDR"] for r in SDR(device="cpu", corr_impl="fused")(clean, noisy)]
+    theirs = [r["SDR"] for r in JaxSDR(corr_impl="fused")(clean, noisy)]
+    np.testing.assert_allclose(ours, theirs, atol=1e-2)
 
 
 def test_sdr_kernel_wrappers_reject_other_devices():
@@ -107,3 +161,5 @@ def test_sdr_kernel_wrappers_reject_other_devices():
         sdr_corr_gram.correlation_lags_gram(x, x, 512)
     with pytest.raises(ValueError, match="device"):
         levinson_pallas.levinson_solve_fused(x, x)
+    with pytest.raises(ValueError, match="device"):
+        sdr_corr_fused.correlation_lags_fused(x, x, 512)

@@ -3,8 +3,14 @@
 The small HuBERT config of tests/test_torch_hubert.py with the JAX
 package's ``init_params``; F1 atol 2e-4 on the shared 4 x 4 s fixture, on
 the float32 path ("auto" off the card) and on the block path (kernels
-A7 + A8 as plain versions; Pallas in interpret mode on the JAX side).
+A7 + A8 as plain versions; Pallas in interpret mode on the JAX side), and
+on 2 x 0.5 s clips for the long-audio paths: "sdpa" (kernel A9's plain
+version) in each softmax mode against the JAX metric's "sdpa" (its Pallas
+kernel in interpret mode), and "flash" (A15's plain version) against the
+JAX metric's exact "sdpa", since the JAX flash kernel runs only on a TPU.
 """
+
+import functools
 
 import jax
 import numpy as np
@@ -13,6 +19,8 @@ import torch
 
 from fast_speech_enhancement_metrics_tpu import SpeechBERTScore as JaxSpeechBERTScore
 from fast_speech_enhancement_metrics_tpu.models import hubert as jax_hubert
+from fast_speech_enhancement_metrics_tpu.ops import sdpa_pallas as jax_sdpa
+from fast_speech_enhancement_metrics_tpu.utils.audio import load_audio_data
 from fast_speech_enhancement_metrics_tpu_torch import SpeechBERTScore
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert
 
@@ -44,6 +52,25 @@ def test_metric_matches_jax(speech_data, small, impl):
     assert np.all(_f1(ours) <= 1.0)
 
 
+@pytest.fixture
+def jax_sdpa_interpret(monkeypatch):
+    """The JAX package's sdpa kernel in interpret mode (the JAX package picks
+    it only on a TPU, where it compiles)."""
+    monkeypatch.setattr(jax_sdpa, "sdpa", functools.partial(jax_sdpa.sdpa, interpret=True))
+
+
+@pytest.mark.parametrize("impl,softmax", [("sdpa", "exp2"), ("sdpa", "exact"), ("sdpa_exp2_bf16", "exp2"),
+                                          ("flash", "exp2")])
+def test_long_audio_paths_match_jax(small, jax_sdpa_interpret, impl, softmax):
+    jcfg, params, cfg = small
+    clean, noisy, _ = load_audio_data(0.5, 2, 16000)
+    kw = dict(params=params, output_layer=3, softmax=softmax)
+    ours = SpeechBERTScore(device="cpu", config=cfg, attention_impl=impl, **kw)(clean, noisy)
+    jax_impl, jax_softmax = ("sdpa", "exact") if impl == "flash" else (impl, softmax)
+    theirs = JaxSpeechBERTScore(config=jcfg, attention_impl=jax_impl, **{**kw, "softmax": jax_softmax})(clean, noisy)
+    np.testing.assert_allclose(_f1(ours), _f1(theirs), atol=2e-4, rtol=0)
+
+
 def test_identical_inputs_score_one(speech_data, small):
     _, params, cfg = small
     clean = speech_data["speech"]
@@ -62,35 +89,42 @@ def test_chunking_gives_the_same_scores(speech_data, small, chunking):
 
 
 def test_resolve_impl_on_a_card():
-    """On a CUDA device "auto" takes the block kernels at 799 frames and
-    raises, naming the unported A9, at 1500 frames; off the card it is the
-    float32 path."""
+    """On a CUDA device "auto" takes the block kernels at 799 frames, A9
+    ("sdpa") at 1500 frames or past 4 GB of logits (at any precision), and
+    A15 ("flash") past 40 000 frames; off the card it is the float32 path."""
     cfg = hubert.HubertConfig(**{**SMALL, "hidden_size": 128, "num_attention_heads": 2})
     params = hubert.init_params(torch.Generator().manual_seed(0), cfg)
     metric = SpeechBERTScore(device="cpu", params=params, config=cfg)
     assert metric._resolve_impl(16 * 16000, 64) == "einsum"
     metric._on_cuda = lambda: True
     assert metric._resolve_impl(16 * 16000, 64) == "block_ffn"
-    with pytest.raises(NotImplementedError, match="A9"):
-        metric._resolve_impl(1500 * 320, 2)
+    assert metric._resolve_impl(1500 * 320, 2) == "sdpa"
+    assert metric._resolve_impl(16 * 16000, 1024) == "sdpa"  # 1024 x 2 x 799^2 x 4 B = 5.2 GB
+    assert metric._resolve_impl(41000 * 320, 2) == "flash"
     exact = SpeechBERTScore(device="cpu", params=params, config=cfg, precision="highest")
     exact._on_cuda = lambda: True
     assert exact._resolve_impl(16 * 16000, 64) == "einsum"
+    assert exact._resolve_impl(1500 * 320, 2) == "sdpa"
     assert (exact.gelu, exact.softmax, metric.gelu, metric.softmax) == ("erf", "exact", "tanh", "exp2")
 
 
 @pytest.mark.parametrize("impl", ["auto", "block_ffn"])
 def test_resolve_impl_raises_for_heads_the_kernel_lacks(small, impl):
     """The JAX rule takes the block path for any head width; on a CUDA
-    device A7 runs heads of 64 only, so a config with heads of 16 raises
-    there (naming the limit) instead of leaving the kernel path, and takes
-    its path as usual off the card."""
+    device the kernels take heads of up to 128, so a config with heads of
+    16 takes the block path there, and one with heads of 144 raises (naming
+    the limit) instead of leaving the kernel path."""
     _, params, cfg = small
     metric = SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl=impl)
     assert metric._resolve_impl(16 * 16000, 8) == ("einsum" if impl == "auto" else "block_ffn")
     metric._on_cuda = lambda: True
-    with pytest.raises(NotImplementedError, match="heads of 64"):
-        metric._resolve_impl(16 * 16000, 8)
+    assert metric._resolve_impl(16 * 16000, 8) == "block_ffn"
+    wide_cfg = hubert.HubertConfig(**{**SMALL, "hidden_size": 288, "num_attention_heads": 2})
+    wide = SpeechBERTScore(device="cpu", params=hubert.init_params(torch.Generator().manual_seed(0), wide_cfg),
+                           config=wide_cfg, attention_impl=impl)
+    wide._on_cuda = lambda: True
+    with pytest.raises(NotImplementedError, match="at most 128"):
+        wide._resolve_impl(16 * 16000, 8)
     einsum = SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl="einsum")
     einsum._on_cuda = lambda: True
     assert einsum._resolve_impl(16 * 16000, 8) == "einsum"
@@ -98,7 +132,7 @@ def test_resolve_impl_raises_for_heads_the_kernel_lacks(small, impl):
 
 def test_unported_paths_and_missing_weights_raise(tmp_path, small):
     _, params, cfg = small
-    for impl in ("sdpa", "flash", "layer_block", "block_int8"):
+    for impl in ("layer_block", "block_int8"):
         with pytest.raises(NotImplementedError):
             SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl=impl)
     with pytest.raises(ValueError):

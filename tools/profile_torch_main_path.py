@@ -10,7 +10,9 @@ scores a batch of the package's synthetic audio (already on the card, as a
 benchmark would hold it) a few times under ``torch.profiler`` and prints
 one JSON line: the wall time per call, the device-busy time per call (the
 sum of all kernel times), the device idle share, and the ten kernels with
-the most device time. Needs a CUDA card; raises without one.
+the most device time. SpeechBERTScore is profiled a second time on its
+long-audio path at 16 x 60 s (2999 frames, the attention on kernel A9).
+Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from fast_speech_enhancement_metrics_tpu_torch.models.hubert import init_params 
 from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_data  # noqa: E402
 
 CALLS = 5  # profiled calls per metric, after 3 warm-ups
+LONG_BATCH, LONG_SECONDS = 16, 60  # SpeechBERTScore's long-audio run (A9)
 
 
 def main() -> None:
@@ -41,14 +44,20 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_main_path: needs a CUDA card")
 
-    clean, noisy, _ = load_audio_data(args.seconds, args.batch, 16000)
-    c = torch.from_numpy(clean).cuda()
-    d = torch.from_numpy(noisy).cuda()
-    metrics = {
-        "LSD": LSD(), "SDR": SDR(), "STOI": STOI(sample_rate=16000),
-        "SpeechBERTScore": SpeechBERTScore(params=init_params(torch.Generator().manual_seed(0))),
-    }
-    for name, metric in metrics.items():
+    def on_card(seconds, batch):
+        clean, noisy, _ = load_audio_data(seconds, batch, 16000)
+        return torch.from_numpy(clean).cuda(), torch.from_numpy(noisy).cuda()
+
+    c, d = on_card(args.seconds, args.batch)
+    sbs = SpeechBERTScore(params=init_params(torch.Generator().manual_seed(0)))
+    runs = [
+        ("LSD", LSD(), c, d, args.batch, args.seconds),
+        ("SDR", SDR(), c, d, args.batch, args.seconds),
+        ("STOI", STOI(sample_rate=16000), c, d, args.batch, args.seconds),
+        ("SpeechBERTScore", sbs, c, d, args.batch, args.seconds),
+        ("SpeechBERTScore", sbs, *on_card(LONG_SECONDS, LONG_BATCH), LONG_BATCH, LONG_SECONDS),
+    ]
+    for name, metric, c, d, batch, seconds in runs:
         for _ in range(3):
             metric(c, d)
         torch.cuda.synchronize()
@@ -68,7 +77,7 @@ def main() -> None:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total / 1e3 / CALLS
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
         print(json.dumps({
-            "metric": name, "batch": args.batch, "seconds": args.seconds,
+            "metric": name, "batch": batch, "seconds": seconds,
             "device": torch.cuda.get_device_name(0),
             "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
