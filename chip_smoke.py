@@ -17,21 +17,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    at 8 x 799 with heads of 32 and 80; A9 at 16 x 12 heads x 2999 frames x
    64 in its three softmax modes in bf16 and "exact" in float32, and at
    4 x 16 heads x 1499 x 80; A15 at 2 x 12 x 40 999 x 64; A10 at 64 x 16 s
-   and 64 x (16 s + 100)),
+   and 64 x (16 s + 100); A13 at 64 x 16 s, also against A1; each A14
+   Levinson variant on the 64 x 512 systems that SDR builds from the 16 s
+   batch; A11 and A12 on A7's mHuBERT-147 layer in every softmax mode, A11
+   also bit for bit against A7 then A8, A12 also in the JAX package's int8
+   screening class against A7),
 4. the main paths, each with every kernel's launch count set to 0 before
    it and read after it: ``LSD()``, ``SDR()`` and
    ``STOI(sample_rate=16000)`` through ``__call__`` on the 16 s batch;
    ``LSD()`` on the two unaligned batches; ``SpeechBERTScore`` at
    mHuBERT-147's full width with seeded random weights on the 16 s batch
-   (A7, A8), on 16 x 60 s (A9) and on one pair of 820 s clips (A15);
-   ``SDR(corr_impl="fused")`` on the 16 s and 16 s + 100 batches (A10).
+   (A7, A8; ``attention_impl="layer_block"``: A11; ``"block_int8"``: A12),
+   on 16 x 60 s (A9) and on one pair of 820 s clips (A15);
+   ``SDR(corr_impl="fused")`` on the 16 s and 16 s + 100 batches (A10);
+   ``lsd_scores(..., dft_impl="ct")`` on the 16 s batch (A13);
+   ``levinson_solve_fused(..., variant=v)`` for each A14 variant.
    The first rows are scored again on the CPU (plain path) for agreement,
    and SpeechBERTScore's also by the card's float32 path (the 820 s pair:
    by the exact A9 path); fused SDR also against ``SDR()``,
 5. times: each kernel, its plain version, a PyTorch library call (or, for
-   A7 and A8, a composite of library calls) for the same function where
-   one exists, and each metric end to end (SpeechBERTScore also on
-   16 x 60 s, SDR also fused),
+   A7, A8 and A11, a composite of library calls) for the same function where
+   one exists (none computes int8 attention: A12's ``library_ms`` is null,
+   and its ``library_partial_ms`` is ``torch._int_mm`` for the q, k and v
+   projections only), and each metric end to end (SpeechBERTScore also on
+   16 x 60 s and with ``attention_impl`` "layer_block" and "block_int8",
+   SDR also fused),
 6. the result: a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -62,6 +72,7 @@ LONG_BATCH, LONG_SECONDS, FLASH_SECONDS = 16, 60, 820
 #: published H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores
 PEAK_BF16_TC_FLOPS = 989e12  # bf16 tensor cores, dense
+PEAK_INT8_TC_OPS = 1979e12  # int8 tensor cores, dense
 PEAK_BYTES = 3.35e12  # HBM3
 PACKAGE = "fast_speech_enhancement_metrics_tpu_torch"
 JAX_PACKAGE = "fast_speech_enhancement_metrics_tpu"
@@ -194,6 +205,14 @@ def main() -> int:
     err = torch.max(torch.abs(lsd_k - lsd_p)).item()
     record("A1", lsd_fused.KERNEL, "lsd_fused.cu", "lsd_fused.py:208", err, 2e-4)
 
+    # A13: the factorized chunk DFT, against its plain version and A1, atol 2e-4
+    ct_k = lsd_fused.lsd_wholesig_ct(c, d, HOP, EPS)
+    err_a1 = torch.max(torch.abs(ct_k - lsd_k)).item()
+    check(err_a1 <= 2e-4, f"A13 differs from A1 by {err_a1:.3e} (tolerance 2e-4)")
+    err = torch.max(torch.abs(ct_k - lsd_fused._lsd_wholesig_ct_plain(c, d, HOP, EPS))).item()
+    record("A13", lsd_fused.KERNEL_A13, "lsd_fused.cu", "lsd_fused.py:537", err, 2e-4,
+           f"; against A1 {err_a1:.3e} (tolerance 2e-4)")
+
     # A4: correlations of the raw signals, atol 2e-4 * max|r_auto|
     ra_k, rc_k = sdr_corr_gram.correlation_lags_gram(c, d, LAGS)
     ra_p, rc_p = sdr_corr_gram._correlation_lags_plain(c, d, LAGS)
@@ -216,6 +235,22 @@ def main() -> int:
           f"A5 solution differs from its plain version by {rel_x:.2e} of max|x| (tolerance 2e-3)")
     record("A5", levinson_pallas.KERNEL, "levinson.cu", "levinson_pallas.py:38", err, 1e-2,
            f" dB of SDR; solution max diff {rel_x:.2e} of max|x| (tolerance 2e-3)")
+
+    # A14: the other Levinson variants on the same systems, each against its
+    # plain version at 2e-3 of max|x|, and the SDR each gives against A5's
+    # at 1e-2 dB
+    a14_ids = {"double": "A14", "flat": "A14-flat", "flat_u4": "A14-flat_u4", "flat_u8": "A14-flat_u8",
+               "dotreduce": "A14-dotreduce"}
+    a14_lines = {"double": "levinson_pallas.py:157", "dotreduce": "levinson_pallas.py:251"}
+    for variant, kid in a14_ids.items():
+        xv_k = levinson_pallas.levinson_solve_fused(r0n, bn, variant=variant)
+        xv_p = levinson_pallas._plain(variant)(r0n, bn)
+        rel_v = (torch.max(torch.abs(xv_k - xv_p)) / torch.max(torch.abs(xv_p))).item()
+        sdr_vs_a5 = torch.max(torch.abs(sdr_db(bn, xv_k) - sdr_db(bn, x_k))).item()
+        check(math.isfinite(sdr_vs_a5) and sdr_vs_a5 <= 1e-2,
+              f"{kid}: SDR {sdr_vs_a5:.2e} dB from A5's (tolerance 1e-2)")
+        record(kid, levinson_pallas.KERNELS[variant], "levinson.cu", a14_lines.get(variant, "levinson_pallas.py:110"),
+               rel_v, 2e-3, f" of max|x| (variant {variant}); its SDR {sdr_vs_a5:.2e} dB from A5's (tolerance 1e-2)")
 
     # A6: segment sums of the STOI front end's envelopes, atol 5e-4 per
     # segment after the metric's division
@@ -309,6 +344,49 @@ def main() -> int:
                     attn_block_pallas._ffn_block_plain(x_blk, ffn_packed, cfg.layer_norm_eps, "tanh"),
                     "A8 gelu=tanh")
     record("A8", attn_block_pallas.KERNEL_A8, "attn_block.cu", "attn_block_pallas.py:213", err, blk_tol)
+
+    # A11: the whole layer in one launch, every softmax mode; bit for bit
+    # the A7 and A8 kernels in turn (the same tile routines in the same
+    # order). Each stage is held at the bf16 class: the attention stage is
+    # A7's check above, the FFN stage is the output against A8's plain
+    # version on the kernel's own intermediate h. Against the plain version
+    # of the whole layer the two stages' roundings compound: a sub-ulp
+    # difference in h can flip bf16(h) at the FFN stage's entry, one bf16
+    # ulp (0.031 for |h| in [4, 8)) carried through LN2, so the chained
+    # difference is held at the class of two stages, max 2 x 3e-2, median 1e-3
+    err = 0.0
+    for mode in attn_block_pallas.SOFTMAX_MODES:
+        got = attn_block_pallas.layer_block(x_blk, packed[mode], ffn_packed, heads, cfg.layer_norm_eps, mode)
+        h_k = attn_block_pallas.attn_block(x_blk, packed[mode], heads, cfg.layer_norm_eps, mode)
+        same = torch.equal(got, attn_block_pallas.ffn_block(h_k, ffn_packed, cfg.layer_norm_eps))
+        log(f"  A11 softmax={mode}: bit-equal to A7 then A8: {same}")
+        check(same, f"A11 softmax={mode} differs from the A7 and A8 kernels")
+        stage = block_err(got, attn_block_pallas._ffn_block_plain(h_k, ffn_packed, cfg.layer_norm_eps, "tanh"),
+                          f"A11 softmax={mode}, FFN stage on the kernel's h")
+        check(stage <= blk_tol, f"A11 softmax={mode}: FFN stage max abs error {stage:.3e} over {blk_tol}")
+        err = max(err, block_err(got, attn_block_pallas._layer_block_plain(
+            x_blk, packed[mode], ffn_packed, heads, cfg.layer_norm_eps, mode, "tanh"), f"A11 softmax={mode}"))
+        del got, h_k
+    record("A11", attn_block_pallas.KERNEL_A11, "layer_block.cu", "attn_block_pallas.py:298", err, 2 * blk_tol,
+           " (the whole layer against its plain version; each stage within the bf16 class)")
+
+    # A12: the int8 block, every softmax mode, against its plain version in
+    # the bf16 class and against A7 in the JAX package's int8 screening
+    # class (median < 0.05, max < 0.5; tests/test_speechbertscore.py)
+    packed_i8 = {mode: attn_block_pallas.pack_attn_block_params(layer, heads, mode, quant="int8")
+                 for mode in attn_block_pallas.SOFTMAX_MODES}
+    err = 0.0
+    for mode in attn_block_pallas.SOFTMAX_MODES:
+        got = attn_block_pallas.attn_block(x_blk, packed_i8[mode], heads, cfg.layer_norm_eps, mode, quant="int8")
+        err = max(err, block_err(got, attn_block_pallas._attn_block_int8_plain(
+            x_blk, packed_i8[mode], heads, cfg.layer_norm_eps, mode), f"A12 softmax={mode}"))
+        vs_a7 = torch.abs(got - attn_block_pallas.attn_block(x_blk, packed[mode], heads, cfg.layer_norm_eps, mode))
+        a7_max, a7_med = torch.max(vs_a7).item(), torch.median(vs_a7).item()
+        log(f"  A12 softmax={mode} against A7: max abs {a7_max:.3e} (limit 0.5), median abs {a7_med:.3e} (limit 0.05)")
+        check(a7_max < 0.5 and a7_med < 0.05, f"A12 softmax={mode} outside the int8 screening class against A7")
+        del got, vs_a7
+    record("A12", attn_block_pallas.KERNEL_A12, "attn_block_int8.cu", "attn_block_pallas.py:40", err, blk_tol,
+           " (the int8 arm of _attn_block_kernel: _quant_rows :40, _quant_cols :47, _dot_i8 :55)")
 
     # A9 at the 16 x 60 s path's shape (16 rows x 12 heads x 2999 frames x
     # 64): the three softmax modes in bf16 and "exact" in float32 (atol
@@ -487,6 +565,56 @@ def main() -> int:
     attn_kernels = (attn_block_pallas.KERNEL_A7, attn_block_pallas.KERNEL_A8,
                     sdpa_pallas.KERNEL_A9, sdpa_pallas.KERNEL_A15)
 
+    # the whole-layer (A11) and int8 (A12) paths on the 16 s batch: one
+    # launch per layer and row chunk, no A7 / A8; F1 against the CPU plain
+    # path of the same impl (atol 2e-4); A11's also against the A7 + A8 path
+    # above (the same tile routines in the same order), A12's only logged
+    # against it (the int8 screening mode is another function)
+    for kid, impl in (("A11", "layer_block"), ("A12", "block_int8")):
+        metric = pkg.SpeechBERTScore(params=sbs_params, attention_impl=impl)
+        f1_i = f1_of(drive(lambda: metric(clean_np, noisy_np), f"SpeechBERTScore {impl}", (kid,)), BATCH)
+        only({results[kid]["name"]: 2 * sbs.output_layer, attn_block_pallas.KERNEL_A7: 0,
+              attn_block_pallas.KERNEL_A8: 0}, f"SpeechBERTScore {impl}")
+        t0 = time.perf_counter()
+        cpu_i = pkg.SpeechBERTScore(params=sbs_params, device="cpu", attention_impl=impl)
+        cpu_f1 = f1_of(cpu_i(clean_np[:SBS_CPU_ROWS], noisy_np[:SBS_CPU_ROWS]), SBS_CPU_ROWS)
+        cpu_s = time.perf_counter() - t0
+        dev_cpu = float(np.max(np.abs(f1_i[:SBS_CPU_ROWS] - cpu_f1)))
+        check(dev_cpu <= 2e-4, f"SpeechBERTScore {impl}: card vs CPU plain path {dev_cpu:.3e} (atol 2e-4)")
+        vs_block = float(np.max(np.abs(f1_i - f1)))
+        if kid == "A11":
+            check(vs_block <= 2e-4, f"SpeechBERTScore layer_block vs block_ffn on the card {vs_block:.3e} (atol 2e-4)")
+        log(f"SpeechBERTScore {impl}: batch mean {f1_i.mean()}; card vs CPU plain path on {SBS_CPU_ROWS} rows: "
+            f"max diff {dev_cpu:.3e} (atol 2e-4; the CPU took {cpu_s:.1f} s); vs the A7 + A8 path on the card: "
+            f"max diff {vs_block:.3e}")
+        del metric, cpu_i
+
+    # lsd_scores(..., dft_impl="ct") on the 16 s batch: A13 once, A1 never;
+    # against A1's scores (phase 3) and the CPU plain path, rtol/atol 2e-4
+    ct_scores = drive(lambda: lsd_fused.lsd_scores(c, d, 2 * HOP, HOP, EPS, denoised_scale="auto", dft_impl="ct"),
+                      "lsd_scores dft_impl='ct'", ("A13",))
+    only({lsd_fused.KERNEL_A13: 1, lsd_fused.KERNEL: 0}, "lsd_scores dft_impl='ct'")
+    check(ct_scores.shape == (BATCH,) and bool(torch.all(torch.isfinite(ct_scores))), "LSD ct: bad scores")
+    ct_cpu = lsd_fused.lsd_scores(c[:CPU_ROWS].cpu(), d[:CPU_ROWS].cpu(), 2 * HOP, HOP, EPS, dft_impl="ct")
+    dev_a1 = torch.max(torch.abs(ct_scores - lsd_k) - 2e-4 * torch.abs(lsd_k)).item()
+    dev_cpu = torch.max(torch.abs(ct_scores[:CPU_ROWS].cpu() - ct_cpu) - 2e-4 * torch.abs(ct_cpu)).item()
+    check(dev_a1 <= 2e-4 and dev_cpu <= 2e-4, "LSD ct: card vs A1 or the CPU plain path beyond rtol/atol 2e-4")
+    log(f"lsd_scores dft_impl='ct': batch mean {ct_scores.mean().item()}; vs A1 and the CPU plain path on "
+        f"{CPU_ROWS} rows within rtol/atol 2e-4 (excess {dev_a1:.3e}, {dev_cpu:.3e})")
+
+    # each Levinson variant through levinson_solve_fused on the 64 x 512
+    # systems: one launch of its own kernel and none of the others; the
+    # first rows against the CPU plain path at 2e-3 of max|x|
+    for variant, kid in a14_ids.items():
+        xv = drive(lambda: levinson_pallas.levinson_solve_fused(r0n, bn, variant=variant),
+                   f"levinson_solve_fused variant={variant}", (kid,))
+        only({levinson_pallas.KERNELS[v]: int(v == variant) for v in levinson_pallas.VARIANTS},
+             f"levinson_solve_fused variant={variant}")
+        xc = levinson_pallas.levinson_solve_fused(r0n[:CPU_ROWS].cpu(), bn[:CPU_ROWS].cpu(), variant=variant)
+        rel = (torch.max(torch.abs(xv[:CPU_ROWS].cpu() - xc)) / torch.max(torch.abs(xc))).item()
+        check(math.isfinite(rel) and rel <= 2e-3, f"{kid}: card vs CPU plain path {rel:.2e} of max|x| (2e-3)")
+        log(f"levinson_solve_fused variant={variant}: card vs CPU plain path on {CPU_ROWS} rows {rel:.2e} of max|x|")
+
     # 16 x 60 s: 32 doubled rows of 2999 frames, auto-chunked into 2 x 16
     # rows -> A9 once per layer and chunk, no A7 / A8
     c60_np, d60_np, _ = load_audio_data(LONG_SECONDS, LONG_BATCH, RATE)
@@ -625,8 +753,8 @@ def main() -> int:
         out = fn.linear(ctx.transpose(1, 2).reshape(BATCH, blk_frames, d_model), lin["o"], bo_e.to(torch.bfloat16))
         return fn.layer_norm((out + xb).float(), (d_model,), ln_s, ln_b, cfg.layer_norm_eps)
 
-    def a8_library():
-        xb = x_blk.to(torch.bfloat16)
+    def a8_library(x_in=x_blk):
+        xb = x_in.to(torch.bfloat16)
         h = fn.gelu(fn.linear(xb, lin["w1"], ffn_packed[1].to(torch.bfloat16)), approximate="tanh")
         out = fn.linear(h, lin["w2"], ffn_packed[3].to(torch.bfloat16))
         return fn.layer_norm((out + xb).float(), (d_model,), ffn_packed[4], ffn_packed[5], cfg.layer_norm_eps)
@@ -645,6 +773,42 @@ def main() -> int:
         lambda: attn_block_pallas._ffn_block_plain(x_blk, ffn_packed, cfg.layer_norm_eps, "tanh"),
         a8_library, a8_ops, a8_ops, io_bytes + 2 * d_model * ffn * 2 + (ffn + 3 * d_model) * 4,
     )
+    # A11: A7 then A8 in one launch; its yardstick the two composites in turn
+    timing["A11"] = (
+        lambda: attn_block_pallas.layer_block(x_blk, packed["exp2"], ffn_packed, heads, cfg.layer_norm_eps, "exp2"),
+        lambda: attn_block_pallas._layer_block_plain(x_blk, packed["exp2"], ffn_packed, heads, cfg.layer_norm_eps,
+                                                     "exp2", "tanh"),
+        lambda: a8_library(a7_library()), a7_ops + a8_ops, a7_ops + a8_ops,
+        io_bytes + (4 * d_model * d_model + 2 * d_model * ffn) * 2 + (ffn + 9 * d_model) * 4,
+    )
+    # A12: A7's products in int8 on the int8 tensor cores. No PyTorch call
+    # computes int8 attention, so library_ms is null; library_partial_ms is
+    # torch._int_mm of the quantized x with the int8 W_qkv, the q, k and v
+    # projections only (a partial figure)
+    xq_lib = attn_block_pallas._quant_rows(x_blk.reshape(rows_t, d_model).to(torch.bfloat16).float())[0]
+    xq_lib, wq_lib = xq_lib.to(torch.int8), packed_i8["exp2"][0]
+    timing["A12"] = (
+        lambda: attn_block_pallas.attn_block(x_blk, packed_i8["exp2"], heads, cfg.layer_norm_eps, "exp2", quant="int8"),
+        lambda: attn_block_pallas._attn_block_int8_plain(x_blk, packed_i8["exp2"], heads, cfg.layer_norm_eps, "exp2"),
+        None, a7_ops, a7_ops, io_bytes + 4 * d_model * d_model + 14 * d_model * 4,
+    )
+    library_partial = {"A12": lambda: torch._int_mm(xq_lib, wq_lib.t())}
+    # A13: A1's function (the same least work), its own algorithm the
+    # factorized chunk DFT: 61 440 multiply-adds per chunk and signal
+    timing["A13"] = (
+        lambda: lsd_fused.lsd_wholesig_ct(c, d, HOP, EPS),
+        lambda: lsd_fused._lsd_wholesig_ct_plain(c, d, HOP, EPS), None,
+        a1_ops, 2 * BATCH * nc * 61440 * 2 + 4 * BATCH * t_len,
+        2 * BATCH * t_len * 4 + (8 * 256 + 64 * 64) * 4 + BATCH * 4,
+    )
+    # A14: A5's function and yardstick, each variant's kernel and plain version
+    for variant, kid in a14_ids.items():
+        timing[kid] = (
+            lambda v=variant: levinson_pallas.levinson_solve_fused(r0n, bn, variant=v),
+            lambda v=variant: levinson_pallas._plain(v)(r0n, bn),
+            lambda: torch.linalg.solve(toeplitz_full, bn[..., None]),
+            a5_ops, a5_ops, 3 * BATCH * LAGS * 4,
+        )
     # A9 at the 16 x 60 s path's shape in its mode there (exp2), A15 at the
     # 820 s pair's: the least work is q k^T and p v (4 T^2 D per row and
     # head) on the bf16 tensor cores; the yardstick is
@@ -689,20 +853,24 @@ def main() -> int:
             2 * BATCH * n * 4 + 2 * BATCH * LAGS * 4,
         )
 
-    tensor_core = {"A7", "A8", "A9", "A15"}
+    peaks = {"A7": PEAK_BF16_TC_FLOPS, "A8": PEAK_BF16_TC_FLOPS, "A9": PEAK_BF16_TC_FLOPS,
+             "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS}
     slow = {"A15": 3}  # one A15 launch takes ~0.1 s or more: fewer repetitions
     for kid, (kern, plain, library, ops, direct_ops, nbytes) in timing.items():
         r = results[kid]
-        peak = PEAK_BF16_TC_FLOPS if kid in tensor_core else PEAK_FP32_FLOPS
+        peak = peaks.get(kid, PEAK_FP32_FLOPS)
         reps = slow.get(kid, 10)
         r["ms"] = cuda_ms(kern, warmup=min(3, reps), reps=reps)
         r["plain_ms"] = cuda_ms(plain, warmup=1, reps=reps)
         r["library_ms"] = None if library is None else cuda_ms(library, warmup=1, reps=reps)
+        partial = library_partial.get(kid)
+        r["library_partial_ms"] = None if partial is None else cuda_ms(partial, warmup=1, reps=reps)
         r["bound_ms"], r["bound_by"] = bound(ops, nbytes, peak)
         r["direct_bound_ms"], _ = bound(direct_ops, nbytes, peak)
         log(f"{kid} {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; {r['direct_bound_ms']:.4f} ms for the kernel's own algorithm), "
-            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}")
+            f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}"
+            + ("" if partial is None else f", library (partial) {r['library_partial_ms']:.4f} ms"))
 
     audio_s = BATCH * SECONDS
     for name, m in metrics.items():
@@ -715,7 +883,13 @@ def main() -> int:
     log(json.dumps({"metric": "SpeechBERTScore", "batch": BATCH, "seconds": SECONDS, "ms": ms,
                     "audio_seconds_per_s": audio_s / (ms / 1e3),
                     "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}))
-    c60, d60 = torch.from_numpy(c60_np).to(dev), torch.from_numpy(d60_np).to(dev)
+    for impl in ("layer_block", "block_int8"):
+        metric = pkg.SpeechBERTScore(params=sbs_params, attention_impl=impl)
+        ms = host_ms(lambda m=metric: m(c, d), warmup=1, reps=3)
+        log(json.dumps({"metric": "SpeechBERTScore", "attention_impl": impl, "batch": BATCH, "seconds": SECONDS,
+                        "ms": ms, "audio_seconds_per_s": audio_s / (ms / 1e3)}))
+        del metric
+    c60, d60 =torch.from_numpy(c60_np).to(dev), torch.from_numpy(d60_np).to(dev)
     torch.cuda.reset_peak_memory_stats()
     ms = host_ms(lambda: sbs(c60, d60), warmup=1, reps=3)
     log(json.dumps({"metric": "SpeechBERTScore", "batch": LONG_BATCH, "seconds": LONG_SECONDS, "ms": ms,
@@ -729,7 +903,7 @@ def main() -> int:
     # -- 6. result ---------------------------------------------------------------
     keys = ("name", "id", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "direct_bound_ms",
-            "library_ms")
+            "library_ms", "library_partial_ms")
     log(json.dumps({"kernels": [{k: results[kid][k] for k in keys} for kid in sorted(results)]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

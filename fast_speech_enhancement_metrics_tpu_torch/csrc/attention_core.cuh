@@ -1,6 +1,8 @@
 // Non-causal attention over one (row, head) per grid (y, z), 64 queries per
 // block: the core shared by A7 (attn_block.cu, heads of a (rows T, 3 d) qkv
-// buffer) and A9 / A15 (sdpa.cu and sdpa_f32.cu, (B H, T, D) tensors).
+// buffer), A11 (layer_block.cu, the same buffer, as a device routine of its
+// persistent kernel) and A9 / A15 (sdpa.cu and sdpa_f32.cu, (B H, T, D)
+// tensors).
 //
 // A block of 4 warps owns 64 queries; each warp owns 16. Key tiles stream
 // through shared memory (K/V of one head at 40 000 frames is 10 MB, far
@@ -183,13 +185,27 @@ __device__ __forceinline__ void simt_pv(float* acc, const float* p, const float*
   }
 }
 
-template <typename T, int HDP, int kMode>
-__global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
+// the barrier of the kThreads threads that run one attention item: the
+// whole block (attention_kernel), or one named barrier per half of a
+// 256-thread block that runs two items at once (layer_block.cu)
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct NamedSync {
+  int id;  // 1 .. 15; 0 is __syncthreads'
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kThreads) : "memory");
+  }
+};
+
+// One item: queries q_tile * 64 .. + 64 of head h of row `row`, by the
+// kThreads threads tid = 0 .. kThreads - 1 with Shape::kSmem bytes at base.
+template <typename T, int HDP, int kMode, typename Sync>
+__device__ __forceinline__ void attention_tile(const Args& a, int q_tile, int h, int row,
+                                               unsigned char* base, int tid, Sync sync) {
   using Sh = Shape<T, HDP, kMode>;
   constexpr int KT = Sh::KT, LDT = Sh::LDT, LDS = Sh::LDS, LDP = Sh::LDP, LDO = Sh::LDO;
   constexpr bool kF32 = Sh::kF32;
-  extern __shared__ float4 smem4[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
   T* qs = reinterpret_cast<T*>(base);
   T* ks = reinterpret_cast<T*>(base + Sh::kQ);
   T* vs = Sh::kShareKV ? ks : reinterpret_cast<T*>(base + Sh::kQ + Sh::kKV);
@@ -198,8 +214,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
   bf16* p_all = reinterpret_cast<bf16*>(after_kv + Sh::kS);
   float* acc_all = reinterpret_cast<float*>(after_kv + Sh::kS + Sh::kP);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, row = blockIdx.z;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int q0 = q_tile * kQTile;
   const long long off = row * a.row_stride + h * a.head_stride;
   const T* qb = static_cast<const T*>(a.q) + off;
   const T* kb = static_cast<const T*>(a.k) + off;
@@ -225,9 +241,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
   if constexpr (kMode == kExact) {  // pass 1: the row max over every valid key
     row_max = kNegInf;
     for (int kt = 0; kt < n_ktiles; ++kt) {
-      __syncthreads();
+      sync();
       load_rows<T, HDP, LDT>(ks, kb, kt * KT, KT, t_len, ld, hd, vec, tid);
-      __syncthreads();
+      sync();
       warp_logits<T, HDP, KT, LDT, LDS>(s, qw, ks, lane);
       __syncwarp();
       for (int c = 0; c < KT / 2; ++c) {
@@ -246,10 +262,10 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
   float l = 0.f;                // row sum (the lane's half until the end; kOnline: the row's)
   float m_run = kNegInf;        // kOnline: running max
   for (int kt = 0; kt < n_ktiles; ++kt) {
-    __syncthreads();
+    sync();
     load_rows<T, HDP, LDT>(ks, kb, kt * KT, KT, t_len, ld, hd, vec, tid);
     if constexpr (!Sh::kShareKV) load_rows<T, HDP, LDT>(vs, vb, kt * KT, KT, t_len, ld, hd, vec, tid);
-    __syncthreads();
+    sync();
     warp_logits<T, HDP, KT, LDT, LDS>(s, qw, ks, lane);
     __syncwarp();
 
@@ -303,9 +319,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
 
     if constexpr (kF32) {
       if constexpr (Sh::kShareKV) {  // V into K's tile once every warp has its logits
-        __syncthreads();
+        sync();
         load_rows<T, HDP, LDT>(vs, vb, kt * KT, KT, t_len, ld, hd, vec, tid);
-        __syncthreads();
+        sync();
       }
       simt_pv<HDP, KT, LDT, LDS, LDO>(acc_s, s, reinterpret_cast<const float*>(vs), lane, keep, add);
     } else {
@@ -369,6 +385,13 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
 }
 
 template <typename T, int HDP, int kMode>
+__global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
+  extern __shared__ float4 smem4[];
+  attention_tile<T, HDP, kMode>(a, blockIdx.x, blockIdx.y, blockIdx.z,
+                                reinterpret_cast<unsigned char*>(smem4), threadIdx.x, BlockSync{});
+}
+
+template <typename T, int HDP, int kMode>
 cudaError_t launch(const Args& a, int heads, int rows, cudaStream_t stream) {
   constexpr size_t smem = Shape<T, HDP, kMode>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, HDP, kMode>,
@@ -412,6 +435,30 @@ inline Args bhtd_args(const void* q, const void* k, const void* v, void* o, int 
   a.scale = scale;
   a.l_pad = l_pad;
   a.vec = (head_dim * elem_bytes) % 16 == 0;
+  return a;
+}
+
+// A7 / A11 layout: heads of a (rows t_len, 3 d) qkv buffer, columns
+// [q | k | v], into a (rows t_len, d) context
+__host__ __device__ inline Args qkv_args(const bf16* qkv, bf16* ctx, int t_len, int d, int heads) {
+  const int hd = d / heads;
+  Args a{};
+  a.q = qkv;
+  a.k = qkv + d;
+  a.v = qkv + 2 * d;
+  a.o = ctx;
+  a.row_stride = (long long)t_len * 3 * d;
+  a.head_stride = hd;
+  a.o_row_stride = (long long)t_len * d;
+  a.o_head_stride = hd;
+  a.ld = 3 * d;
+  a.ld_o = d;
+  a.t_len = t_len;
+  a.n_keys = t_len;
+  a.hd = hd;
+  a.scale = 1.f;
+  a.l_pad = 0.f;
+  a.vec = hd % 8 == 0;
   return a;
 }
 

@@ -1,10 +1,12 @@
 // Log-spectral distance of clean/denoised pairs, fused.
 //
-// Replaces three Pallas TPU kernels of the JAX package's ops/lsd_fused.py:
+// Replaces four Pallas TPU kernels of the JAX package's ops/lsd_fused.py:
 //   A1 _lsd_wholesig_raw_kernel: hop-aligned raw pairs, projection scale
 //      computed in the kernel (lsd_scores(..., denoised_scale="auto")),
 //   A2 _lsd_wholesig_kernel: pre-scaled pairs of any length, F + 1 <= 1024,
-//   A3 _lsd_framed_kernel: the same function, frame-blocked, F + 1 > 1024.
+//   A3 _lsd_framed_kernel: the same function, frame-blocked, F + 1 > 1024,
+//   A13 _lsd_wholesig_ct_kernel: A1's function with the chunk DFT factorized
+//      (lsd_scores(..., dft_impl="ct")); see lsd_ct_kernel below.
 // A2 and A3 compute one function and differ on the TPU only in how a row's
 // chunks fit VMEM; here both are the frame-tile kernel without its scale
 // stage (entry point fsem_lsd_wholesig), and A1 is it with the scale stage
@@ -259,6 +261,215 @@ __global__ void __launch_bounds__(kThreads) lsd_frames_kernel(
   }
 }
 
+// -- A13: the factorized chunk DFT ----------------------------------------------
+//
+// The same function as A1 (hop-aligned pairs, the projection scale computed
+// here from lsd_scale_kernel's partials or given per row), with the
+// 512-point DFT of each zero-padded 256-sample chunk factorized as on the
+// TPU: three radix-2 DIF folds (level 1 absorbs the zero padding), then
+// eight 64-point DFTs of the branches br = j1 + 2 j2 + 4 j3, with
+// DFT512(x)[8 m + br] = DFT64(b_br)[m], m = 0..31 for bins 0..255; branch 0
+// stays real. That is 61 440 multiply-adds per chunk against A1's 131 072.
+//
+// Design: one block of 256 threads per (row, tile of kCtTileFrames frames),
+// the kCtTileFrames + 1 chunks of both signals. (1) Folds, straight from
+// device memory: one thread per (chunk, t < 64) reads x[t + 64 i], i = 0..3,
+// and writes the fifteen branch values at t (the real branch 0, seven
+// complex branches) to shared memory; the chunk Nyquist bins (alternating
+// sums) go through shared memory too. (2) Branch DFTs: warp w is branch w,
+// lane m is bin 8 m + w; every lane reads the branch's value at t as a
+// broadcast and its own column of the 64 x 32 cos | sin table (the JAX
+// package's w0, in shared memory), and keeps one accumulator pair per
+// chunk. (3) Frame combine X_f = Z_{f-1} + (-1)^br Z_f ((-1)^k = (-1)^br for
+// k = 8 m + br), written at its natural bin k: the TPU kernel's Hann in the
+// scrambled layout, with its two carries between branch 0 and branch 7, is
+// then A1's Hann over neighbouring bins in shared memory. (4) As A1: one
+// warp per frame, the log ratio over 257 bins, the tile's sum of roots.
+// Bound on this card: bytes, as A1 (0.04 ms at 64 x 16 s); its own
+// operations are half of A1's, about 15.7 GFLOP at 64 x 16 s (0.24 ms).
+constexpr int kCtTileFrames = 8;
+constexpr int kCtChunks = kCtTileFrames + 1;  // per signal
+constexpr int kCtBranch = 128;                // floats per branch: re[64] | im[64]
+constexpr int kCtFoldFloats = 2 * kCtChunks * 8 * kCtBranch;
+constexpr int kCtSpecFloats = 2 * 2 * kCtTileFrames * kRow;
+constexpr int kCtTableFloats = 64 * 64;
+constexpr int kCtSmemFloats =
+    (kCtFoldFloats > kCtSpecFloats ? kCtFoldFloats : kCtSpecFloats) + kCtTableFloats;
+
+__global__ void __launch_bounds__(kThreads) lsd_ct_kernel(
+    const float* __restrict__ c, const float* __restrict__ d,
+    const float* __restrict__ scale_partial, const float* __restrict__ scale_given,
+    const float* __restrict__ tw, const float* __restrict__ w0, float* __restrict__ partial,
+    int nc, int n_frames, int n_tiles, float eps) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* fold = smem;                                  // [2][kCtChunks][8][kCtBranch]
+  float* table = smem + (kCtSmemFloats - kCtTableFloats);  // [64][64]: cos | sin
+  __shared__ float nyq_part[2][kCtChunks][2];
+  __shared__ float red[kWarps];
+  __shared__ float s_scale;
+
+  const int b = blockIdx.y, tile = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int f0 = tile * kCtTileFrames;
+  const int g0 = f0 - 1;  // chunk index of local chunk 0
+  const long long t_len = (long long)nc * kHop;
+  if (tid == 0) {
+    if (scale_given != nullptr) {
+      s_scale = scale_given[b];
+    } else {
+      float num = 0.f, den = 0.f;
+      for (int i = 0; i < kScaleSplits; ++i) {
+        num += scale_partial[((size_t)b * kScaleSplits + i) * 2];
+        den += scale_partial[((size_t)b * kScaleSplits + i) * 2 + 1];
+      }
+      s_scale = num / (den + eps);
+    }
+  }
+  for (int i = tid; i < kCtTableFloats; i += kThreads) table[i] = w0[i];
+  __syncthreads();
+  const float sc = s_scale;
+
+  // (1) folds: item = (signal, chunk, t); branch values at t to shared memory
+  for (int item = tid; item < 2 * kCtChunks * 64; item += kThreads) {
+    const int t = item & 63, sr = item >> 6;  // sr = signal * kCtChunks + chunk
+    const int s = sr / kCtChunks, r = sr % kCtChunks;
+    const int g = g0 + r;
+    float xv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = 0.f;
+      if (g >= 0 && g < nc) {
+        const size_t off = (size_t)b * t_len + (size_t)g * kHop + t + 64 * i;
+        v = s == 0 ? c[off] : d[off] * sc;
+      }
+      xv[i] = v;
+    }
+    // L1: b1 = x w1 (b0 = x); L2 pairs (t, t+128) and (t+64, t+192)
+    float b1re[4], b1im[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      b1re[i] = xv[i] * __ldg(tw + t + 64 * i);
+      b1im[i] = xv[i] * __ldg(tw + 256 + t + 64 * i);
+    }
+    float e00[2], o01re[2], o01im[2], e10re[2], e10im[2], o11re[2], o11im[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // L2 position t + 64 h
+      const float w2re = __ldg(tw + 2 * 256 + t + 64 * h), w2im = __ldg(tw + 3 * 256 + t + 64 * h);
+      e00[h] = xv[h] + xv[h + 2];
+      const float d0 = xv[h] - xv[h + 2];
+      o01re[h] = d0 * w2re;
+      o01im[h] = d0 * w2im;
+      e10re[h] = b1re[h] + b1re[h + 2];
+      e10im[h] = b1im[h] + b1im[h + 2];
+      const float dre = b1re[h] - b1re[h + 2], dim = b1im[h] - b1im[h + 2];
+      o11re[h] = dre * w2re - dim * w2im;
+      o11im[h] = dre * w2im + dim * w2re;
+    }
+    // L3 pairs (t, t+64) of each 128-long half-result, twiddle w3[t]
+    const float w3re = __ldg(tw + 4 * 256 + t), w3im = __ldg(tw + 5 * 256 + t);
+    float* dst = fold + (size_t)sr * 8 * kCtBranch;
+    dst[0 * kCtBranch + t] = e00[0] + e00[1];  // br 0, real
+    const float d00 = e00[0] - e00[1];
+    dst[4 * kCtBranch + t] = d00 * w3re;  // br 4
+    dst[4 * kCtBranch + 64 + t] = d00 * w3im;
+    auto l3c = [&](const float* vre, const float* vim, int lo_br) {  // complex: br lo_br, lo_br + 4
+      dst[lo_br * kCtBranch + t] = vre[0] + vre[1];
+      dst[lo_br * kCtBranch + 64 + t] = vim[0] + vim[1];
+      const float dre = vre[0] - vre[1], dim = vim[0] - vim[1];
+      dst[(lo_br + 4) * kCtBranch + t] = dre * w3re - dim * w3im;
+      dst[(lo_br + 4) * kCtBranch + 64 + t] = dre * w3im + dim * w3re;
+    };
+    l3c(e10re, e10im, 1);
+    l3c(o01re, o01im, 2);
+    l3c(o11re, o11im, 3);
+    // chunk Nyquist bin: sum over n of (-1)^n x[n], (-1)^(t + 64 i) = (-1)^t
+    float alt = (xv[0] + xv[1]) + (xv[2] + xv[3]);
+    alt = (t & 1) ? -alt : alt;
+    alt = fsem::warp_sum(alt);  // 32 consecutive t of one (signal, chunk)
+    if (lane == 0) nyq_part[s][r][t >> 5] = alt;
+  }
+  __syncthreads();
+
+  // (2) branch DFTs: warp = branch br, lane = m; bin k = 8 m + br
+  const int br = warp, m = lane;
+  float acc_re[2][kCtChunks], acc_im[2][kCtChunks];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int r = 0; r < kCtChunks; ++r) {
+      acc_re[s][r] = 0.f;
+      acc_im[s][r] = 0.f;
+    }
+  const float* fb = fold + br * kCtBranch;
+  for (int t = 0; t < 64; ++t) {
+    const float cw = table[t * 64 + m], sw = table[t * 64 + 32 + m];
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int r = 0; r < kCtChunks; ++r) {
+        const float* v = fb + (size_t)(s * kCtChunks + r) * 8 * kCtBranch;
+        const float vre = v[t];
+        if (br == 0) {  // real branch
+          acc_re[s][r] = fmaf(vre, cw, acc_re[s][r]);
+          acc_im[s][r] = fmaf(vre, sw, acc_im[s][r]);
+        } else {  // Re += re c - im s, Im += re s + im c
+          const float vim = v[64 + t];
+          acc_re[s][r] = fmaf(vre, cw, fmaf(-vim, sw, acc_re[s][r]));
+          acc_im[s][r] = fmaf(vre, sw, fmaf(vim, cw, acc_im[s][r]));
+        }
+      }
+  }
+  __syncthreads();  // every warp is done with the folds: reuse the space
+
+  // (3) frame spectra at their natural bins, k = 8 m + br
+  float* spec_re = smem;
+  float* spec_im = smem + 2 * kCtTileFrames * kRow;
+  const int k = 8 * m + br;
+  const float sgn = (br & 1) ? -1.f : 1.f;
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int f = 0; f < kCtTileFrames; ++f) {
+      spec_re[(s * kCtTileFrames + f) * kRow + k] = acc_re[s][f] + sgn * acc_re[s][f + 1];
+      spec_im[(s * kCtTileFrames + f) * kRow + k] = acc_im[s][f] + sgn * acc_im[s][f + 1];
+    }
+  if (tid < 2 * kCtTileFrames) {  // Nyquist bin: (-1)^256 = +1, imaginary part 0
+    const int s = tid / kCtTileFrames, f = tid % kCtTileFrames;
+    const float q0 = nyq_part[s][f][0] + nyq_part[s][f][1];
+    const float q1 = nyq_part[s][f + 1][0] + nyq_part[s][f + 1][1];
+    spec_re[(s * kCtTileFrames + f) * kRow + kBins] = q0 + q1;
+    spec_im[(s * kCtTileFrames + f) * kRow + kBins] = 0.f;
+  }
+  __syncthreads();
+
+  // (4) per frame: mean over bins of the squared log ratio, then its sqrt
+  float total = 0.f;
+  for (int f = warp; f < kCtTileFrames && f0 + f < n_frames; f += kWarps) {
+    const float* cre = spec_re + f * kRow;
+    const float* cim = spec_im + f * kRow;
+    const float* dre = spec_re + (kCtTileFrames + f) * kRow;
+    const float* dim = spec_im + (kCtTileFrames + f) * kRow;
+    float acc = 0.f;
+    for (int kk = lane; kk <= kBins; kk += 32) {
+      const float pc = hann_power(cre, cim, kk);
+      const float pd = hann_power(dre, dim, kk);
+      const float dm = sqrtf(pd) + eps;
+      const float lr = logf(pc / (dm * dm) + eps);
+      acc = fmaf(lr, lr, acc);
+    }
+    acc = fsem::warp_sum(acc);
+    total += sqrtf(acc / (float)(kBins + 1));
+  }
+  if (lane == 0) red[warp] = total;
+  __syncthreads();
+  if (tid == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < kWarps; ++w) sum += red[w];
+    partial[(size_t)b * n_tiles + tile] = sum;
+  }
+}
+
 __global__ void lsd_finalize_kernel(const float* __restrict__ partial,
                                     float* __restrict__ out, int n_tiles,
                                     int n_frames) {
@@ -315,4 +526,32 @@ extern "C" int fsem_lsd_wholesig(const float* clean, const float* denoised,
                                  void* stream_ptr) {
   return launch_frames<false>(clean, denoised, table, nullptr, partial, out, batch,
                               t_len, eps, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// A13. clean, denoised: (batch, nc * 256) float32; scale: (batch,) float32
+// or null (then computed here, as A1); tw: (8, 256) fold twiddles; w0:
+// (64, 64) branch DFT cos | sin table; scale_partial: (batch, 16, 2)
+// scratch; partial: (batch, ceil((nc + 1) / 8)) scratch; out: (batch,).
+extern "C" int fsem_lsd_wholesig_ct(const float* clean, const float* denoised,
+                                    const float* scale, const float* tw, const float* w0,
+                                    float* scale_partial, float* partial, float* out,
+                                    int batch, int nc, float eps, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const long long t_len = (long long)nc * kHop;
+  if (scale == nullptr) {
+    lsd_scale_kernel<<<dim3(kScaleSplits, batch), 256, 0, stream>>>(
+        clean, denoised, scale_partial, t_len);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int n_frames = nc + 1;
+  const int n_tiles = (n_frames + kCtTileFrames - 1) / kCtTileFrames;
+  const size_t smem = kCtSmemFloats * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(lsd_ct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  lsd_ct_kernel<<<dim3(n_tiles, batch), kThreads, smem, stream>>>(
+      clean, denoised, scale_partial, scale, tw, w0, partial, nc, n_frames, n_tiles, eps);
+  lsd_finalize_kernel<<<batch, 32, 0, stream>>>(partial, out, n_tiles, n_frames);
+  return (int)cudaGetLastError();
 }

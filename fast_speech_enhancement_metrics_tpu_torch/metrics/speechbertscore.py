@@ -35,8 +35,6 @@ from fast_speech_enhancement_metrics_tpu_torch.models.hubert import (
 from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import MAX_HEAD_DIM
 
 DEFAULT_CHECKPOINT = Path(__file__).parent.parent / "checkpoints" / "mhubert147.npz"
-#: attention paths of the JAX package that the port does not have yet
-NOT_PORTED_IMPLS = ("block_int8", "layer_block")
 #: past this many frames "auto" takes the flash kernel instead of sdpa
 SDPA_MAX_FRAMES = 40000
 
@@ -68,7 +66,9 @@ class SpeechBERTScore(BaseMetric):
         ``precision="default"`` is the bf16 block-kernel class on the card,
         ``"highest"`` the float32 tensor path. ``attention_impl``: "einsum",
         "sdpa" / "sdpa_exp2" / "sdpa_exp2_bf16" (kernel A9), "flash" (A15),
-        "block" (A7), "block_ffn" (A7 + A8) or "auto". ``gelu="auto"`` is tanh at
+        "block" (A7), "block_ffn" (A7 + A8), "layer_block" (A11, the whole
+        layer; its softmax "exp2" or else "exact"), "block_int8" (A12, the
+        int8 screening mode, then the plain FFN) or "auto". ``gelu="auto"`` is tanh at
         the default precision and erf at "highest"; ``softmax="auto"`` exp2
         and exact likewise. ``act_dtype=torch.bfloat16`` runs the encoder's
         activation stream in bf16. ``batch_chunk`` encodes the doubled batch
@@ -83,9 +83,6 @@ class SpeechBERTScore(BaseMetric):
         ):
             if value not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
-        if attention_impl in NOT_PORTED_IMPLS:
-            raise NotImplementedError(f"attention_impl={attention_impl!r} is not ported; use one of "
-                                      f"{ATTENTION_IMPLS} or 'auto'")
         if attention_impl != "auto" and attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl: {attention_impl!r}")
         self.output_layer = output_layer

@@ -18,10 +18,14 @@ without TF32, on the card as on the CPU.
 ``"sdpa"``, ``"sdpa_exp2"``, ``"sdpa_exp2_bf16"`` (the attention itself on
 kernel A9) and ``"flash"`` (on kernel A15), whose q, k, v go to the kernel
 in bf16 at the default precision; ``"block"`` (post-LN only: each layer's
-attention block is kernel A7, its FFN plain tensor ops) and
+attention block is kernel A7, its FFN plain tensor ops),
 ``"block_ffn"`` (A7 and, with the tanh GELU or on the CPU, the FFN block on
 kernel A8; on the card the erf GELU takes the plain FFN after A7, as the
-JAX package does on the TPU, whose FFN kernel has no erf).
+JAX package does on the TPU, whose FFN kernel has no erf),
+``"layer_block"`` (with the tanh GELU the whole layer on kernel A11, its
+softmax "exp2" or else "exact", so "exp2_bf16" runs exact there, as in the
+JAX package; with the erf GELU the ``"block_ffn"`` route) and
+``"block_int8"`` (the int8 attention block, kernel A12, then the plain FFN).
 """
 
 from __future__ import annotations
@@ -62,8 +66,8 @@ MHUBERT_147_CONFIG = HubertConfig()
 
 #: attention paths whose attention is one kernel (A9, A15) over (B, H, T, D)
 KERNEL_ATTENTION_IMPLS = ("sdpa", "sdpa_exp2", "sdpa_exp2_bf16", "flash")
-#: post-LN paths whose attention block is kernel A7
-BLOCK_IMPLS = ("block", "block_ffn")
+#: post-LN paths whose attention block is a kernel: A7, A11 (the whole layer), A12 (int8)
+BLOCK_IMPLS = ("block", "block_ffn", "layer_block", "block_int8")
 ATTENTION_IMPLS = ("einsum",) + KERNEL_ATTENTION_IMPLS + BLOCK_IMPLS
 
 
@@ -118,15 +122,16 @@ class HubertEncoder(nn.Module):
         self._packed.clear()  # packed operands follow the parameters' device
         return super()._apply(fn, recurse)
 
-    def packed_blocks(self, i: int, softmax: str) -> tuple:
-        """(A7 operands, A8 operands) of layer i."""
+    def packed_blocks(self, i: int, softmax: str, quant: str | None = None) -> tuple:
+        """(attention-block operands, A8 operands) of layer i; ``quant="int8"``
+        gives A12's int8 attention operands."""
         p = self.layers[i]
-        key = (i, softmax, str(p["q_w"].device))
+        key = (i, softmax, quant, str(p["q_w"].device))
         hit = self._packed.get(key)
         if hit is None:
             heads = self.config.num_attention_heads
             hit = (
-                attn_block_pallas.pack_attn_block_params(p, heads, softmax),
+                attn_block_pallas.pack_attn_block_params(p, heads, softmax, quant),
                 attn_block_pallas.pack_ffn_block_params(p),
             )
             self._packed[key] = hit
@@ -233,9 +238,16 @@ def _encoder_layer(
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
         x = x + _attention(p, h, heads, softmax, attention_impl, bf16_kernel)
         return x + _ffn(p, _layer_norm(x, p["ln2_s"], p["ln2_b"], eps), gelu)
+    if attention_impl == "layer_block" and gelu == "tanh":
+        mode = "exp2" if softmax == "exp2" else "exact"
+        attn_ops, ffn_ops = enc.packed_blocks(i, mode)
+        return attn_block_pallas.layer_block(x, attn_ops, ffn_ops, heads, eps, softmax=mode, gelu=gelu)
+    if attention_impl == "layer_block":
+        attention_impl = "block_ffn"  # erf GELU: A7, then A8 or the plain FFN, as in the JAX package
     if attention_impl in BLOCK_IMPLS:
-        attn_ops, ffn_ops = enc.packed_blocks(i, softmax)
-        x = attn_block_pallas.attn_block(x, attn_ops, heads, eps, softmax=softmax)
+        quant = "int8" if attention_impl == "block_int8" else None
+        attn_ops, ffn_ops = enc.packed_blocks(i, softmax, quant)
+        x = attn_block_pallas.attn_block(x, attn_ops, heads, eps, softmax=softmax, quant=quant)
         if attention_impl == "block_ffn" and (gelu == "tanh" or x.device.type == "cpu"):
             return attn_block_pallas.ffn_block(x, ffn_ops, eps, gelu=gelu)
     else:

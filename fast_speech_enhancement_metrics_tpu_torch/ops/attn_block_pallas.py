@@ -1,11 +1,17 @@
-"""HuBERT post-LN encoder blocks: CUDA kernels A7 (attention) and A8 (FFN) and their plain versions.
+"""HuBERT post-LN encoder blocks: CUDA kernels A7, A8, A11, A12 and their plain versions.
 
 Counterpart of the JAX package's ``ops/attn_block_pallas.py``:
 
 * ``attn_block`` (A7, ``_attn_block_kernel``):
   y = LN(x + W_o · attn(x · W_qkv + b_qkv) + b_o) over (rows, T, d);
 * ``ffn_block`` (A8, ``_ffn_block_kernel``):
-  y = LN(x + W_2 · gelu(W_1 · x + b_1) + b_2).
+  y = LN(x + W_2 · gelu(W_1 · x + b_1) + b_2);
+* ``layer_block`` (A11, ``_layer_block_kernel``): A7 then A8 in one
+  launch, the intermediate held in x's dtype;
+* ``attn_block(..., quant="int8")`` (A12, A7's kernel with ``_quant_rows``,
+  ``_quant_cols`` and ``_dot_i8``): every product int8 x int8 -> int32,
+  dynamic per-row activation scales and per-column weight scales
+  (``_attn_block_int8_plain`` spells out the steps).
 
 Both are the default-precision class: x rounded to bf16 at entry (the
 residual adds that rounded x), bf16 operands with fp32 accumulation, qkv,
@@ -17,10 +23,12 @@ logit rounded to bf16, which is bf16(exp(bf16(s * bf16(ln 2))))) or
 ``"exact"`` (exp(s - rowmax)). The plain versions emulate "bf16 operands,
 fp32 accumulation" as float32 products of bf16-rounded values.
 
-The CUDA kernels are ``csrc/attn_block.cu``; A7's attention is
-``csrc/attention_core.cuh``, shared with A9, for any head width up to 128.
-CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise.
+The CUDA kernels are ``csrc/attn_block.cu`` (A7, A8), ``csrc/layer_block.cu``
+(A11: one cooperative launch whose phases are A7's and A8's tile routines)
+and ``csrc/attn_block_int8.cu`` (A12, on the int8 tensor cores); the bf16
+attention is ``csrc/attention_core.cuh``, shared with A9, for any head
+width up to 128. CPU tensors take the plain versions; CUDA tensors launch
+the kernels or raise.
 """
 
 from __future__ import annotations
@@ -38,6 +46,11 @@ from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import (
 
 KERNEL_A7 = "attn_block"
 KERNEL_A8 = "ffn_block"
+KERNEL_A11 = "layer_block"
+KERNEL_A12 = "attn_block_int8"
+QUANT_MODES = (None, "int8")
+#: head widths the layer kernel A11 is built for (HuBERT base / large, xlarge)
+LAYER_HEAD_DIMS = (64, 80)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -45,7 +58,29 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(round_bf16(a), round_bf16(b))
 
 
-def pack_attn_block_params(p: dict, num_heads: int, softmax: str) -> tuple:
+def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization over the last axis (JAX ``_quant_rows``):
+    (int8 values as float, scale (..., 1)); s = max(max|x| / 127, 1e-12),
+    q = round-half-even(x / s)."""
+    s = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0, min=1e-12)
+    return torch.round(x / s), s
+
+
+def _quant_cols(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same over the second-to-last axis (JAX ``_quant_cols``): a scale
+    per column, (..., 1, N)."""
+    q, s = _quant_rows(x.transpose(-1, -2))
+    return q.transpose(-1, -2), s.transpose(-1, -2)
+
+
+def _dot_i8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Product of int8-valued operands, exact as the int32 accumulation of
+    the kernels (float64 sums: past ~1040 terms of 127^2 float32 would
+    round), then rounded to fp32 as JAX's int32 -> fp32 cast."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def pack_attn_block_params(p: dict, num_heads: int, softmax: str, quant: str | None = None) -> tuple:
     """Layer params (JAX layout, (in, out) weights) -> the block's operands:
     (wqkv (d, 3d) bf16 with columns [q | k | v], bqkv (3d,) fp32, wo (d, d)
     bf16, bo, ln scale, ln shift (d,) fp32).
@@ -54,9 +89,17 @@ def pack_attn_block_params(p: dict, num_heads: int, softmax: str) -> tuple:
     columns and bias in fp32 before the weights round to bf16, as the JAX
     package's packing does; its head-pair interleave of the columns is a
     TPU lane-alignment device and is not kept.
+
+    ``quant="int8"`` (A12) quantizes the fp32 folded weights per column
+    instead, as the JAX packing does, and gives (wqkv (3d, d) int8, bqkv
+    (2, 3d) fp32 = [bias; column scales], wo (d, d) int8, bo (2, d) fp32,
+    ln scale, ln shift): the int8 weights in (out, in) layout, the layout
+    the kernel's int8 tensor-core operands take.
     """
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
     d = p["q_w"].shape[0]
     scaling = (d // num_heads) ** -0.5
     if softmax != "exact":
@@ -64,6 +107,17 @@ def pack_attn_block_params(p: dict, num_heads: int, softmax: str) -> tuple:
     f32 = torch.float32
     wqkv = torch.cat([p["q_w"].to(f32) * scaling, p["k_w"].to(f32), p["v_w"].to(f32)], dim=1)
     bqkv = torch.cat([p["q_b"].to(f32) * scaling, p["k_b"].to(f32), p["v_b"].to(f32)])
+    if quant == "int8":
+        wq, sq = _quant_cols(wqkv)
+        woq, so = _quant_cols(p["o_w"].to(f32))
+        return (
+            wq.to(torch.int8).t().contiguous(),
+            torch.stack([bqkv, sq[0]]).contiguous(),
+            woq.to(torch.int8).t().contiguous(),
+            torch.stack([p["o_b"].to(f32), so[0]]).contiguous(),
+            p["ln1_s"].to(f32).contiguous(),
+            p["ln1_b"].to(f32).contiguous(),
+        )
     return (
         wqkv.to(torch.bfloat16).contiguous(),
         bqkv.contiguous(),
@@ -111,6 +165,50 @@ def _attn_block_plain(x: torch.Tensor, packed: tuple, num_heads: int, eps: float
     return _residual_ln(_dot(ctx, wo.float()) + bo, xb, lns, lnb, eps).to(x.dtype)
 
 
+def _v_scales(v: torch.Tensor, b_v: torch.Tensor, t: int) -> torch.Tensor:
+    """A12's per-column v scales over the keys, (b, h, 1, hd). The JAX
+    kernel pads T to a multiple of 8 with zero rows, whose qkv is the bias,
+    so when T % 8 != 0 its padded keys' v = b_v counts in the column
+    maximum; the port pads nothing and adds that term."""
+    amax = torch.amax(torch.abs(v), dim=-2, keepdim=True)
+    if t % 8:
+        amax = torch.maximum(amax, torch.abs(b_v))
+    return torch.clamp(amax / 127.0, min=1e-12)
+
+
+def _attn_block_int8_plain(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:
+    """Plain PyTorch version of kernel A12 (JAX ``_attn_block_kernel`` with
+    ``quant="int8"``), step by step:
+
+    1. x rounded to bf16, quantized per row over d;
+    2. qkv = (acc_i32 sx) sw + b in fp32 (not rounded to bf16);
+    3. per head, q and k quantized per row over the head width, s =
+       (qq kq^T)_i32 sq sk^T, the softmax mode as A7's, l = sum p in fp32;
+    4. normalise first, pn = p / l, pq = round(127 pn); v quantized per
+       column over the keys (``_v_scales``); ctx = ((pq vq)_i32 / 127) sv;
+    5. the context quantized per row over d (all heads); out = (cq
+       wo_q)_i32 sc so + bo;
+    6. residual and LayerNorm as A7, in x's dtype.
+    """
+    wq_t, bq2, wo_t, bo2, lns, lnb = packed
+    b, t, d = x.shape
+    hd = d // num_heads
+    xb = round_bf16(x)
+    xq, sx = _quant_rows(xb)
+    qkv = _dot_i8(xq, wq_t.t().float()) * sx * bq2[1] + bq2[0]  # (b, t, 3d) fp32
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, t, num_heads, hd).transpose(1, 2) for i in range(3))
+    qq, sq = _quant_rows(q)
+    kq, sk = _quant_rows(k)
+    p = softmax_p(_dot_i8(qq, kq.transpose(-1, -2)) * sq * sk.transpose(-1, -2), softmax)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    pq = torch.round(p / l * 127.0)
+    sv = _v_scales(v, bq2[0, 2 * d:].reshape(num_heads, 1, hd), t)
+    ctx = _dot_i8(pq, torch.round(v / sv)) / 127.0 * sv  # (b, h, t, hd)
+    cq, sc = _quant_rows(ctx.transpose(1, 2).reshape(b, t, d))
+    out = _dot_i8(cq, wo_t.t().float()) * sc * bo2[1] + bo2[0]
+    return _residual_ln(out, xb, lns, lnb, eps).to(x.dtype)
+
+
 def _gelu(h: torch.Tensor, gelu: str) -> torch.Tensor:
     return torch.nn.functional.gelu(h, approximate="tanh" if gelu == "tanh" else "none")
 
@@ -126,21 +224,25 @@ def _ffn_block_plain(x: torch.Tensor, packed: tuple, eps: float, gelu: str) -> t
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check_block_input(x: torch.Tensor, packed: tuple) -> None:
+def _check_block_input(x: torch.Tensor, packed: tuple, weight_dtype: torch.dtype = torch.bfloat16) -> None:
     if x.dtype not in _IO_DTYPES or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x: need a contiguous (rows, T, d) fp32 or bf16 tensor, got "
                          f"{tuple(x.shape)} {x.dtype} (contiguous={x.is_contiguous()})")
     for i, t in enumerate(packed):
-        want = torch.bfloat16 if i in (0, 2) else torch.float32
+        want = weight_dtype if i in (0, 2) else torch.float32
         cuda_lib.check_operand(t, f"packed[{i}]", x.device, want, t.dim())
+
+
+def _check_heads(d: int, num_heads: int) -> None:
+    if d % num_heads or d // num_heads > MAX_HEAD_DIM or d % 32:
+        raise ValueError(f"the attention kernels need heads of at most {MAX_HEAD_DIM} and d % 32 == 0, "
+                         f"got d={d}, heads={num_heads}")
 
 
 def _attn_block_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:
     _check_block_input(x, packed)
     rows, t, d = x.shape
-    if d % num_heads or d // num_heads > MAX_HEAD_DIM or d % 32:
-        raise ValueError(f"the attention kernel needs heads of at most {MAX_HEAD_DIM} and d % 32 == 0, "
-                         f"got d={d}, heads={num_heads}")
+    _check_heads(d, num_heads)
     if rows == 0 or t == 0:
         raise ValueError(f"need at least one row and one frame, got {tuple(x.shape)}")
     wqkv, bqkv, wo, bo, lns, lnb = packed
@@ -179,16 +281,50 @@ def _ffn_block_cuda(x: torch.Tensor, packed: tuple, eps: float, gelu: str) -> to
     return out
 
 
-def attn_block(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str = "exp2") -> torch.Tensor:
-    """Kernel A7 wrapper: y = LN(x + attention(x)) over (rows, T, d), in x's
-    dtype. ``packed`` is ``pack_attn_block_params(p, num_heads, softmax)``."""
+def _attn_block_int8_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:
+    _check_block_input(x, packed, torch.int8)
+    rows, t, d = x.shape
+    _check_heads(d, num_heads)
+    if rows == 0 or t == 0:
+        raise ValueError(f"need at least one row and one frame, got {tuple(x.shape)}")
+    wq_t, bq2, wo_t, bo2, lns, lnb = packed
+    dev = x.device
+    m = rows * t
+    i8, f32 = torch.int8, torch.float32
+    xq = torch.empty(m, d, device=dev, dtype=i8)  # then the quantized context
+    s_row = torch.empty(m, device=dev, dtype=f32)  # sx, then sc
+    qkv = torch.empty(m, 3 * d, device=dev, dtype=f32)
+    qkv_q = torch.empty(m, 3 * d, device=dev, dtype=i8)
+    s_qk = torch.empty(m, 2 * num_heads, device=dev, dtype=f32)
+    s_v = torch.empty(rows, d, device=dev, dtype=f32)
+    ctx = torch.empty(m, d, device=dev, dtype=f32)
+    y = torch.empty(m, d, device=dev, dtype=f32)
+    out = torch.empty_like(x)
+    bf = int(x.dtype == torch.bfloat16)
+    cuda_lib.launch(
+        KERNEL_A12, dev, x, wq_t, bq2, wo_t, bo2, lns, lnb, xq, s_row, qkv, qkv_q, s_qk, s_v, ctx, y, out,
+        rows, t, d, num_heads, SOFTMAX_MODES.index(softmax), bf, eps,
+    )
+    cuda_lib.launch_counts[KERNEL_A12] += 1
+    return out
+
+
+def attn_block(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str = "exp2",
+               quant: str | None = None) -> torch.Tensor:
+    """Kernel A7 (A12 with ``quant="int8"``) wrapper: y = LN(x + attention(x))
+    over (rows, T, d), in x's dtype. ``packed`` is
+    ``pack_attn_block_params(p, num_heads, softmax, quant)``."""
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
+    if quant not in QUANT_MODES:
+        raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
     if x.device.type == "cpu":
-        return _attn_block_plain(x, packed, num_heads, eps, softmax)
+        plain = _attn_block_int8_plain if quant == "int8" else _attn_block_plain
+        return plain(x, packed, num_heads, eps, softmax)
     if x.device.type != "cuda":
         raise ValueError(f"no attention-block kernel for device {x.device}")
-    return _attn_block_cuda(x, packed, num_heads, eps, softmax)
+    cuda = _attn_block_int8_cuda if quant == "int8" else _attn_block_cuda
+    return cuda(x, packed, num_heads, eps, softmax)
 
 
 def ffn_block(x: torch.Tensor, packed: tuple, eps: float, gelu: str = "tanh") -> torch.Tensor:
@@ -201,3 +337,57 @@ def ffn_block(x: torch.Tensor, packed: tuple, eps: float, gelu: str = "tanh") ->
         raise ValueError(f"no FFN-block kernel for device {x.device}")
     return _ffn_block_cuda(x, packed, eps, gelu)
 
+
+def _layer_block_plain(x: torch.Tensor, attn_packed: tuple, ffn_packed: tuple, num_heads: int, eps: float,
+                       softmax: str, gelu: str) -> torch.Tensor:
+    """Plain PyTorch version of kernel A11: A7's plain version, then A8's,
+    the intermediate in x's dtype (JAX ``_layer_block_kernel`` writes it to
+    its x-typed output block)."""
+    return _ffn_block_plain(_attn_block_plain(x, attn_packed, num_heads, eps, softmax), ffn_packed, eps, gelu)
+
+
+def _layer_block_cuda(x: torch.Tensor, attn_packed: tuple, ffn_packed: tuple, num_heads: int, eps: float,
+                      softmax: str, gelu: str) -> torch.Tensor:
+    _check_block_input(x, attn_packed)
+    _check_block_input(x, ffn_packed)
+    if gelu != "tanh":
+        raise ValueError(f"the layer kernel is tanh-GELU only, got gelu={gelu!r}")
+    rows, t, d = x.shape
+    _check_heads(d, num_heads)
+    if d // num_heads not in LAYER_HEAD_DIMS:
+        raise NotImplementedError(f"the layer kernel is built for heads of {LAYER_HEAD_DIMS}, got "
+                                  f"{d // num_heads}; attention_impl='block_ffn' runs such a layer")
+    ffn = ffn_packed[0].shape[1]
+    if ffn % 32 or rows == 0 or t == 0:
+        raise ValueError(f"the layer kernel needs ffn % 32 == 0 and rows, got ffn={ffn}, {tuple(x.shape)}")
+    dev = x.device
+    m = rows * t
+    qkv = torch.empty(m, 3 * d, device=dev, dtype=torch.bfloat16)
+    ctx = torch.empty(m, d, device=dev, dtype=torch.bfloat16)
+    y = torch.empty(m, d, device=dev, dtype=torch.float32)
+    h = torch.empty_like(x)
+    hidden = torch.empty(m, ffn, device=dev, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    bf = int(x.dtype == torch.bfloat16)
+    cuda_lib.launch(
+        KERNEL_A11, dev, x, *attn_packed, *ffn_packed, qkv, ctx, y, h, hidden, out,
+        rows, t, d, num_heads, ffn, SOFTMAX_MODES.index(softmax), bf, eps,
+    )
+    cuda_lib.launch_counts[KERNEL_A11] += 1
+    return out
+
+
+def layer_block(x: torch.Tensor, attn_packed: tuple, ffn_packed: tuple, num_heads: int, eps: float,
+                softmax: str = "exp2", gelu: str = "tanh") -> torch.Tensor:
+    """Kernel A11 wrapper: one whole post-LN layer, ffn_block(attn_block(x))
+    over (rows, T, d), in x's dtype. ``attn_packed`` is
+    ``pack_attn_block_params(p, num_heads, softmax)``, ``ffn_packed``
+    ``pack_ffn_block_params(p)``. The kernel is tanh-GELU only; the plain
+    version also takes ``gelu="erf"``."""
+    if softmax not in SOFTMAX_MODES:
+        raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
+    if x.device.type == "cpu":
+        return _layer_block_plain(x, attn_packed, ffn_packed, num_heads, eps, softmax, gelu)
+    if x.device.type != "cuda":
+        raise ValueError(f"no layer kernel for device {x.device}")
+    return _layer_block_cuda(x, attn_packed, ffn_packed, num_heads, eps, softmax, gelu)

@@ -28,10 +28,11 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-HEADERS = ("common.cuh", "attention_core.cuh")
+HEADERS = ("common.cuh", "attention_core.cuh", "block_tiles.cuh")
 SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
-    "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu",
+    "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu", "layer_block.cu",
+    "attn_block_int8.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,15 +46,26 @@ _SIGNATURES = {
     "fsem_lsd_wholesig_raw": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     # (clean, denoised, table, tile partials, out, batch, samples, eps, stream)
     "fsem_lsd_wholesig": (_P, _P, _P, _P, _P, _I, _L, _F, _P),
+    # (clean, denoised, scale or null, fold twiddles, branch DFT table, scale
+    #  partials, tile partials, out, batch, chunks, eps, stream)
+    "fsem_lsd_wholesig_ct": (_P,) * 8 + (_I, _I, _F, _P),
     # (clean, denoised, slab partials, r_auto, r_cross, batch, samples, stream)
     "fsem_correlation_lags_gram": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # (r0, b, x, batch, order, stream)
-    "fsem_levinson_solve": (_P, _P, _P, _I, _I, _P),
+    # (r0, b, x, batch, order, variant, stream)
+    "fsem_levinson_solve": (_P, _P, _P, _I, _I, _I, _P),
     # (tob clean, tob denoised, num_segments, tile partials, out, batch, frames, stream)
     "fsem_stoi_segment_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
     # (x, wqkv, bqkv, wo, bo, ln scale, ln shift, qkv, ctx, y, out, rows, frames,
     #  width, heads, softmax mode, x and out are bf16, eps, stream)
     "fsem_attn_block": (_P,) * 11 + (_I,) * 6 + (_F, _P),
+    # (x, A7's six operands, A8's six, qkv, ctx, y, h, hidden, out, rows,
+    #  frames, width, heads, ffn, softmax mode, x and out are bf16, eps, stream)
+    "fsem_layer_block": (_P,) * 19 + (_I,) * 7 + (_F, _P),
+    # (x, int8 wqkv (3d, d), [bqkv; column scales], int8 wo (d, d), [bo; column
+    #  scales], ln scale, ln shift, x / ctx int8, row scales, qkv fp32, qkv int8,
+    #  q / k row scales, v column scales, ctx fp32, y, out, rows, frames, width,
+    #  heads, softmax mode, x and out are bf16, eps, stream)
+    "fsem_attn_block_int8": (_P,) * 16 + (_I,) * 6 + (_F, _P),
     # (x, w1, b1, w2, b2, ln scale, ln shift, hidden, y, out, rows, width, ffn,
     #  x and out are bf16, eps, stream)
     "fsem_ffn_block": (_P,) * 10 + (_I,) * 4 + (_F, _P),

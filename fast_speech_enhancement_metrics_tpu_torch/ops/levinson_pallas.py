@@ -1,24 +1,104 @@
-"""Batched Levinson-Durbin Toeplitz solve: CUDA kernel A5 and its plain version.
+"""Batched Levinson-Durbin Toeplitz solve: CUDA kernels A5 and A14 and their plain versions.
 
 Counterpart of the JAX package's ``ops/levinson_pallas.py``
-(``levinson_solve_fused``, variant ``"vpu"``). The CUDA kernel
-(``csrc/levinson.cu``) runs the whole n - 1 step recursion in one block per
-row with every carry in registers; the r0[0] normalization (with its zero
-guard) happens inside the kernel. The plain version is
-``ops/toeplitz.py::levinson_solve``: the same recursion as tensor ops.
+(``levinson_solve_fused``) and its variants, one recursion with its
+reductions reassociated: ``"vpu"`` (A5), and the A14 variants ``"flat"``,
+``"flat_u4"``, ``"flat_u8"``, ``"dotreduce"`` and ``"double"``. The CUDA
+kernels (``csrc/levinson.cu``) run the whole n - 1 step recursion in one
+block per row with every carry in registers; the r0[0] normalization (with
+its zero guard) happens inside the kernel. Each variant counts its launches
+under its own name (``KERNELS``).
+
+Plain versions: ``ops/toeplitz.py::levinson_solve`` for ``"vpu"``,
+``"flat*"`` and ``"dotreduce"`` (the same recursion as tensor ops; those
+variants differ only in how the reductions are summed), and
+``_levinson_double_plain`` for ``"double"``, whose two-step update is
+another function of the same state.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
 from fast_speech_enhancement_metrics_tpu_torch.ops.toeplitz import levinson_solve
 
-KERNEL = "levinson_solve"
+KERNEL = "levinson_solve"  # A5
+#: the JAX package's variant names, in the order of the C entry point's ids
+VARIANTS = ("vpu", "dotreduce", "flat", "flat_u4", "flat_u8", "double")
+#: launch counter of each variant: A5 ("vpu") and the A14 kernels
+KERNELS = {v: KERNEL if v == "vpu" else f"levinson_{v}" for v in VARIANTS}
 
 
-def _levinson_solve_cuda(r0: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _guard(d: torch.Tensor) -> torch.Tensor:
+    return torch.where(d.abs() < 1e-30, torch.full_like(d, 1e-30), d)
+
+
+def _levinson_double_plain(r0: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``"double"`` variant: two recursion steps per
+    round from five reductions of the current state (JAX
+    ``_levinson_kernel_double``), with r2 the left-shifted r1:
+
+        ef1 = <r1,v>   p = <r2,v>   uu = <r1,u>
+        mu1 = bn[k+1] - <r1,y>      q2 = bn[k+2] - <r2,y>
+        rho1 = 1 / (1 - ef1^2)      ef2 = rho1 (p - ef1 uu)
+        rho2 = 1 / (1 - ef2^2)      mu2 = q2 - mu1 rho1 (uu - ef1 p)
+
+    then the composed update on S(v), S^2(v), S(u), S^2(y) (S the right
+    shift); an odd last step is the single step."""
+    n = r0.shape[-1]
+    r_first = r0[..., :1]
+    safe0 = torch.where(r_first.abs() < 1e-30, torch.ones_like(r_first), r_first)
+    r1 = F.pad(r0[..., 1:] / safe0, (0, 1))  # (..., n), last lane 0
+    r2 = F.pad(r1[..., 1:], (0, 1))
+    bn = b / safe0
+
+    def dot(a, c):
+        return torch.sum(a * c, dim=-1, keepdim=True)
+
+    def shift(a):
+        return F.pad(a, (1, 0))[..., :-1]
+
+    u = F.pad(torch.ones_like(r_first), (0, n - 1))
+    x = F.pad(bn[..., :1], (0, n - 1))
+    v, y = u, x
+    steps = n - 1
+    for i in range(steps // 2):
+        k = 2 * i
+        ef1, p, uu = dot(r1, v), dot(r2, v), dot(r1, u)
+        mu1 = bn[..., k + 1:k + 2] - dot(r1, y)
+        q2 = bn[..., k + 2:k + 3] - dot(r2, y)
+        rho1 = 1.0 / _guard(1.0 - ef1 * ef1)
+        ef2 = rho1 * (p - ef1 * uu)
+        rho2 = 1.0 / _guard(1.0 - ef2 * ef2)
+        mu2 = q2 - mu1 * rho1 * (uu - ef1 * p)
+        sv, su, ssy = shift(v), shift(u), shift(shift(y))
+        ssv = shift(sv)
+        u1 = (u - ef1 * sv) * rho1
+        v1 = (sv - ef1 * u) * rho1
+        g2 = rho1 * (ssv - ef1 * su)
+        u2 = (u1 - ef2 * g2) * rho2
+        v2 = (g2 - ef2 * u1) * rho2
+        x = x + mu1 * v1 + mu2 * v2
+        su1 = rho1 * (su - ef1 * ssv)
+        y = ssy + mu1 * su1 + mu2 * u2
+        u, v = u2, v2
+    if steps % 2:
+        k = steps - 1
+        ef = dot(r1, v)
+        mu = bn[..., k + 1:k + 2] - dot(r1, y)
+        recip = 1.0 / _guard(1.0 - ef * ef)
+        g = shift(v)
+        x = x + mu * ((g - ef * u) * recip)
+    return x
+
+
+def _plain(variant: str):
+    return _levinson_double_plain if variant == "double" else levinson_solve
+
+
+def _levinson_solve_cuda(r0: torch.Tensor, b: torch.Tensor, variant: str) -> torch.Tensor:
     dev = r0.device
     cuda_lib.check_operand(r0, "r0", dev, torch.float32, 2)
     cuda_lib.check_operand(b, "b", dev, torch.float32, 2)
@@ -28,20 +108,23 @@ def _levinson_solve_cuda(r0: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if batch == 0:
         raise ValueError("need at least one row")
     x = torch.empty_like(r0)
-    cuda_lib.launch(KERNEL, dev, r0, b, x, batch, n)
-    cuda_lib.launch_counts[KERNEL] += 1
+    cuda_lib.launch("levinson_solve", dev, r0, b, x, batch, n, VARIANTS.index(variant))
+    cuda_lib.launch_counts[KERNELS[variant]] += 1
     return x
 
 
-def levinson_solve_fused(r0: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Kernel A5 wrapper: solve T(r0) x = b, r0, b (B, n) float32 -> x (B, n).
+def levinson_solve_fused(r0: torch.Tensor, b: torch.Tensor, variant: str = "vpu") -> torch.Tensor:
+    """Kernel A5 / A14 wrapper: solve T(r0) x = b, r0, b (B, n) float32 -> x (B, n).
 
-    CPU tensors take the plain version (``levinson_solve``); CUDA tensors
-    launch the kernel (or raise); any other device raises.
+    ``variant`` is one of ``VARIANTS``. CPU tensors take the variant's plain
+    version; CUDA tensors launch its kernel (or raise); any other device
+    raises.
     """
     assert r0.ndim == 2 and b.shape == r0.shape
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if r0.device.type == "cpu":
-        return levinson_solve(r0, b)
+        return _plain(variant)(r0, b)
     if r0.device.type != "cuda":
         raise ValueError(f"no Levinson kernel for device {r0.device}")
-    return _levinson_solve_cuda(r0, b)
+    return _levinson_solve_cuda(r0, b, variant)

@@ -1,4 +1,4 @@
-"""Fused LSD (log-spectral distance): CUDA kernels A1, A2, A3 and their plain versions.
+"""Fused LSD (log-spectral distance): CUDA kernels A1, A2, A3, A13 and their plain versions.
 
 Counterpart of the JAX package's ``ops/lsd_fused.py`` and of its
 ``lsd_scores`` dispatch:
@@ -7,11 +7,15 @@ Counterpart of the JAX package's ``ops/lsd_fused.py`` and of its
   scale computed by the kernel (``denoised_scale="auto"``);
 * A2 (``_lsd_wholesig_kernel``): pre-scaled pairs of any length with
   F + 1 <= ``MAX_WHOLESIG_CHUNKS`` frames;
-* A3 (``_lsd_framed_kernel``): the same function past that, frame-blocked.
+* A3 (``_lsd_framed_kernel``): the same function past that, frame-blocked;
+* A13 (``_lsd_wholesig_ct_kernel``, ``dft_impl="ct"``): A1's function with
+  the 512-point chunk DFT factorized into three radix-2 DIF folds and eight
+  64-point branch DFTs (``_ct_constants``), at half the multiply-adds.
 
-On the card the three are one frame-tile kernel, ``csrc/lsd_fused.cu``:
-A1 with its scale stage, A2 and A3 without (one C entry point, counted
-under each kernel's own name). Two ideas carry it:
+On the card A1-A3 are one frame-tile kernel, ``csrc/lsd_fused.cu``: A1
+with its scale stage, A2 and A3 without (one C entry point, counted under
+each kernel's own name); A13 is a second frame-tile kernel in the same
+source. Two ideas carry them:
 
 * **Shared-chunk DFT.** With hop = n_fft/2, frame f = [chunk_{f-1} |
   chunk_f] of the centered signal, so the frame spectrum is X_f[k] =
@@ -21,13 +25,16 @@ under each kernel's own name). Two ideas carry it:
   convolution Y[k] = 0.5 X[k] - 0.25 (X[k-1] + X[k+1]), with
   X[-1] = conj X[1] and X[n_fft/2 + 1] = conj X[n_fft/2 - 1].
 
-``lsd_scores`` launches the kernel for CUDA tensors and runs the plain
+``lsd_scores`` launches the kernels for CUDA tensors and runs the plain
 versions (``_lsd_wholesig_raw_plain``, ``_lsd_wholesig_plain``,
-``_lsd_framed_plain``) for CPU tensors.
+``_lsd_framed_plain``, ``_lsd_wholesig_ct_plain``) for CPU tensors.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -38,13 +45,19 @@ from fast_speech_enhancement_metrics_tpu_torch.ops.stft import device_table
 KERNEL = "lsd_wholesig_raw"  # A1
 KERNEL_A2 = "lsd_wholesig"
 KERNEL_A3 = "lsd_framed"
+KERNEL_A13 = "lsd_wholesig_ct"
 #: frames + 1 above which the JAX package takes the frame-blocked kernel
-#: (A3); kept so the port's launch counts follow the same routes
+#: (A3) for clips that are scaled before the kernel. The port sends every
+#: hop-aligned "auto" clip to A1 whatever its chunk count (the JAX package
+#: only when ``nc % 8 == 0`` and F + 1 <= this); only A13's route follows
+#: the JAX package's chunk conditions (``_takes_ct``)
 MAX_WHOLESIG_CHUNKS = 1024
 #: frames per block of the CUDA kernel (csrc/lsd_fused.cu, kTileFrames)
 _TILE_FRAMES = 16
 #: blocks per row of the kernel's scale reduction (kScaleSplits)
 _SCALE_SPLITS = 16
+#: frames per block of A13's kernel (kCtTileFrames)
+_CT_TILE_FRAMES = 8
 
 
 def _hann_power(xre: torch.Tensor, xim: torch.Tensor, xnyq: torch.Tensor) -> torch.Tensor:
@@ -123,6 +136,127 @@ def _lsd_wholesig_plain(clean: torch.Tensor, denoised: torch.Tensor, hop: int, e
 _lsd_framed_plain = _lsd_wholesig_plain
 
 
+@functools.lru_cache(maxsize=None)
+def _ct_constants() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Tables of the factorized (radix-2 DIF) one-sided real chunk DFT, built
+    in float64 and rounded to float32, as the JAX package's ``_ct_constants``.
+
+    The 512-point DFT of a zero-padded 256-sample chunk is three DIF folds
+    followed by eight 64-point DFTs of the branches br = j1 + 2 j2 + 4 j3,
+    DFT512(x)[8 m + br] = DFT64(b_br)[m]; bins 0..255 need m = 0..31.
+    Returns ``tw`` (8, 256): the fold twiddles [w1re, w1im, w2re|0, w2im|0,
+    w3re|0, w3im|0, 0, 0] (w_l[t] = exp(-2 pi i t / (1024 / 2^l))); ``w0``
+    (64, 64): a real branch to packed [Re(32) | Im(32)]; ``wc`` (128, 64): a
+    packed [re(64) | im(64)] complex branch likewise.
+    """
+    tw = np.zeros((8, 256), dtype=np.float64)
+    t1 = np.arange(256)
+    tw[0] = np.cos(-2 * np.pi * t1 / 512)
+    tw[1] = np.sin(-2 * np.pi * t1 / 512)
+    t2 = np.arange(128)
+    tw[2, :128] = np.cos(-2 * np.pi * t2 / 256)
+    tw[3, :128] = np.sin(-2 * np.pi * t2 / 256)
+    t3 = np.arange(64)
+    tw[4, :64] = np.cos(-2 * np.pi * t3 / 128)
+    tw[5, :64] = np.sin(-2 * np.pi * t3 / 128)
+    ang = -2 * np.pi * np.outer(np.arange(64), np.arange(32)) / 64
+    c, s = np.cos(ang), np.sin(ang)
+    w0 = np.concatenate([c, s], axis=1)
+    wc = np.block([[c, s], [-s, c]])
+    return tw.astype(np.float32), w0.astype(np.float32), wc.astype(np.float32)
+
+
+def _ct_branch_spectra(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., NC, 256) real chunks -> (packed one-sided branch spectra
+    (..., NC, 8, 64) as [Re(32) | Im(32)] per branch br = 0..7, chunk
+    Nyquist bins (..., NC, 1)): the three folds (branch 0's path stays
+    real), then the seven complex branches through ``wc`` and branch 0
+    through ``w0``."""
+    tw, w0, wc = (device_table(a, x.device) for a in _ct_constants())
+    w1re, w1im = tw[0], tw[1]
+    w2re, w2im = tw[2, :128], tw[3, :128]
+    w3re, w3im = tw[4, :64], tw[5, :64]
+
+    def fold(vre, vim, half, wre, wim):
+        """One DIF level on a complex (vim not None) or real slab: (sum, difference x twiddle)."""
+        are, bre = vre[..., :half], vre[..., half:]
+        if vim is None:
+            d = are - bre
+            return (are + bre, None), (d * wre, d * wim)
+        aim, bim = vim[..., :half], vim[..., half:]
+        dre, dim = are - bre, aim - bim
+        return (are + bre, aim + bim), (dre * wre - dim * wim, dre * wim + dim * wre)
+
+    b1 = (x * w1re, x * w1im)
+    e00, o01 = fold(x, None, 128, w2re, w2im)
+    e10, o11 = fold(*b1, 128, w2re, w2im)
+    (br0, _), br4 = fold(*e00, 64, w3re, w3im)
+    br1, br5 = fold(*e10, 64, w3re, w3im)
+    br2, br6 = fold(*o01, 64, w3re, w3im)
+    br3, br7 = fold(*o11, 64, w3re, w3im)
+    complex_branches = torch.stack(
+        [torch.cat(b, dim=-1) for b in (br1, br2, br3, br4, br5, br6, br7)], dim=-2
+    )  # (..., NC, 7, 128)
+    z = torch.cat([(br0 @ w0).unsqueeze(-2), complex_branches @ wc], dim=-2)
+    return z, _chunk_nyquist(x)
+
+
+def _chunk_nyquist(x: torch.Tensor) -> torch.Tensor:
+    alt = 1.0 - 2.0 * (torch.arange(x.shape[-1], device=x.device) % 2).to(x.dtype)
+    return (x * alt).sum(dim=-1, keepdim=True)
+
+
+def _ct_hann_power(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Frame spectra in the scrambled layout k = 8 m + br, (..., F, 8, 64)
+    packed, and their real Nyquist bins (..., F, 1) -> windowed |Y|^2 of
+    the 257 one-sided bins, (..., F, 257) in the order (br 0..7 by m), then
+    bin 256.
+
+    X[k -+ 1] sits in branch br -+ 1 at the same m, except the two carries:
+    (br 0, m) - 1 is (br 7, m - 1), whose bin k = 0 takes X[-1] = conj X[1]
+    instead, and (br 7, m) + 1 is (br 0, m + 1), whose bin 255 takes the
+    real X[256] instead."""
+    lanes = torch.arange(64, device=x.device)
+    half_sign = torch.where(lanes < 32, 1.0, -1.0).to(x.dtype)  # conj in the packed layout
+    br0, br7 = x[..., 0, :], x[..., 7, :]
+    prev7 = torch.where((lanes == 0) | (lanes == 32), half_sign * x[..., 1, :], torch.roll(br7, 1, dims=-1))
+    next0 = torch.roll(br0, -1, dims=-1)
+    next0 = torch.where(lanes == 31, q, torch.where(lanes == 63, torch.zeros_like(next0), next0))
+    left = torch.cat([prev7.unsqueeze(-2), x[..., :7, :]], dim=-2)
+    right = torch.cat([x[..., 1:, :], next0.unsqueeze(-2)], dim=-2)
+    y = 0.5 * x - 0.25 * (left + right)
+    power = (y[..., :32] ** 2 + y[..., 32:] ** 2).flatten(-2)  # (..., F, 256)
+    ynyq = 0.5 * q - 0.5 * br7[..., 31:32]  # bin 256: X[257] = conj X[255]
+    return torch.cat([power, ynyq * ynyq], dim=-1)
+
+
+def _ct_frame_powers(chunks: torch.Tensor) -> torch.Tensor:
+    """(B, NC, 256) raw chunks -> windowed power spectra of the NC + 1
+    centered frames, (B, NC + 1, 257) in the scrambled bin order: the branch
+    spectra, the frame combine X_f = Z_{f-1} + (-1)^br Z_f over the zero
+    chunks on both sides ((-1)^k = (-1)^br for k = 8 m + br), the Hann."""
+    z, q = _ct_branch_spectra(chunks)
+    z = F.pad(z, (0, 0, 0, 0, 1, 1))  # (B, NC + 2, 8, 64)
+    q = F.pad(q, (0, 0, 1, 1))
+    sign = torch.tensor([1.0, -1.0] * 4, device=z.device, dtype=z.dtype)[:, None]
+    return _ct_hann_power(z[:, :-1] + sign * z[:, 1:], q[:, :-1] + q[:, 1:])
+
+
+def _lsd_wholesig_ct_plain(
+    clean: torch.Tensor, denoised: torch.Tensor, hop: int, eps: float, scale: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel A13: hop-aligned (B, T) pairs, the
+    projection scale computed here (``scale=None``) or given ((B, 1))."""
+    batch, t = clean.shape
+    if scale is None:
+        scale = torch.sum(clean * denoised, dim=1, keepdim=True) / (
+            torch.sum(denoised * denoised, dim=1, keepdim=True) + eps
+        )
+    c = clean.reshape(batch, t // hop, hop)
+    d = denoised.reshape(batch, t // hop, hop) * scale.reshape(batch, 1, 1)
+    return torch.mean(_frame_lsd(_ct_frame_powers(c), _ct_frame_powers(d), eps), dim=-1)
+
+
 def _lsd_wholesig_raw_cuda(
     clean: torch.Tensor, denoised: torch.Tensor, hop: int, eps: float
 ) -> torch.Tensor:
@@ -139,6 +273,29 @@ def _lsd_wholesig_raw_cuda(
     out = torch.empty(batch, device=dev, dtype=torch.float32)
     cuda_lib.launch(KERNEL, dev, clean, denoised, table, scale_partial, partial, out, batch, nc, eps)
     cuda_lib.launch_counts[KERNEL] += 1
+    return out
+
+
+def _lsd_wholesig_ct_cuda(
+    clean: torch.Tensor, denoised: torch.Tensor, hop: int, eps: float, scale: torch.Tensor | None
+) -> torch.Tensor:
+    _check_pair(clean, denoised, hop)
+    dev = clean.device
+    batch, t = clean.shape
+    nc = t // hop
+    if nc == 0 or t % hop:
+        raise ValueError(f"need whole chunks of {hop} samples, got {tuple(clean.shape)}")
+    if scale is not None:
+        scale = scale.reshape(batch)
+        cuda_lib.check_operand(scale, "scale", dev, torch.float32, 1)
+    tw, w0, _ = (device_table(a, dev) for a in _ct_constants())
+    n_tiles = -(-(nc + 1) // _CT_TILE_FRAMES)
+    scale_partial = torch.empty(batch, _SCALE_SPLITS, 2, device=dev, dtype=torch.float32)
+    partial = torch.empty(batch, n_tiles, device=dev, dtype=torch.float32)
+    out = torch.empty(batch, device=dev, dtype=torch.float32)
+    cuda_lib.launch("lsd_wholesig_ct", dev, clean, denoised, scale, tw, w0, scale_partial, partial, out,
+                    batch, nc, eps)
+    cuda_lib.launch_counts[KERNEL_A13] += 1
     return out
 
 
@@ -213,6 +370,27 @@ def lsd_wholesig_raw(
     )
 
 
+def lsd_wholesig_ct(
+    clean: torch.Tensor, denoised: torch.Tensor, hop: int, eps: float, scale: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Kernel A13 wrapper: (B, T) float32 pairs with T % hop == 0 -> (B,)
+    LSD, the projection scale computed by the kernel (``scale=None``) or
+    given ((B,) or (B, 1)). The factorized chunk DFT is built for hop 256."""
+    return _dispatch(
+        clean,
+        lambda: _lsd_wholesig_ct_plain(clean, denoised, hop, eps, scale),
+        lambda: _lsd_wholesig_ct_cuda(clean, denoised, hop, eps, scale),
+    )
+
+
+def _takes_ct(t: int, n_fft: int, hop: int) -> bool:
+    """The JAX package's conditions for its factorized whole-signal kernel:
+    hop-aligned, a chunk count that is a multiple of 8, F + 1 <=
+    ``MAX_WHOLESIG_CHUNKS`` frames and n_fft 512."""
+    nc = t // hop
+    return t % hop == 0 and nc % 8 == 0 and nc + 2 <= MAX_WHOLESIG_CHUNKS and n_fft == 512
+
+
 def lsd_scores(
     clean: torch.Tensor,
     denoised: torch.Tensor,
@@ -220,21 +398,29 @@ def lsd_scores(
     hop: int,
     eps: float,
     denoised_scale: str | torch.Tensor | None = "auto",
+    dft_impl: str = "dense",
 ) -> torch.Tensor:
     """Centered-STFT LSD of (B, T) pairs -> (B,) scores, fully fused; any T.
 
     ``denoised_scale``: ``"auto"`` projects the denoised signal onto the
     clean one (least-squares scale), a (B,) or (B, 1) tensor is that scale
     given, ``None`` means ``denoised`` is already scaled. The routes follow
-    the JAX package's ``lsd_scores``: hop-aligned clips with ``"auto"`` take
-    A1, which computes the scale itself; everything else is scaled here and
-    takes A2, or A3 past ``MAX_WHOLESIG_CHUNKS``.
+    the JAX package's ``lsd_scores``: with ``dft_impl="ct"`` and a scale
+    (``"auto"`` or given), a clip that meets its conditions (``_takes_ct``)
+    takes A13; otherwise hop-aligned clips with ``"auto"`` take A1, which
+    computes the scale itself; everything else is scaled here and takes A2,
+    or A3 past ``MAX_WHOLESIG_CHUNKS``.
     """
     assert n_fft == 2 * hop, "fused LSD requires 50% overlap"
+    if dft_impl not in ("dense", "ct"):
+        raise ValueError(f"dft_impl must be 'dense' or 'ct', got {dft_impl!r}")
     t = clean.shape[-1]
+    if isinstance(denoised_scale, str) and denoised_scale != "auto":
+        raise ValueError(f"denoised_scale must be 'auto', a tensor or None, got {denoised_scale!r}")
+    if dft_impl == "ct" and denoised_scale is not None and _takes_ct(t, n_fft, hop):
+        given = None if isinstance(denoised_scale, str) else denoised_scale.reshape(-1, 1).to(torch.float32)
+        return lsd_wholesig_ct(clean, denoised, hop, eps, given)
     if isinstance(denoised_scale, str):
-        if denoised_scale != "auto":
-            raise ValueError(f"denoised_scale must be 'auto', a tensor or None, got {denoised_scale!r}")
         if t % hop == 0:
             return lsd_wholesig_raw(clean, denoised, hop, eps)
         denoised_scale = torch.sum(clean * denoised, dim=1) / (torch.sum(denoised * denoised, dim=1) + eps)

@@ -79,6 +79,26 @@ def test_levinson_kernel_matches_plain(dev, n):
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3 * want.abs().max().item())
 
 
+@pytest.mark.parametrize("variant", levinson_pallas.VARIANTS)
+@pytest.mark.parametrize("n", [128, 512, 96])
+def test_levinson_variant_kernels_match_plain(dev, variant, n):
+    """A5 and the A14 variants against their plain versions (odd and even
+    step counts for "double"); each counts under its own name."""
+    rs = np.random.RandomState(12)
+    r = (0.9 ** np.arange(n))[None] * rs.uniform(0.5, 20.0, (5, 1))
+    r[:, 0] += 1.0
+    r0 = torch.tensor(r, dtype=torch.float32, device=dev)
+    bt = torch.tensor(rs.randn(5, n), dtype=torch.float32, device=dev)
+    kname = levinson_pallas.KERNELS[variant]
+    before = cuda_lib.launch_counts[kname]
+    got = levinson_pallas.levinson_solve_fused(r0, bt, variant=variant)
+    assert cuda_lib.launch_counts[kname] == before + 1
+    want = levinson_pallas.levinson_solve_fused(r0.cpu(), bt.cpu(), variant=variant).to(dev)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3 * want.abs().max().item())
+    if variant in ("flat", "flat_u4", "flat_u8"):  # A5's recursion, only unrolled
+        assert torch.equal(got, levinson_pallas.levinson_solve_fused(r0, bt))
+
+
 def test_stoi_kernel_matches_plain(dev):
     rs = np.random.RandomState(5)
     tob_c = torch.tensor(np.abs(rs.randn(3, 300, 15)), dtype=torch.float32, device=dev)
@@ -102,6 +122,22 @@ def test_lsd_a2_a3_kernels_match_plain(dev, t):
         got = wrapper(c, d, 256, 1e-8)
         assert cuda_lib.launch_counts[kname] == before + 1
         torch.testing.assert_close(got, plain(c, d, 256, 1e-8), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("t,scale", [(256 * 64, None), (256 * 64, "given"), (256 * 8, None), (256 * 1016, None)])
+def test_lsd_ct_kernel_matches_plain(dev, t, scale):
+    """A13 against its plain version and against A1 (or A2 with a given
+    scale), rtol/atol 2e-4."""
+    c, d = _audio(dev, t=t)
+    given = None if scale is None else torch.tensor([0.7, 1.0, 1.3], device=dev)
+    before = cuda_lib.launch_counts[lsd_fused.KERNEL_A13]
+    got = lsd_fused.lsd_wholesig_ct(c, d, 256, 1e-8, given)
+    assert cuda_lib.launch_counts[lsd_fused.KERNEL_A13] == before + 1
+    want = lsd_fused._lsd_wholesig_ct_plain(c, d, 256, 1e-8, None if given is None else given[:, None])
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    dense = (lsd_fused.lsd_wholesig_raw(c, d, 256, 1e-8) if given is None
+             else lsd_fused.lsd_wholesig(c, d * given[:, None], 256, 1e-8))
+    torch.testing.assert_close(got, dense, rtol=2e-4, atol=2e-4)
 
 
 def _block_params(d, ffn, seed, qk_scale=0.12):
@@ -155,6 +191,51 @@ def test_attn_block_kernel_any_head_width(dev, d, heads):
                                            softmax=softmax)
         assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_A7] == before + 1
         _bf16_class(got.cpu(), attn_block_pallas.attn_block(x, packed, heads, 1e-5, softmax=softmax))
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exact", "exp2_bf16"])
+@pytest.mark.parametrize("t", [43, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attn_block_int8_kernel_matches_plain(dev, softmax, t, dtype):
+    """A12 against its plain version in the bf16 class (T = 43 and 130 are
+    not multiples of 8: v's column scales cover |b_v|)."""
+    d, heads = 128, 2
+    p = _block_params(d, 256, seed=t + 1)
+    x = torch.tensor(np.random.RandomState(6).randn(2, t, d), dtype=dtype)
+    packed = attn_block_pallas.pack_attn_block_params(p, heads, softmax, quant="int8")
+    before = cuda_lib.launch_counts[attn_block_pallas.KERNEL_A12]
+    got = attn_block_pallas.attn_block(x.to(dev), tuple(a.to(dev) for a in packed), heads, 1e-5, softmax,
+                                       quant="int8")
+    assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_A12] == before + 1
+    assert got.dtype == dtype
+    _bf16_class(got.cpu(), attn_block_pallas.attn_block(x, packed, heads, 1e-5, softmax, quant="int8"))
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exact", "exp2_bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,heads,t", [(128, 2, 43), (160, 2, 130)])
+def test_layer_block_kernel_matches_plain_and_a7_a8(dev, softmax, dtype, d, heads, t):
+    """A11 against its plain version in the bf16 class, and bit for bit
+    against A7 then A8: one launch of the same tile routines in the same
+    order (heads of 64 and 80)."""
+    p = _block_params(d, 256, seed=d + t)
+    x = torch.tensor(np.random.RandomState(7).randn(3, t, d), dtype=dtype)
+    attn_ops = tuple(a.to(dev) for a in attn_block_pallas.pack_attn_block_params(p, heads, softmax))
+    ffn_ops = tuple(a.to(dev) for a in attn_block_pallas.pack_ffn_block_params(p))
+    xd = x.to(dev)
+    before = dict(cuda_lib.launch_counts)
+    got = attn_block_pallas.layer_block(xd, attn_ops, ffn_ops, heads, 1e-5, softmax)
+    counts = {k: cuda_lib.launch_counts[k] - before.get(k, 0) for k in (attn_block_pallas.KERNEL_A11,
+                                                                        attn_block_pallas.KERNEL_A7,
+                                                                        attn_block_pallas.KERNEL_A8)}
+    assert counts == {attn_block_pallas.KERNEL_A11: 1, attn_block_pallas.KERNEL_A7: 0, attn_block_pallas.KERNEL_A8: 0}
+    assert got.dtype == dtype
+    separate = attn_block_pallas.ffn_block(attn_block_pallas.attn_block(xd, attn_ops, heads, 1e-5, softmax),
+                                           ffn_ops, 1e-5)
+    assert torch.equal(got, separate)
+    want = attn_block_pallas.layer_block(x, tuple(a.cpu() for a in attn_ops), tuple(a.cpu() for a in ffn_ops),
+                                         heads, 1e-5, softmax)
+    _bf16_class(got.cpu(), want)
 
 
 def _qkv(dev, shape, dtype, seed=0):
@@ -234,6 +315,28 @@ def test_speechbertscore_on_card_matches_cpu(dev):
     for kname in (attn_block_pallas.KERNEL_A7, attn_block_pallas.KERNEL_A8):
         assert cuda_lib.launch_counts[kname] == before.get(kname, 0) + 3
     on_cpu = SpeechBERTScore(device="cpu", attention_impl="block_ffn", **kw)(clean, noisy)
+    for a, b in zip(on_card, on_cpu):
+        assert a["SpeechBERTScore"] == pytest.approx(b["SpeechBERTScore"], abs=2e-4)
+
+
+@pytest.mark.parametrize("impl,kname", [("layer_block", attn_block_pallas.KERNEL_A11),
+                                        ("block_int8", attn_block_pallas.KERNEL_A12)])
+def test_speechbertscore_layer_and_int8_paths_on_card(dev, impl, kname):
+    """The whole-layer (A11) and int8 (A12) paths through ``__call__``
+    against the CPU plain path, F1 atol 2e-4; one launch per layer and no
+    A7 / A8."""
+    config = HubertConfig(hidden_size=128, num_hidden_layers=3, num_attention_heads=2,
+                          intermediate_size=256, conv_dim=(32, 32, 32), conv_kernel=(10, 3, 3),
+                          conv_stride=(5, 2, 2), num_conv_pos_embeddings=16,
+                          num_conv_pos_embedding_groups=4)
+    params = init_params(torch.Generator().manual_seed(0), config)
+    clean, noisy, _ = load_audio_data(1.0, 2, 16000)
+    kw = dict(params=params, config=config, output_layer=3, attention_impl=impl)
+    before = dict(cuda_lib.launch_counts)
+    on_card = SpeechBERTScore(device=dev, **kw)(clean, noisy)
+    for k, n in ((kname, 3), (attn_block_pallas.KERNEL_A7, 0), (attn_block_pallas.KERNEL_A8, 0)):
+        assert cuda_lib.launch_counts[k] == before.get(k, 0) + n
+    on_cpu = SpeechBERTScore(device="cpu", **kw)(clean, noisy)
     for a, b in zip(on_card, on_cpu):
         assert a["SpeechBERTScore"] == pytest.approx(b["SpeechBERTScore"], abs=2e-4)
 

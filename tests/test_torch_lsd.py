@@ -162,3 +162,60 @@ def test_lsd_kernel_wrapper_rejects_other_devices():
     for wrapper in (lsd_fused.lsd_wholesig_raw, lsd_fused.lsd_wholesig, lsd_fused.lsd_framed):
         with pytest.raises(ValueError, match="device"):
             wrapper(x, x, 256, 1e-8)
+
+
+@pytest.mark.parametrize("t", [256 * 16, 256 * 40])
+def test_lsd_ct_plain_matches_pallas_kernel(t):
+    """A13's plain version against the JAX factorized kernel in interpret
+    mode, on noise pairs (A2's precedent: the JAX chunk DFT is bf16x3)."""
+    clean, noisy = _noise_pairs(t, seed=4)
+    ours = lsd_fused.lsd_scores(torch.from_numpy(clean), torch.from_numpy(noisy), 512, 256, 1e-8, dft_impl="ct")
+    theirs = jax_lsd_scores(clean, noisy, 512, 256, 1e-8, interpret=True, denoised_scale="auto", dft_impl="ct")
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("scale", [None, (0.8, 1.3)])
+def test_lsd_ct_plain_matches_dense_on_speech(scale):
+    """The factorized DFT is the dense chunk DFT reassociated: A13's plain
+    version against A1's (a computed scale) or A2's (a given one)."""
+    clean, noisy = _pairs(256 * 64 / 16000, rows=2)
+    ct, nt = torch.from_numpy(clean), torch.from_numpy(noisy)
+    given = "auto" if scale is None else torch.tensor(scale)
+    got = lsd_fused.lsd_scores(ct, nt, 512, 256, 1e-8, denoised_scale=given, dft_impl="ct")
+    want = lsd_fused.lsd_scores(ct, nt, 512, 256, 1e-8, denoised_scale=given)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+
+
+def test_lsd_ct_tables_are_jax_tables():
+    from fast_speech_enhancement_metrics_tpu.ops.lsd_fused import _ct_constants as jax_ct_constants
+
+    for ours, theirs in zip(lsd_fused._ct_constants(), jax_ct_constants()):
+        np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("t,scale,want", [
+    (256 * 16, "auto", "A13"),
+    (256 * 16, "tensor", "A13"),
+    (256 * 16, None, "A2"),  # pre-scaled: no scale to apply
+    (256 * 12, "auto", "A1"),  # 12 chunks: not a multiple of 8
+    (256 * 16 + 5, "auto", "A2"),  # not hop-aligned
+    (256 * 1024, "auto", "A1"),  # F + 1 = 1026 frames, past MAX_WHOLESIG_CHUNKS
+])
+def test_lsd_ct_route_follows_jax_conditions(t, scale, want):
+    """``dft_impl="ct"`` takes A13 only where the JAX package takes its
+    factorized kernel; elsewhere the dense routes."""
+    c = torch.zeros(1, t)
+    given = torch.ones(1) if scale == "tensor" else scale
+    routes = []
+    names = {"lsd_wholesig_ct": "A13", "lsd_wholesig_raw": "A1", "lsd_wholesig": "A2", "lsd_framed": "A3"}
+    real = {name: getattr(lsd_fused, name) for name in names}
+    for name, kid in names.items():
+        setattr(lsd_fused, name, lambda *a, kid=kid, **k: routes.append(kid) or torch.zeros(1))
+    try:
+        lsd_fused.lsd_scores(c, c, 512, 256, 1e-8, denoised_scale=given, dft_impl="ct")
+    finally:
+        for name, fn in real.items():
+            setattr(lsd_fused, name, fn)
+    assert routes == [want]
+    with pytest.raises(ValueError, match="dft_impl"):
+        lsd_fused.lsd_scores(c, c, 512, 256, 1e-8, dft_impl="fft")

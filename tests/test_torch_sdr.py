@@ -57,6 +57,33 @@ def test_levinson_kernel_plain_matches_pallas_kernel():
         np.testing.assert_allclose(ours[i], want, rtol=2e-3, atol=2e-3 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("variant", levinson_pallas.VARIANTS)
+def test_levinson_variant_plain_matches_pallas_variant(variant):
+    """Each variant's plain version (A5's recursion, or the two-step one
+    for "double") against the JAX kernel of that variant in interpret mode
+    and against a float64 direct solve, at 2e-3 of max|x|."""
+    r, b = _spd_rows(128, seed=13)
+    ours = levinson_pallas.levinson_solve_fused(torch.from_numpy(r), torch.from_numpy(b), variant=variant).numpy()
+    theirs = np.asarray(jax_levinson_fused(r, b, interpret=True, variant=variant))
+    for i in range(len(r)):
+        want = solve_toeplitz(r[i].astype(np.float64), b[i].astype(np.float64))
+        np.testing.assert_allclose(ours[i], theirs[i], rtol=2e-3, atol=2e-3 * np.abs(want).max())
+        np.testing.assert_allclose(ours[i], want, rtol=2e-3, atol=2e-3 * np.abs(want).max())
+
+
+def test_levinson_double_plain_is_another_reassociation():
+    """The two-step plain version takes an odd and an even step count and
+    differs from the one-step recursion only by round-off."""
+    for n in (96, 97):
+        r, b = _spd_rows(n, rows=3, seed=14)
+        single = levinson_pallas.levinson_solve_fused(torch.from_numpy(r), torch.from_numpy(b)).numpy()
+        double = levinson_pallas._levinson_double_plain(torch.from_numpy(r), torch.from_numpy(b)).numpy()
+        np.testing.assert_allclose(double, single, rtol=0, atol=1e-4 * np.abs(single).max())
+        assert not np.array_equal(double, single)
+    with pytest.raises(ValueError, match="variant"):
+        levinson_pallas.levinson_solve_fused(torch.zeros(1, 32), torch.zeros(1, 32), variant="quad")
+
+
 def test_levinson_kernel_plain_matches_scan_at_512():
     r, b = _spd_rows(512, rows=3, seed=12)
     ours = levinson_pallas.levinson_solve_fused(torch.from_numpy(r), torch.from_numpy(b)).numpy()

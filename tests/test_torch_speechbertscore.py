@@ -2,8 +2,9 @@
 
 The small HuBERT config of tests/test_torch_hubert.py with the JAX
 package's ``init_params``; F1 atol 2e-4 on the shared 4 x 4 s fixture, on
-the float32 path ("auto" off the card) and on the block path (kernels
-A7 + A8 as plain versions; Pallas in interpret mode on the JAX side), and
+the float32 path ("auto" off the card), on the block path (kernels
+A7 + A8 as plain versions; Pallas in interpret mode on the JAX side), on
+the whole-layer path (A11) and the int8 screening path (A12), and
 on 2 x 0.5 s clips for the long-audio paths: "sdpa" (kernel A9's plain
 version) in each softmax mode against the JAX metric's "sdpa" (its Pallas
 kernel in interpret mode), and "flash" (A15's plain version) against the
@@ -42,7 +43,7 @@ def _f1(rows):
     return np.array([r["SpeechBERTScore"] for r in rows])
 
 
-@pytest.mark.parametrize("impl", ["auto", "block_ffn"])
+@pytest.mark.parametrize("impl", ["auto", "block_ffn", "layer_block", "block_int8"])
 def test_metric_matches_jax(speech_data, small, impl):
     jcfg, params, cfg = small
     clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
@@ -131,10 +132,14 @@ def test_resolve_impl_raises_for_heads_the_kernel_lacks(small, impl):
 
 
 def test_unported_paths_and_missing_weights_raise(tmp_path, small):
+    """Every attention path of the JAX package is ported: "layer_block" and
+    "block_int8" resolve to themselves on a card; an unknown path raises
+    ValueError and a missing checkpoint FileNotFoundError."""
     _, params, cfg = small
     for impl in ("layer_block", "block_int8"):
-        with pytest.raises(NotImplementedError):
-            SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl=impl)
+        metric = SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl=impl)
+        metric._on_cuda = lambda: True
+        assert metric._resolve_impl(16 * 16000, 8) == impl
     with pytest.raises(ValueError):
         SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl="nope")
     with pytest.raises(FileNotFoundError, match="mhubert"):

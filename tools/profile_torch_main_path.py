@@ -10,9 +10,11 @@ scores a batch of the package's synthetic audio (already on the card, as a
 benchmark would hold it) a few times under ``torch.profiler`` and prints
 one JSON line: the wall time per call, the device-busy time per call (the
 sum of all kernel times), the device idle share, and the ten kernels with
-the most device time. SpeechBERTScore is profiled a second time on its
-long-audio path at 16 x 60 s (2999 frames, the attention on kernel A9).
-Needs a CUDA card; raises without one.
+the most device time. SpeechBERTScore is profiled again at the same batch
+with ``attention_impl="layer_block"`` (each layer one launch of kernel A11)
+and ``"block_int8"`` (the int8 attention block A12, then the plain FFN),
+and on its long-audio path at 16 x 60 s (2999 frames, the attention on
+kernel A9). Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
@@ -49,12 +51,17 @@ def main() -> None:
         return torch.from_numpy(clean).cuda(), torch.from_numpy(noisy).cuda()
 
     c, d = on_card(args.seconds, args.batch)
-    sbs = SpeechBERTScore(params=init_params(torch.Generator().manual_seed(0)))
+    params = init_params(torch.Generator().manual_seed(0))
+    sbs = SpeechBERTScore(params=params)
     runs = [
         ("LSD", LSD(), c, d, args.batch, args.seconds),
         ("SDR", SDR(), c, d, args.batch, args.seconds),
         ("STOI", STOI(sample_rate=16000), c, d, args.batch, args.seconds),
         ("SpeechBERTScore", sbs, c, d, args.batch, args.seconds),
+        ("SpeechBERTScore layer_block", SpeechBERTScore(params=params, attention_impl="layer_block"), c, d,
+         args.batch, args.seconds),
+        ("SpeechBERTScore block_int8", SpeechBERTScore(params=params, attention_impl="block_int8"), c, d,
+         args.batch, args.seconds),
         ("SpeechBERTScore", sbs, *on_card(LONG_SECONDS, LONG_BATCH), LONG_BATCH, LONG_SECONDS),
     ]
     for name, metric, c, d, batch, seconds in runs:
