@@ -9,11 +9,17 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (``nvidia-smi``) and the TF32 switches;
    float32 matmuls must not use TF32, nor the metrics' convs,
-2. build the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a),
+2. build the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a) and print each
+   kernel's registers and spills (``ptxas -v``), and any wgmma
+   serialization warning; the attention kernel of A9 and A15 must hold
+   wgmma (HGMMA) and TMA (UTMALDG) instructions in its SASS (``cuobjdump``)
+   and spill no register,
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
    generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
-   A2 and A3; one mHuBERT-147 layer at 64 x 799 frames for A7 and A8, and
+   A2 and A3; A4 in its split modes x3 and x1 against the plain
+   correlation summed over the bf16 halves; one mHuBERT-147 layer at 64 x
+   799 frames for A7 and A8, and
    at 8 x 799 with heads of 32 and 80; A9 at 16 x 12 heads x 2999 frames x
    64 in its three softmax modes in bf16 and "exact" in float32, and at
    4 x 16 heads x 1499 x 80; A15 at 2 x 12 x 40 999 x 64; A10 at 64 x 16 s
@@ -30,6 +36,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (A7, A8; ``attention_impl="layer_block"``: A11; ``"block_int8"``: A12),
    on 16 x 60 s (A9) and on one pair of 820 s clips (A15);
    ``SDR(corr_impl="fused")`` on the 16 s and 16 s + 100 batches (A10);
+   ``SDR(corr_impl="gram")`` and ``"gram_x1"`` on the 16 s batch (A4 in
+   split x3 and x1);
    ``lsd_scores(..., dft_impl="ct")`` on the 16 s batch (A13);
    ``levinson_solve_fused(..., variant=v)`` for each A14 variant.
    The first rows are scored again on the CPU (plain path) for agreement,
@@ -52,10 +60,13 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -179,8 +190,27 @@ def main() -> int:
         text = (cuda_lib.BUILD_DIR / f"{src.rsplit('.', 1)[0]}.log")
         if text.exists():
             for line in text.read_text().splitlines():
-                if "entry function" in line or "registers" in line or "spill" in line:
+                if any(key in line for key in ("entry function", "registers", "spill", "C75")):
                     log(f"  ptxas {src}: {line.strip()}")
+
+    # the Hopper attention kernel (A9, A15) must run on wgmma and TMA: count
+    # its warpgroup products (HGMMA) and tensor loads (UTMALDG) in the SASS
+    cuobjdump = shutil.which("cuobjdump") or str(Path(cuda_lib._nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
+    flash = [f for f in sass.split("Function : ")[1:] if "flash_kernel" in f.split("\n", 1)[0]]
+    counts = [(f.count("HGMMA"), f.count("UTMALDG")) for f in flash]
+    log(f"SASS: {len(flash)} flash_kernel instantiations; HGMMA and UTMALDG in each: {counts}")
+    check(len(flash) == 8 and all(h > 0 and t > 0 for h, t in counts),
+          "the attention kernel is not built on wgmma and TMA")
+    # ... and spill nothing: ptxas's spill line follows each entry function
+    spills, entry = [], ""
+    for line in (cuda_lib.BUILD_DIR / "sdpa.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        elif "spill stores" in line and "flash_kernel" in entry:
+            spills.append(sum(int(n) for n in re.findall(r"(\d+) bytes spill", line)))
+    log(f"ptxas: flash_kernel spill bytes (stores + loads) per instantiation: {spills}")
+    check(len(spills) == 8 and not any(spills), "the attention kernel spills registers")
 
     # -- 3. kernels against their plain versions --------------------------------
     clean_np, noisy_np, _ = load_audio_data(SECONDS, BATCH, RATE)
@@ -219,6 +249,15 @@ def main() -> int:
     scale = torch.max(torch.abs(ra_p)).item()
     err = max(torch.max(torch.abs(ra_k - ra_p)).item(), torch.max(torch.abs(rc_k - rc_p)).item())
     record("A4", sdr_corr_gram.KERNEL, "sdr_corr_gram.cu", "sdr_corr_gram.py:57", err, 2e-4 * scale)
+    # A4 in the JAX kernel's reduced product classes (split x3: bf16 halves
+    # hh + hl + lh; x1: hh), against the plain correlation summed over the
+    # halves, atol 2e-4 * max|r_auto|
+    for split in ("x3", "x1"):
+        ra_s, rc_s = sdr_corr_gram.correlation_lags_gram(c, d, LAGS, split)
+        pa_s, pc_s = sdr_corr_gram._correlation_lags_plain(c, d, LAGS, split)
+        err = max(torch.max(torch.abs(ra_s - pa_s)).item(), torch.max(torch.abs(rc_s - pc_s)).item())
+        record(f"A4-{split}", sdr_corr_gram.KERNELS[split], "sdr_corr_gram.cu", "sdr_corr_gram.py:57", err,
+               2e-4 * torch.max(torch.abs(pa_s)).item(), f" (split {split})")
 
     # A5: the 512-tap SDR systems of those correlations; the solutions are
     # held at 2e-3 of max|x| (the tests' Levinson tolerance at n = 512) and
@@ -436,7 +475,7 @@ def main() -> int:
         f32_err(sdpa_pallas.sdpa(q9, k9, v9, d_**-0.5, softmax="exact"),
                 sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, "exact"),
                 f"A9 {b_}x{h_}x{t_}x{d_} float32 softmax=exact")
-    record("A9", sdpa_pallas.KERNEL_A9, "sdpa.cu", "sdpa_pallas.py:36", *worst[1:],
+    record("A9", sdpa_pallas.KERNEL_A9, "flash_sm90.cuh", "sdpa_pallas.py:36", *worst[1:],
            " (the bf16 case nearest its limit)")
     a9_inputs = qkv((LONG_BATCH, heads, long_frames, 64), torch.bfloat16)
     del q9, k9, v9
@@ -449,7 +488,7 @@ def main() -> int:
     a15_inputs = qkv((2, heads, flash_frames, 64), torch.bfloat16)
     worst = context_err(sdpa_pallas.flash_sdpa(*a15_inputs, 0.125), sdpa_pallas._flash_sdpa_plain(*a15_inputs, 0.125),
                         f"A15 2x{heads}x{flash_frames}x64", (0.0, 0.0, 1.0))
-    record("A15", sdpa_pallas.KERNEL_A15, "sdpa.cu", "models/hubert.py:157", *worst[1:],
+    record("A15", sdpa_pallas.KERNEL_A15, "flash_sm90.cuh", "models/hubert.py:157", *worst[1:],
            " (the upstream flash_attention kernel that _flash_sdpa calls)")
 
     # A10 on the normalised signals, as SDR(corr_impl="fused") feeds it: the
@@ -675,6 +714,22 @@ def main() -> int:
         log(f"SDR fused {c_np.shape[1]} samples ({kid}): batch mean {vals.mean()}; vs SDR() on the card "
             f"{dev_ref:.3e} dB, vs the CPU plain path on {CPU_ROWS} rows {dev_cpu:.3e} dB (atol 1e-2)")
 
+    # SDR(corr_impl="gram" | "gram_x1"): A4 once in split x3 / x1 and never
+    # in x4; against the CPU plain path of the same mode at 1e-2 dB, and
+    # logged against SDR() (x1 is the JAX package's screening class)
+    for impl, split in (("gram", "x3"), ("gram_x1", "x1")):
+        kid = f"A4-{split}"
+        rows = drive(lambda: pkg.SDR(corr_impl=impl)(clean_np, noisy_np), f"SDR corr_impl={impl!r}", (kid,))
+        only({sdr_corr_gram.KERNELS[s_]: int(s_ == split) for s_ in sdr_corr_gram.KERNELS}, f"SDR {impl}")
+        vals = np.array([r["SDR"] for r in rows])
+        check(len(rows) == BATCH and bool(np.all(np.isfinite(vals))), f"SDR {impl}: bad scores")
+        cpu = np.array([r["SDR"] for r in pkg.SDR(device="cpu", corr_impl=impl)(clean_np[:CPU_ROWS], noisy_np[:CPU_ROWS])])
+        dev_cpu = float(np.max(np.abs(vals[:CPU_ROWS] - cpu)))
+        check(dev_cpu <= 1e-2, f"SDR {impl}: vs the CPU plain path {dev_cpu:.3e} dB (atol 1e-2)")
+        vs_x4 = float(np.max(np.abs(vals - np.array([r["SDR"] for r in scores["SDR"]]))))
+        log(f"SDR corr_impl={impl!r}: batch mean {vals.mean()}; vs the CPU plain path on {CPU_ROWS} rows "
+            f"{dev_cpu:.3e} dB (atol 1e-2); vs SDR() (split x4) {vs_x4:.3e} dB")
+
     # -- 5. times ---------------------------------------------------------------
     nc = t_len // HOP
     idx = torch.as_tensor(np.abs(np.arange(LAGS)[None, :] - np.arange(LAGS)[:, None]), device=dev)
@@ -687,6 +742,25 @@ def main() -> int:
     def corr_library():
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             return torch.nn.functional.conv1d(pairs, lagged, groups=2 * BATCH)
+
+    # x3 / x1: one grouped conv1d over the bf16 halves, computed before the
+    # call (the split itself is not in the yardstick); per group the input
+    # channels [yh, yl, yh] against the filters [ch, ch, cl] (x3) or yh
+    # against ch (x1), summed over the channels as the split product is
+    c_h, c_l = sdr_corr_gram._hi_lo(c)
+    d_h, d_l = sdr_corr_gram._hi_lo(d)
+    split_library = {}
+    for split, ys, fs in (("x3", ((c_h, c_l, c_h), (d_h, d_l, d_h)), ((c_h, c_h, c_l),) * 2),
+                          ("x1", ((c_h,), (d_h,)), ((c_h,),) * 2)):
+        ch_in = torch.nn.functional.pad(torch.cat([torch.stack(y, dim=1) for y in ys], dim=0).reshape(
+            1, -1, t_len), (0, LAGS - 1))
+        filt = torch.cat([torch.stack(f, dim=1) for f in fs], dim=0)  # (2B, channels, T)
+
+        def split_conv(ch_in=ch_in, filt=filt):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return torch.nn.functional.conv1d(ch_in, filt, groups=2 * BATCH)
+
+        split_library[split] = split_conv
 
     n_seg_total = float(nseg.sum().item())
     f_len = tob_c.shape[1]
@@ -704,6 +778,12 @@ def main() -> int:
                       + k_blocks * (LAGS + 1) * (4 + 2 * 8)  # window combine, two products
                       + 2 * rfft_flops(2 * LAGS))  # two inverse transforms
     a4_direct = 2 * BATCH * t_len * LAGS * 2
+    # x3: the chunk spectra of four half signals and three products per
+    # correlation, plus the splits (4 operations a sample and signal); x1:
+    # two half signals, one product each, and the splits
+    a4_x3_ops = BATCH * ((4 * k_blocks + 2) * rfft_flops(2 * LAGS) + k_blocks * (LAGS + 1) * (8 + 6 * 8)
+                         + 2 * rfft_flops(2 * LAGS) + 8 * t_len)
+    a4_x1_ops = a4_ops + BATCH * 4 * t_len
     a5_ops = 12 * LAGS * (LAGS - 1) * BATCH  # per step: two dot products, four axpys
     # per valid segment: ~30 flops per (band, frame) over 15 x 30, plus ~15
     # per frame for the ESTOI band normalisation
@@ -715,6 +795,12 @@ def main() -> int:
         "A4": (lambda: sdr_corr_gram.correlation_lags_gram(c, d, LAGS),
                lambda: sdr_corr_gram._correlation_lags_plain(c, d, LAGS), corr_library,
                a4_ops, a4_direct, 2 * BATCH * t_len * 4 + 2 * BATCH * LAGS * 4),
+        "A4-x3": (lambda: sdr_corr_gram.correlation_lags_gram(c, d, LAGS, "x3"),
+                  lambda: sdr_corr_gram._correlation_lags_plain(c, d, LAGS, "x3"), split_library["x3"],
+                  a4_x3_ops, 3 * a4_direct, 2 * BATCH * t_len * 4 + 2 * BATCH * LAGS * 4),
+        "A4-x1": (lambda: sdr_corr_gram.correlation_lags_gram(c, d, LAGS, "x1"),
+                  lambda: sdr_corr_gram._correlation_lags_plain(c, d, LAGS, "x1"), split_library["x1"],
+                  a4_x1_ops, a4_direct, 2 * BATCH * t_len * 4 + 2 * BATCH * LAGS * 4),
         "A5": (lambda: levinson_pallas.levinson_solve_fused(r0n, bn),
                lambda: toeplitz.levinson_solve(r0n, bn),
                lambda: torch.linalg.solve(toeplitz_full, bn[..., None]),

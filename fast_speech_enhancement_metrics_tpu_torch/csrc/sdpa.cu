@@ -16,23 +16,37 @@
 // against 0.09 GB of q, k, v and o (0.03 ms); "exact" computes q k^T twice
 // (its max pass). A15 at 2 x 12 x 40 999 frames is 10.3 TFLOP (10.4 ms).
 //
-// Design: attention_core.cuh's bf16 arm with its own (B H, T, D) layout.
-// The TPU kernel holds a head's K/V in VMEM; an SM holds 227 KB, so K/V
-// tiles of 64 keys (128 for A15) stream through shared memory, and A15
-// keeps its normalised accumulator in shared memory between tiles. A first,
-// simple version: wmma (mma.sync) 16x16x16 fragments, no wgmma or TMA yet.
-#include "attention_core.cuh"
+// Design: flash_sm90.cuh, a Hopper kernel (TMA loads in a ring of stages
+// fed by a producer warp, wgmma products, the softmax in registers) with
+// the (B H, T, D) layout read through TMA tensor maps. The TPU kernel holds
+// a head's K/V in VMEM; here K/V tiles of 128 keys stream through shared
+// memory. The float32 arm (sdpa_f32.cu) keeps attention_core.cuh: wgmma
+// takes float32 only as TF32.
+#include "flash_sm90.cuh"
 
-// q, k, v, o: (batch, heads, t_len, head_dim) bf16, contiguous; head_dim <=
-// 128. n_keys: keys walked (t_len; A15: t_len padded to 512). mode: 0 exp2,
-// 1 exp2_bf16, 2 exact, 3 online (A15). scale multiplies the logits in mode
-// 3; l_pad is added to each row sum in modes 0-2.
+// q, k, v, o: (batch, heads, t_len, head_dim) bf16, contiguous, 16-byte
+// aligned; head_dim a multiple of 8, at most 128. n_keys: the keys the
+// reference walks (t_len; A15: t_len padded to 512); the kernel skips key
+// tiles wholly past t_len, which add nothing. mode: 0 exp2, 1 exp2_bf16,
+// 2 exact, 3 online (A15). scale multiplies the logits in mode 3; l_pad is
+// added to each row sum in modes 0-2.
 extern "C" int fsem_sdpa(const void* q, const void* k, const void* v, void* o, int batch,
                          int heads, int t_len, int n_keys, int head_dim, int mode, float scale,
                          float l_pad, void* stream_ptr) {
-  if (head_dim <= 0 || head_dim > attn::kMaxHead || t_len <= 0 || n_keys < t_len)
+  if (head_dim <= 0 || head_dim > flash90::kMaxHead || head_dim % 8 != 0 || t_len <= 0 ||
+      n_keys < t_len || batch <= 0 || heads <= 0)
     return (int)cudaErrorInvalidValue;
-  const attn::Args a = attn::bhtd_args(q, k, v, o, heads, t_len, n_keys, head_dim, scale, l_pad, 2);
-  return (int)attn::launch_mode<__nv_bfloat16>(a, mode, heads, batch,
-                                               static_cast<cudaStream_t>(stream_ptr));
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    if (!flash90::tensor_map(&maps[i], ptrs[i], batch * heads, t_len, head_dim))
+      return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  auto* out = static_cast<__nv_bfloat16*>(o);
+  if (head_dim <= flash90::kBoxCols)
+    return (int)flash90::launch_mode<1>(maps[0], maps[1], maps[2], out, batch, heads, t_len,
+                                        head_dim, mode, scale, l_pad, stream);
+  return (int)flash90::launch_mode<2>(maps[0], maps[1], maps[2], out, batch, heads, t_len,
+                                      head_dim, mode, scale, l_pad, stream);
 }

@@ -1,8 +1,8 @@
 // Auto- and cross-correlation of clean/denoised pairs at 512 lags.
 //
 // Replaces: ops/sdr_corr_gram.py::_gram_kernel of the JAX package (Pallas,
-// TPU), the kernel behind correlation_lags_gram(..., split="x4") that SDR
-// uses on one device.
+// TPU), the kernel behind correlation_lags_gram(..., split=) that SDR uses
+// on one device, in its three split modes.
 //
 // What it computes, per pair (c, d) of T samples, for l = 0..511:
 //   r_auto[l]  = sum_t c[t - l] * c[t]
@@ -14,7 +14,8 @@
 // correlation needs about 2 GFLOP (0.03 ms of float32 FMA at 67 TFLOP/s).
 // This direct design does 2 x 512 multiply-adds per sample and pair (about
 // 33.5 GFLOP at 64 x 16 s, 0.5 ms), so its operations set its own floor; a
-// transform-domain kernel is the way below that.
+// transform-domain kernel is the way below that. Split x3 does three times
+// those multiply-adds (1.5 ms), x1 the same count; both add the splits.
 //
 // Design: a direct time-domain product, no transform. One block per (row,
 // slab of kSlab samples of t). The block stages c over the slab and the 512
@@ -24,8 +25,18 @@
 // 8 x 8 x 2 register FMAs, so each shared-memory load feeds 4 FMAs. The
 // four quarters are added in a fixed order, the block writes its slab's
 // 2 x 512 partial sums, and a second launch adds the slabs per row in a
-// fixed order: deterministic, no atomics. float32 throughout (the TPU
-// kernel's hi/lo bf16 split exists only to reach float32 class there).
+// fixed order: deterministic, no atomics.
+//
+// Split modes (the template parameter kSplit). The TPU kernel forms every
+// product from bf16 halves, hi = bf16(x) and lo = bf16(x - hi), on its
+// matrix unit: x4 sums hh + hl + lh + ll, x3 drops ll, x1 keeps hh. Here
+// kSplit = 4 is the plain float32 product (the float32 class that x4
+// reaches on the TPU); kSplit = 3 and 1 form the products from the halves
+// of the lagged window (c) and of the target (c or d) in registers, each
+// half product exact in float32. On this card the halves save nothing: they
+// exist so that "gram" and "gram_x1" give the reference's results.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
@@ -41,6 +52,9 @@ constexpr int kStep = 8;                        // samples of t per inner step
 
 static_assert(kQuarters * 2 * kLags <= kSlab + kLags, "reduction reuses the c tile");
 
+__device__ __forceinline__ float bf16_hi(float x) { return __bfloat162float(__float2bfloat16(x)); }
+
+template <int kSplit>
 __global__ void __launch_bounds__(kThreads) corr_slab_kernel(
     const float* __restrict__ c, const float* __restrict__ d,
     float* __restrict__ partial, int t_len, int n_slabs) {
@@ -95,14 +109,48 @@ __global__ void __launch_bounds__(kThreads) corr_slab_kernel(
       yd[4 * v + 2] = e.z;
       yd[4 * v + 3] = e.w;
     }
+    if constexpr (kSplit == 4) {
 #pragma unroll
-    for (int i = 0; i < kStep; ++i)
+      for (int i = 0; i < kStep; ++i)
 #pragma unroll
-      for (int j = 0; j < kLagsPerThread; ++j) {
-        const float cv = w[i - j + kLagsPerThread];
-        acc_c[j] = fmaf(cv, yc[i], acc_c[j]);
-        acc_d[j] = fmaf(cv, yd[i], acc_d[j]);
+        for (int j = 0; j < kLagsPerThread; ++j) {
+          const float cv = w[i - j + kLagsPerThread];
+          acc_c[j] = fmaf(cv, yc[i], acc_c[j]);
+          acc_d[j] = fmaf(cv, yd[i], acc_d[j]);
+        }
+    } else {
+      // halves in place: w, yc, yd become the hi parts, wl, cl, dl the lo
+      float wl[16], cl[kStep], dl[kStep];
+#pragma unroll
+      for (int m = 0; m < 16; ++m) {
+        const float h = bf16_hi(w[m]);
+        wl[m] = bf16_hi(w[m] - h);
+        w[m] = h;
       }
+#pragma unroll
+      for (int i = 0; i < kStep; ++i) {
+        const float hc = bf16_hi(yc[i]), hd = bf16_hi(yd[i]);
+        cl[i] = bf16_hi(yc[i] - hc);
+        dl[i] = bf16_hi(yd[i] - hd);
+        yc[i] = hc;
+        yd[i] = hd;
+      }
+#pragma unroll
+      for (int i = 0; i < kStep; ++i)
+#pragma unroll
+        for (int j = 0; j < kLagsPerThread; ++j) {
+          const float ch = w[i - j + kLagsPerThread];
+          acc_c[j] = fmaf(ch, yc[i], acc_c[j]);
+          acc_d[j] = fmaf(ch, yd[i], acc_d[j]);
+          if constexpr (kSplit == 3) {
+            const float clo = wl[i - j + kLagsPerThread];
+            acc_c[j] = fmaf(ch, cl[i], acc_c[j]);
+            acc_c[j] = fmaf(clo, yc[i], acc_c[j]);
+            acc_d[j] = fmaf(ch, dl[i], acc_d[j]);
+            acc_d[j] = fmaf(clo, yd[i], acc_d[j]);
+          }
+        }
+    }
   }
   __syncthreads();  // every thread is done with cs: reuse it for the sums
 
@@ -139,15 +187,21 @@ __global__ void corr_finalize_kernel(const float* __restrict__ partial,
 }  // namespace
 
 // clean, denoised: (batch, t_len) float32; partial: (batch, ceil(t_len /
-// 4096), 2, 512) scratch; r_auto, r_cross: (batch, 512).
+// 4096), 2, 512) scratch; r_auto, r_cross: (batch, 512); split: 4, 3 or 1
+// (the JAX split modes x4, x3, x1).
 extern "C" int fsem_correlation_lags_gram(const float* clean, const float* denoised,
                                           float* partial, float* r_auto,
                                           float* r_cross, int batch, int t_len,
-                                          void* stream_ptr) {
+                                          int split, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int n_slabs = (t_len + kSlab - 1) / kSlab;
-  corr_slab_kernel<<<dim3(n_slabs, batch), kThreads, 0, stream>>>(
-      clean, denoised, partial, t_len, n_slabs);
+  const dim3 grid(n_slabs, batch);
+  switch (split) {
+    case 4: corr_slab_kernel<4><<<grid, kThreads, 0, stream>>>(clean, denoised, partial, t_len, n_slabs); break;
+    case 3: corr_slab_kernel<3><<<grid, kThreads, 0, stream>>>(clean, denoised, partial, t_len, n_slabs); break;
+    case 1: corr_slab_kernel<1><<<grid, kThreads, 0, stream>>>(clean, denoised, partial, t_len, n_slabs); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   corr_finalize_kernel<<<batch, 256, 0, stream>>>(partial, r_auto, r_cross, n_slabs);
   return (int)cudaGetLastError();
 }

@@ -36,12 +36,14 @@ class SDR(BaseMetric):
         **kw,
     ):
         """``corr_impl``: "gram_x4" (kernel A4, ``ops/sdr_corr_gram.py``:
-        correlate the raw signals in float32, then normalize), "xla"
-        (normalize, then overlap-save DFT matmuls), or "auto" (gram_x4 on a
-        CUDA device, xla otherwise), or "fused" (kernel A10,
-        ``ops/sdr_corr_fused.py``: normalize, then chunk spectra and their
-        products reduced on chip). The JAX package's reduced-precision
-        "gram" / "gram_x1" modes are not ported.
+        correlate the raw signals in float32, then normalize), "gram" and
+        "gram_x1" (the same with the JAX kernel's reduced product classes,
+        split x3 and x1: bf16 halves hh + hl + lh, or hh alone; never chosen
+        by "auto", and no faster on a CUDA card, where they exist to give
+        the reference's results), "xla" (normalize, then overlap-save DFT
+        matmuls), or "auto" (gram_x4 on a CUDA device, xla otherwise), or
+        "fused" (kernel A10, ``ops/sdr_corr_fused.py``: normalize, then
+        chunk spectra and their products reduced on chip).
 
         ``solver``: "levinson" (kernel A5 on a CUDA device, its plain
         version elsewhere), "levinson_xla" (the plain recursion everywhere),
@@ -49,11 +51,7 @@ class SDR(BaseMetric):
         Cholesky fails)."""
         super().__init__(sample_rate, **kw)
         self.filter_length = 512
-        if corr_impl in ("gram", "gram_x1"):
-            raise NotImplementedError(
-                f"corr_impl={corr_impl!r} is not ported (the float32 kernel serves gram_x4)"
-            )
-        assert corr_impl in ("auto", "gram_x4", "fused", "xla")
+        assert corr_impl in ("auto", "gram", "gram_x1", "gram_x4", "fused", "xla")
         self.corr_impl = corr_impl
         assert solver in ("levinson", "levinson_xla", "cholesky")
         self.solver = solver
@@ -70,12 +68,13 @@ class SDR(BaseMetric):
         impl = self.corr_impl
         if impl == "auto":
             impl = "gram_x4" if self._on_cuda() else "xla"
-        if impl == "gram_x4":
+        if impl.startswith("gram"):
             # correlate the RAW signals and normalize the correlations
             # afterwards: the same formula as normalize-first for any signal
             # with ||x|| >= 1e-6 (correlations are bilinear, the coherence
             # ratio is scale-invariant), without normalized copies
-            r0, b = correlation_lags_gram(clean, denoised, corr_len)
+            split = {"gram": "x3", "gram_x1": "x1", "gram_x4": "x4"}[impl]
+            r0, b = correlation_lags_gram(clean, denoised, corr_len, split)
             nc2 = torch.clamp(r0[..., 0:1], min=1e-12)  # = clip(||c||, 1e-6)^2
             nd2 = torch.clamp(torch.sum(denoised * denoised, dim=-1, keepdim=True), min=1e-12)
             r0 = r0 / nc2

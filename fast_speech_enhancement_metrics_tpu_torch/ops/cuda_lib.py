@@ -28,7 +28,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-HEADERS = ("common.cuh", "attention_core.cuh", "block_tiles.cuh")
+HEADERS = ("common.cuh", "attention_core.cuh", "block_tiles.cuh", "flash_sm90.cuh")
 SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
     "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu", "layer_block.cu",
@@ -49,8 +49,9 @@ _SIGNATURES = {
     # (clean, denoised, scale or null, fold twiddles, branch DFT table, scale
     #  partials, tile partials, out, batch, chunks, eps, stream)
     "fsem_lsd_wholesig_ct": (_P,) * 8 + (_I, _I, _F, _P),
-    # (clean, denoised, slab partials, r_auto, r_cross, batch, samples, stream)
-    "fsem_correlation_lags_gram": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # (clean, denoised, slab partials, r_auto, r_cross, batch, samples, split
+    #  terms 4 / 3 / 1, stream)
+    "fsem_correlation_lags_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # (r0, b, x, batch, order, variant, stream)
     "fsem_levinson_solve": (_P, _P, _P, _I, _I, _I, _P),
     # (tob clean, tob denoised, num_segments, tile partials, out, batch, frames, stream)

@@ -23,9 +23,13 @@ m, p = exp(s - m_next), l_next = sum(p) + exp(m_prev - m_next) l_prev, and
 the accumulator stays normalised: acc = acc * (l_corr / l_next) + (bf16(p)
 V) / l_next; the output is acc in q's dtype.
 
-The CUDA kernels are ``csrc/sdpa.cu`` (bf16) and ``csrc/sdpa_f32.cu``
-(float32, the ``precision="highest"`` arm), both built on
-``csrc/attention_core.cuh``. CPU tensors take the plain versions; CUDA
+The CUDA kernels are ``csrc/sdpa.cu`` (bf16, on ``csrc/flash_sm90.cuh``:
+TMA, wgmma, the softmax in registers, 128 queries a block) and
+``csrc/sdpa_f32.cu`` (float32, the ``precision="highest"`` arm, on
+``csrc/attention_core.cuh``, 64 queries a block). The bf16 kernel reads
+rows of 16-byte multiples: a head width that is not a multiple of 8 is
+zero-padded to one first (the zero columns add nothing to q k^T, and give
+output columns that are cut off). CPU tensors take the plain versions; CUDA
 tensors launch the kernels or raise.
 """
 
@@ -47,8 +51,11 @@ KERNEL_A15 = "flash_sdpa"
 SDPA_KEY_QUANTUM, FLASH_KEY_QUANTUM = 128, 512
 #: the flash kernel's key block (BlockSizes.get_default's block_k)
 FLASH_BLOCK_K = 128
-#: A9's query block in the CUDA kernel (the JAX signature's ``block_q``)
-KERNEL_BLOCK_Q = 64
+#: A9's query block in the CUDA kernels (the JAX signature's ``block_q``):
+#: the float32 arm's, and the bf16 arm's
+KERNEL_BLOCK_Q, KERNEL_BLOCK_Q_BF16 = 64, 128
+#: the bf16 kernel's head widths are multiples of this (16-byte TMA rows)
+_BF16_HEAD_QUANTUM = 8
 _ONLINE = 3
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -137,24 +144,27 @@ def _launch(kernel: str, q, k, v, mode: int, n_keys: int, scale: float, l_pad: f
         raise ValueError(f"the attention kernels take heads of at most {MAX_HEAD_DIM}, got {d}")
     if b * h * t == 0 or d == 0:
         raise ValueError(f"need a non-empty (B, H, T, D) input, got {tuple(q.shape)}")
-    q, k, v = (_aligned(a) for a in (q, k, v))
+    bf16 = q.dtype == torch.bfloat16
+    pad = -d % _BF16_HEAD_QUANTUM if bf16 else 0
+    q, k, v = (_aligned(torch.nn.functional.pad(a, (0, pad)) if pad else a) for a in (q, k, v))
     for name, a in (("k", k), ("v", v)):
         cuda_lib.check_operand(a, name, q.device, q.dtype, 4)
     out = torch.empty_like(q)
-    entry = "sdpa" if q.dtype == torch.bfloat16 else "sdpa_f32"
-    cuda_lib.launch(entry, q.device, q, k, v, out, b, h, t, n_keys, d, mode, scale, l_pad)
+    cuda_lib.launch("sdpa" if bf16 else "sdpa_f32", q.device, q, k, v, out, b, h, t, n_keys, d + pad, mode, scale,
+                    l_pad)
     cuda_lib.launch_counts[kernel] += 1
-    return out
+    return out[..., :d].contiguous() if pad else out
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling: float, block_q: int | None = None,
          softmax: str = "exact") -> torch.Tensor:
     """Kernel A9 wrapper: softmax((q * scaling) k^T) v over (B, H, T, D),
     bf16 or float32, in q's dtype. ``block_q`` is the JAX signature's query
-    block; the CUDA kernel's is fixed at ``KERNEL_BLOCK_Q``, and another
-    value raises."""
-    if block_q not in (None, KERNEL_BLOCK_Q):
-        raise ValueError(f"the sdpa kernel's query block is {KERNEL_BLOCK_Q}, got block_q={block_q}")
+    block; the CUDA kernel's is fixed (``KERNEL_BLOCK_Q_BF16`` for bf16,
+    ``KERNEL_BLOCK_Q`` for float32), and another value raises."""
+    kernel_block_q = KERNEL_BLOCK_Q_BF16 if q.dtype == torch.bfloat16 else KERNEL_BLOCK_Q
+    if block_q not in (None, kernel_block_q):
+        raise ValueError(f"the sdpa kernel's query block is {kernel_block_q}, got block_q={block_q}")
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
     _check_qkv(q, k, v)

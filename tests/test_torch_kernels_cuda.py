@@ -56,11 +56,18 @@ def test_lsd_kernel_matches_plain(dev):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("split", ["x4", "x3", "x1"])
 @pytest.mark.parametrize("t", [32768, 7000, 150])
-def test_corr_kernel_matches_plain(dev, t):
+def test_corr_kernel_matches_plain(dev, t, split):
+    """A4 in each split mode against its plain version (the plain
+    correlation summed over the bf16 halves for x3 and x1), counted under
+    the mode's own name."""
     c, d = _audio(dev, t=t)
-    ra, rc = sdr_corr_gram.correlation_lags_gram(c, d, 512)
-    pa, pc = sdr_corr_gram._correlation_lags_plain(c, d, 512)
+    before = dict(cuda_lib.launch_counts)
+    ra, rc = sdr_corr_gram.correlation_lags_gram(c, d, 512, split)
+    assert {k: cuda_lib.launch_counts[k] - before.get(k, 0) for k in sdr_corr_gram.KERNELS.values()} == {
+        k: int(s == split) for s, k in sdr_corr_gram.KERNELS.items()}
+    pa, pc = sdr_corr_gram._correlation_lags_plain(c, d, 512, split)
     scale = pa.abs().max().item()
     torch.testing.assert_close(ra, pa, rtol=0, atol=2e-4 * scale)
     torch.testing.assert_close(rc, pc, rtol=0, atol=2e-4 * scale)
@@ -245,9 +252,13 @@ def _qkv(dev, shape, dtype, seed=0):
 
 @pytest.mark.parametrize("softmax", ["exp2", "exp2_bf16", "exact"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [64, 80])
-def test_sdpa_kernel_matches_plain(dev, softmax, dtype, d):
-    q, k, v = _qkv(dev, (2, 3, 259, d), dtype)
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 36])
+@pytest.mark.parametrize("t", [37, 259, 2999])
+def test_sdpa_kernel_matches_plain(dev, softmax, dtype, d, t):
+    """Heads of 32, 64, 80 and 128 (one or two 64-column TMA boxes) and 36
+    (zero-padded to 40 by the wrapper); T under one key tile, ragged, and
+    2999 (a ring of stages walked many times)."""
+    q, k, v = _qkv(dev, (2, 3, t, d), dtype)
     before = cuda_lib.launch_counts[sdpa_pallas.KERNEL_A9]
     got = sdpa_pallas.sdpa(q, k, v, d**-0.5, softmax=softmax)
     assert cuda_lib.launch_counts[sdpa_pallas.KERNEL_A9] == before + 1
@@ -260,14 +271,16 @@ def test_sdpa_kernel_matches_plain(dev, softmax, dtype, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [64, 80])
-def test_flash_kernel_matches_plain_on_query_slices(dev, dtype, d):
-    t = 1300
+@pytest.mark.parametrize("d", [32, 64, 80, 128])
+@pytest.mark.parametrize("t", [37, 1100, 2999])
+def test_flash_kernel_matches_plain_on_query_slices(dev, dtype, d, t):
+    """T = 37 (one ragged tile, padded to 512: three whole tiles skipped),
+    1100 (padded to 1536: three skipped) and 2999 (to 3072: none)."""
     q, k, v = _qkv(dev, (1, 2, t, d), dtype, seed=1)
     before = cuda_lib.launch_counts[sdpa_pallas.KERNEL_A15]
     got = sdpa_pallas.flash_sdpa(q, k, v, d**-0.5)
     assert cuda_lib.launch_counts[sdpa_pallas.KERNEL_A15] == before + 1
-    for sl in (slice(0, 128), slice(t - 128, t)):
+    for sl in (slice(0, 128), slice(max(0, t - 128), t)):
         want = sdpa_pallas._flash_sdpa_plain(q[:, :, sl], k, v, d**-0.5)
         if dtype == torch.float32:
             torch.testing.assert_close(got[:, :, sl], want, rtol=0, atol=2e-5)

@@ -1,6 +1,7 @@
-"""PyTorch port, SDR: kernels A4, A5 and A10 (plain versions) and the metric
-against JAX on the CPU. Tolerances: correlations atol 2e-4 of max|r_auto|
-(as tests/test_ops.py holds the Gram kernel), A10's 2e-3 of max|r| (as
+"""PyTorch port, SDR: kernels A4 (in its three split modes), A5 and A10
+(plain versions) and the metric against JAX on the CPU. Tolerances:
+correlations atol 2e-4 of max|r_auto| (as tests/test_ops.py holds the Gram
+kernel), A10's 2e-3 of max|r| (as
 tests/test_ops.py holds the fused kernel, whose chunk DFT is bf16x3),
 Levinson solutions 2e-3 (as tests/test_ops.py holds the Levinson kernel),
 SDR atol 1e-2 dB."""
@@ -21,6 +22,7 @@ from fast_speech_enhancement_metrics_tpu.ops.sdr_corr_gram import (
 from fast_speech_enhancement_metrics_tpu.ops.toeplitz import levinson_solve as jax_levinson
 from fast_speech_enhancement_metrics_tpu_torch import SDR
 from fast_speech_enhancement_metrics_tpu_torch.ops import levinson_pallas, sdr_corr_fused, sdr_corr_gram
+from fast_speech_enhancement_metrics_tpu_torch.ops.dft import correlation_lags
 
 
 @pytest.mark.parametrize("t", [16384, 7000, 150])
@@ -33,6 +35,40 @@ def test_corr_kernel_plain_matches_pallas_kernel(t):
     scale = float(np.abs(np.asarray(ja)).max())
     np.testing.assert_allclose(ra.numpy(), np.asarray(ja), atol=2e-4 * scale)
     np.testing.assert_allclose(rc.numpy(), np.asarray(jc), atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("split", ["x3", "x1"])
+@pytest.mark.parametrize("t", [16384, 7000])
+def test_corr_split_plain_matches_pallas_kernel(t, split):
+    """The reduced product classes: the plain correlation summed over the
+    bf16 halves against the JAX kernel in that split mode, 2e-4 of max|r|."""
+    rs = np.random.RandomState(28)
+    c = rs.randn(3, t).astype(np.float32)
+    d = (0.8 * c + 0.3 * rs.randn(3, t)).astype(np.float32)
+    ra, rc = sdr_corr_gram.correlation_lags_gram(torch.from_numpy(c), torch.from_numpy(d), 512, split=split)
+    ja, jc = jax_corr_gram(c, d, 512, split=split, interpret=True)
+    scale = float(np.abs(np.asarray(ja)).max())
+    np.testing.assert_allclose(ra.numpy(), np.asarray(ja), atol=2e-4 * scale)
+    np.testing.assert_allclose(rc.numpy(), np.asarray(jc), atol=2e-4 * scale)
+
+
+def test_corr_split_x4_plain_is_the_plain_correlation():
+    """split="x4" (the default) is the float32 plain correlation, bit for
+    bit; x3 and x1 differ from it by the dropped bf16 terms only."""
+    rs = np.random.RandomState(29)
+    c = torch.from_numpy(rs.randn(2, 9000).astype(np.float32))
+    d = torch.from_numpy(rs.randn(2, 9000).astype(np.float32))
+    want = correlation_lags(c, (c, d), 512)
+    for got in (sdr_corr_gram.correlation_lags_gram(c, d, 512), sdr_corr_gram.correlation_lags_gram(c, d, 512, "x4")):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    scale = want[0].abs().max().item()
+    for split, tol in (("x3", 1e-4), ("x1", 1e-2)):
+        got = sdr_corr_gram.correlation_lags_gram(c, d, 512, split)
+        assert not torch.equal(got[0], want[0])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=tol * scale)
+    with pytest.raises(ValueError, match="split"):
+        sdr_corr_gram.correlation_lags_gram(c, d, 512, "x2")
 
 
 def _spd_rows(n, rows=5, seed=11):
@@ -99,13 +135,18 @@ def test_levinson_zero_system_is_guarded():
 
 @pytest.mark.parametrize(
     "kw",
-    [{}, {"solver": "cholesky"}, {"solver": "levinson_xla"}, {"corr_impl": "gram_x4"}],
-    ids=["auto", "cholesky", "levinson_xla", "gram_x4"],
+    [{}, {"solver": "cholesky"}, {"solver": "levinson_xla"}, {"corr_impl": "gram_x4"}, {"corr_impl": "gram"},
+     {"corr_impl": "gram_x1"}],
+    ids=["auto", "cholesky", "levinson_xla", "gram_x4", "gram", "gram_x1"],
 )
 def test_sdr_metric_matches_jax(speech_data, kw):
+    """The JAX metric on the CPU takes its XLA correlations, or, for the
+    reduced classes, the Pallas kernel in interpret mode in the same mode."""
     clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
     ours = [r["SDR"] for r in SDR(device="cpu", **kw)(clean, noisy)]
     jax_kw = {"solver": kw["solver"]} if "solver" in kw else {}
+    if kw.get("corr_impl") in ("gram", "gram_x1"):
+        jax_kw["corr_impl"] = kw["corr_impl"]
     theirs = [r["SDR"] for r in JaxSDR(**jax_kw)(clean, noisy)]
     np.testing.assert_allclose(ours, theirs, atol=1e-2)
 
@@ -127,17 +168,21 @@ def test_sdr_self_reference_saturates(speech_data):
 
 @pytest.mark.parametrize("impl", ["fused", "gram", "gram_x1"])
 def test_sdr_unported_corr_modes_raise(impl):
-    """gram / gram_x1 are not ported and raise; fused (A10) is ported and
-    scores a noisy pair as the default path does, at 1e-2 dB."""
+    """Every corr_impl of the JAX package is ported now: fused (A10) scores
+    a noisy pair as the default path does, and gram / gram_x1 (A4 in split
+    x3 / x1) as the JAX metric in that mode does, at 1e-2 dB, on raw
+    signals of a non-unit scale (the normalization fold)."""
+    rs = np.random.RandomState(25)
+    clean = rs.randn(2, 5000).astype(np.float32)
+    noisy = (clean + 0.5 * rs.randn(2, 5000)).astype(np.float32)
+    ours = [r["SDR"] for r in SDR(device="cpu", corr_impl=impl)(clean, noisy)]
     if impl == "fused":
-        rs = np.random.RandomState(25)
-        clean = rs.randn(2, 5000).astype(np.float32)
-        noisy = (clean + 0.5 * rs.randn(2, 5000)).astype(np.float32)
-        fused = [r["SDR"] for r in SDR(device="cpu", corr_impl="fused")(clean, noisy)]
-        np.testing.assert_allclose(fused, [r["SDR"] for r in SDR(device="cpu")(clean, noisy)], atol=1e-2)
+        np.testing.assert_allclose(ours, [r["SDR"] for r in SDR(device="cpu")(clean, noisy)], atol=1e-2)
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SDR(device="cpu", corr_impl=impl)
+    clean, noisy = 3.0 * clean, 3.0 * noisy
+    ours = [r["SDR"] for r in SDR(device="cpu", corr_impl=impl)(clean, noisy)]
+    theirs = [r["SDR"] for r in JaxSDR(corr_impl=impl)(clean, noisy)]
+    np.testing.assert_allclose(ours, theirs, atol=1e-2)
 
 
 @pytest.mark.parametrize("t", [16384, 7000, 300])

@@ -13,14 +13,19 @@ sum of all kernel times), the device idle share, and the ten kernels with
 the most device time. SpeechBERTScore is profiled again at the same batch
 with ``attention_impl="layer_block"`` (each layer one launch of kernel A11)
 and ``"block_int8"`` (the int8 attention block A12, then the plain FFN),
-and on its long-audio path at 16 x 60 s (2999 frames, the attention on
-kernel A9). Needs a CUDA card; raises without one.
+on its long-audio path at 16 x 60 s (2999 frames, the attention on
+kernel A9), and on one pair of 820 s clips (40 999 frames, kernel A15).
+Each line also gives the share of device time of the attention kernel
+(``flash_kernel``: A9 and A15; ``attention_kernel``: A7's and the float32
+arm's). The first line is the card's name and power limit. Needs a CUDA
+card; raises without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -36,6 +41,8 @@ from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_dat
 
 CALLS = 5  # profiled calls per metric, after 3 warm-ups
 LONG_BATCH, LONG_SECONDS = 16, 60  # SpeechBERTScore's long-audio run (A9)
+FLASH_SECONDS = 820  # one pair past the sdpa range (A15)
+ATTENTION_KERNELS = ("flash_kernel", "attention_kernel")
 
 
 def main() -> None:
@@ -45,6 +52,8 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_main_path: needs a CUDA card")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
 
     def on_card(seconds, batch):
         clean, noisy, _ = load_audio_data(seconds, batch, 16000)
@@ -63,6 +72,7 @@ def main() -> None:
         ("SpeechBERTScore block_int8", SpeechBERTScore(params=params, attention_impl="block_int8"), c, d,
          args.batch, args.seconds),
         ("SpeechBERTScore", sbs, *on_card(LONG_SECONDS, LONG_BATCH), LONG_BATCH, LONG_SECONDS),
+        ("SpeechBERTScore", sbs, *on_card(FLASH_SECONDS, 1), 1, FLASH_SECONDS),
     ]
     for name, metric, c, d, batch, seconds in runs:
         for _ in range(3):
@@ -83,12 +93,15 @@ def main() -> None:
         for e in kernels:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total / 1e3 / CALLS
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+        attention_ms = sum(v for k, v in per_name.items() if any(a in k for a in ATTENTION_KERNELS))
         print(json.dumps({
             "metric": name, "batch": batch, "seconds": seconds,
             "device": torch.cuda.get_device_name(0),
             "wall_ms_per_call": wall_ms, "device_busy_ms_per_call": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "kernels_per_call": len(kernels) / CALLS,
+            "attention_kernel_ms_per_call": attention_ms,
+            "attention_kernel_share_of_busy": attention_ms / busy_ms,
             "top_kernels_ms_per_call": [[k[:90], v] for k, v in top],
         }), flush=True)
 
