@@ -69,9 +69,35 @@ class BaseMetric(abc.ABC):
 
     higher_is_better: bool
     EXPECTED_SAMPLING_RATE: int
+    #: metric consumes only the denoised signal (non-intrusive, e.g. DNSMOS)
+    NON_INTRUSIVE: bool = False
 
-    def __init__(self, sample_rate: int = 16000, device: torch.device | str | None = None):
+    def __init__(
+        self,
+        sample_rate: int = 16000,
+        device: torch.device | str | None = None,
+        mesh: None = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        """``mesh``: the JAX package's device mesh keyword; the port's
+        multi-device layer is not ported yet (ROADMAP.md §A, ``parallel/``),
+        so only ``None`` is taken. ``dtype``: the JAX package's parameter
+        dtype keyword (its SpeechBERTScore loads a checkpoint's weights in
+        it); the port keeps its parameters in float32, so only
+        ``torch.float32`` is taken."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: the port's multi-device layer (parallel/, ROADMAP.md §A) is not ported yet; "
+                "pass mesh=None"
+            )
+        if dtype != torch.float32:
+            raise NotImplementedError(
+                f"dtype={dtype}: the port keeps parameters in float32 only; pass dtype=torch.float32 "
+                "(SpeechBERTScore's act_dtype runs its activations in bf16)"
+            )
         self.sample_rate = sample_rate
+        self.mesh = mesh
+        self.dtype = dtype
         self.device = _resolve_device(device)
 
     def _on_cuda(self) -> bool:
@@ -114,10 +140,16 @@ class BaseMetric(abc.ABC):
     def _compute(self, clean: torch.Tensor | None, denoised: torch.Tensor) -> dict[str, torch.Tensor]:
         """Inputs (B, T) at EXPECTED_SAMPLING_RATE. Returns (B,) tensors."""
 
+    def _run_prepared(self, clean, denoised) -> dict[str, torch.Tensor]:
+        """Score audio already on the device. Subclasses may override it to
+        run their own execution plan; the default resamples and runs
+        ``_compute``."""
+        return self._compute_resampled(clean, denoised)
+
     def compute(self, clean_speech, denoised_speech) -> dict[str, torch.Tensor]:
         """Functional API: a dict of per-utterance score tensors on the device."""
         clean, denoised = self.prepare_inputs(clean_speech, denoised_speech)
-        return self._compute_resampled(clean, denoised)
+        return self._run_prepared(clean, denoised)
 
     @staticmethod
     def _to_host(scores: dict[str, torch.Tensor]) -> list[dict[str, float]]:

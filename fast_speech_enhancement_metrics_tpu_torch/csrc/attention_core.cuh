@@ -1,8 +1,8 @@
 // Non-causal attention over one (row, head) per grid (y, z), 64 queries per
-// block: the core shared by A7 (attn_block.cu, heads of a (rows T, 3 d) qkv
-// buffer), A11 (layer_block.cu, the same buffer, as a device routine of its
-// persistent kernel) and A9 / A15 (sdpa.cu and sdpa_f32.cu, (B H, T, D)
-// tensors).
+// block: the core of A11 (layer_block.cu, heads of a (rows T, 3 d) qkv
+// buffer, as a device routine of its persistent kernel) and of A9 / A15's
+// float32 arm (sdpa_f32.cu, (B H, T, D) tensors). A7 and the bf16 A9 / A15
+// run flash_sm90.cuh.
 //
 // A block of 4 warps owns 64 queries; each warp owns 16. Key tiles stream
 // through shared memory (K/V of one head at 40 000 frames is 10 MB, far
@@ -438,7 +438,7 @@ inline Args bhtd_args(const void* q, const void* k, const void* v, void* o, int 
   return a;
 }
 
-// A7 / A11 layout: heads of a (rows t_len, 3 d) qkv buffer, columns
+// A11's layout: heads of a (rows t_len, 3 d) qkv buffer, columns
 // [q | k | v], into a (rows t_len, d) context
 __host__ __device__ inline Args qkv_args(const bf16* qkv, bf16* ctx, int t_len, int d, int heads) {
   const int hd = d / heads;

@@ -17,116 +17,195 @@
 // TFLOP and A8 0.48 TFLOP of bf16 tensor-core work per launch (0.37 and
 // 0.49 ms at 989 TFLOP/s), against about 0.2 GB of bytes each (0.06 ms).
 //
-// Design (a first, simple version: nvcuda::wmma 16x16x16 bf16 fragments,
-// which compile to mma.sync; no wgmma or TMA yet), one launch per routine:
-// * gemm_kernel: block_tiles.cuh's gemm_tile, one 128 x 128 output tile per
-//   block; T need not be a multiple of 16, and nothing is padded in device
-//   memory;
-// * attention: attention_core.cuh (shared with A9 / A15), bf16 arm, one
-//   block of 4 warps per (row, head, tile of 64 queries), key tiles of 64
-//   through shared memory, any head width up to 128 (zero-padded to a
-//   multiple of 16), softmax exp2 / exp2_bf16 / exact; ctx / l rounded to
-//   bf16;
+// Design, one launch per routine, on Hopper's TMA and wgmma:
+// * cast_kernel: an fp32 x rounded to a bf16 copy (bytes-bound: 157 MB read
+//   and 78 MB written at the main path's shape); the products and the
+//   residual read that copy, the TPU kernel's rounding at entry. A bf16 x
+//   is read as it is;
+// * gemm_sm90.cuh: QKV, W_o (A7), W_1, W_2 (A8), each with its epilogue
+//   (bias, GELU, bf16 rounding) applied from registers;
+// * flash_sm90.cuh's attention (sdpa.cu's instantiations, through
+//   fsem_flash_attention), softmax exp2 / exp2_bf16 / exact: q, k and v
+//   read in place from the (rows T, 3 d) qkv through strided 4-D TMA maps,
+//   the context written into (rows T, d). Heads whose width is not a
+//   multiple of 8 (TMA's 16-byte strides) are first copied into zero-padded
+//   (rows, heads, T, hd8) q, k and v (pad_kernel) and their context copied
+//   back (unpad_kernel): a layout step, the same kernel;
 // * block_tiles.cuh's residual_ln_kernel, one warp per row.
-// The (rows x T, 3d) qkv, the context and the (rows x T, ffn) hidden pass
-// through device memory between these launches. A11 (layer_block.cu) runs
-// the same routines in one persistent launch.
+// The qkv, the context, the (rows T, ffn) hidden and y pass through device
+// memory between these launches (qkv is 235 MB at the main path's shape,
+// ~0.07 ms of bytes). A11 (layer_block.cu) runs block_tiles.cuh's wmma
+// routines and attention_core.cuh in one persistent launch: it sums in
+// another order than wgmma, so it is not bit-equal to A7 then A8.
 #include <cuda_bf16.h>
 
-#include "attention_core.cuh"
 #include "block_tiles.cuh"
-#include "common.cuh"
+#include "flash_sm90.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace tiles;
 
-template <typename TA, int kEpi, typename TC>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(
-    const TA* __restrict__ A, const bf16* __restrict__ B, const float* __restrict__ bias,
-    TC* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(128) GemmSmem sm;
-  gemm_tile<TA, kEpi, TC>(A, B, bias, C, M, N, K, blockIdx.y, blockIdx.x, sm, threadIdx.x);
+constexpr int kCopyThreads = 256;
+
+// blocks of the grid-stride copy kernels for n items, at most 4096
+int copy_blocks(long long n) {
+  const long long blocks = (n + kCopyThreads - 1) / kCopyThreads;
+  return (int)(blocks < 4096 ? blocks : 4096);
 }
 
-template <typename TA, int kEpi, typename TC>
-cudaError_t gemm(const TA* A, const bf16* B, const float* bias, TC* C, int M, int N, int K,
-                 cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<TA, kEpi, TC><<<grid, kGemmThreads, 0, stream>>>(A, B, bias, C, M, N, K);
+// out = bf16(x), 8 values a thread and step; n8 = elements / 8
+__global__ void __launch_bounds__(kCopyThreads) cast_kernel(const float* __restrict__ x, bf16* __restrict__ out,
+                                                            long long n8) {
+  for (long long i = blockIdx.x * (long long)kCopyThreads + threadIdx.x; i < n8;
+       i += (long long)gridDim.x * kCopyThreads) {
+    const float4 a = reinterpret_cast<const float4*>(x)[2 * i];
+    const float4 b = reinterpret_cast<const float4*>(x)[2 * i + 1];
+    reinterpret_cast<uint4*>(out)[i] = make_uint4(sm90::pack_bf16(a.x, a.y), sm90::pack_bf16(a.z, a.w),
+                                                  sm90::pack_bf16(b.x, b.y), sm90::pack_bf16(b.z, b.w));
+  }
+}
+
+// q, k, v of the (rows t_len, 3 d) qkv into padded[3][rows][heads][t_len][hd8],
+// zeros past hd
+__global__ void __launch_bounds__(kCopyThreads) pad_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ padded,
+                                                           int rows, int t_len, int d, int heads, int hd8) {
+  const int hd = d / heads;
+  const long long n = 3LL * rows * heads * t_len * hd8;
+  for (long long i = blockIdx.x * (long long)kCopyThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kCopyThreads) {
+    const int c = (int)(i % hd8);
+    long long rest = i / hd8;
+    const int t = (int)(rest % t_len);
+    rest /= t_len;
+    const int h = (int)(rest % heads);
+    rest /= heads;
+    const int r = (int)(rest % rows);
+    const int which = (int)(rest / rows);
+    padded[i] = c < hd ? qkv[((long long)r * t_len + t) * 3 * d + which * d + h * hd + c] : __float2bfloat16(0.f);
+  }
+}
+
+// the padded context o[rows][heads][t_len][hd8] back into ctx (rows t_len, d)
+__global__ void __launch_bounds__(kCopyThreads) unpad_kernel(const bf16* __restrict__ o, bf16* __restrict__ ctx,
+                                                             int rows, int t_len, int d, int heads, int hd8) {
+  const int hd = d / heads;
+  const long long n = (long long)rows * t_len * d;
+  for (long long i = blockIdx.x * (long long)kCopyThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kCopyThreads) {
+    const long long m = i / d;
+    const int col = (int)(i % d);
+    const int r = (int)(m / t_len), t = (int)(m % t_len);
+    ctx[i] = o[(((long long)r * heads + col / hd) * t_len + t) * hd8 + col % hd];
+  }
+}
+
+// x (M, d) as bf16: x itself, or its rounded copy in xb
+const bf16* bf16_x(const void* x, bf16* xb, long long n, int x_bf16, cudaStream_t stream, cudaError_t* err) {
+  if (x_bf16) return static_cast<const bf16*>(x);
+  cast_kernel<<<copy_blocks(n / 8), kCopyThreads, 0, stream>>>(static_cast<const float*>(x), xb, n / 8);
+  *err = cudaGetLastError();
+  return xb;
+}
+
+cudaError_t attention(const bf16* qkv, bf16* ctx, bf16* pad, int rows, int t_len, int d, int heads, int mode,
+                      cudaStream_t stream) {
+  const int hd = d / heads;
+  if (hd % 8 == 0)
+    return (cudaError_t)fsem_flash_attention(qkv, qkv + d, qkv + 2 * d, 3 * d, hd, (long long)t_len * 3 * d, ctx, d,
+                                             hd, (long long)t_len * d, rows, heads, t_len, hd, mode, 1.f, 0.f,
+                                             stream);
+  const int hd8 = (hd + 7) / 8 * 8;
+  const long long per = (long long)rows * heads * t_len * hd8;
+  pad_kernel<<<copy_blocks(3 * per), kCopyThreads, 0, stream>>>(qkv, pad, rows, t_len, d, heads, hd8);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bf16* o = pad + 3 * per;
+  err = (cudaError_t)fsem_flash_attention(pad, pad + per, pad + 2 * per, hd8, (long long)t_len * hd8,
+                                          (long long)heads * t_len * hd8, o, hd8, (long long)t_len * hd8,
+                                          (long long)heads * t_len * hd8, rows, heads, t_len, hd8, mode, 1.f, 0.f,
+                                          stream);
+  if (err != cudaSuccess) return err;
+  unpad_kernel<<<copy_blocks((long long)rows * t_len * d), kCopyThreads, 0, stream>>>(o, ctx, rows, t_len, d, heads,
+                                                                                     hd8);
   return cudaGetLastError();
 }
 
-// -- blocks -------------------------------------------------------------------------
-
 template <typename TX>
-int attn_block(const void* xv, const bf16* wqkv, const float* bqkv, const bf16* wo,
-               const float* bo, const float* lns, const float* lnb, bf16* qkv, bf16* ctx,
-               float* y, void* outv, int rows, int t_len, int d, int heads, int mode,
-               float eps, cudaStream_t stream) {
-  const TX* x = static_cast<const TX*>(xv);
+cudaError_t attn_block(const void* x, const bf16* wqkv, const float* bqkv, const bf16* wo, const float* bo,
+                       const float* lns, const float* lnb, bf16* xb, bf16* qkv, bf16* ctx, float* y, bf16* pad,
+                       void* out, int rows, int t_len, int d, int heads, int mode, float eps, cudaStream_t stream) {
   const int M = rows * t_len;
-  cudaError_t err = gemm<TX, kBiasBf16, bf16>(x, wqkv, bqkv, qkv, M, 3 * d, d, stream);
-  if (err != cudaSuccess) return (int)err;
-  const attn::Args a = attn::qkv_args(qkv, ctx, t_len, d, heads);
-  if (mode == attn::kExp2) {
-    err = attn::launch_any_width<bf16, attn::kExp2>(a, heads, rows, stream);
-  } else if (mode == attn::kExp2Bf16) {
-    err = attn::launch_any_width<bf16, attn::kExp2Bf16>(a, heads, rows, stream);
-  } else if (mode == attn::kExact) {
-    err = attn::launch_any_width<bf16, attn::kExact>(a, heads, rows, stream);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  err = gemm<bf16, kBiasF32, float>(ctx, wo, bo, y, M, d, d, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)residual_ln<TX>(y, x, lns, lnb, static_cast<TX*>(outv), M, d, eps, stream);
+  cudaError_t err = cudaSuccess;
+  const bf16* xin = bf16_x(x, xb, (long long)M * d, sizeof(TX) == 2, stream, &err);
+  if (err != cudaSuccess) return err;
+  err = gemm90::gemm(xin, wqkv, bqkv, qkv, M, 3 * d, d, gemm90::kBiasBf16, stream);
+  if (err != cudaSuccess) return err;
+  err = attention(qkv, ctx, pad, rows, t_len, d, heads, mode, stream);
+  if (err != cudaSuccess) return err;
+  err = gemm90::gemm(ctx, wo, bo, y, M, d, d, gemm90::kBiasF32, stream);
+  if (err != cudaSuccess) return err;
+  return tiles::residual_ln<bf16, TX>(y, xin, lns, lnb, static_cast<TX*>(out), M, d, eps, stream);
 }
 
 template <typename TX>
-int ffn_block(const void* xv, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
-              const float* lns, const float* lnb, bf16* hidden, float* y, void* outv, int M,
-              int d, int ffn, float eps, cudaStream_t stream) {
-  const TX* x = static_cast<const TX*>(xv);
-  cudaError_t err = gemm<TX, kBiasGeluBf16, bf16>(x, w1, b1, hidden, M, ffn, d, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = gemm<bf16, kBiasF32, float>(hidden, w2, b2, y, M, d, ffn, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)residual_ln<TX>(y, x, lns, lnb, static_cast<TX*>(outv), M, d, eps, stream);
+cudaError_t ffn_block(const void* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
+                      const float* lns, const float* lnb, bf16* xb, bf16* hidden, float* y, void* out, int M, int d,
+                      int ffn, float eps, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  const bf16* xin = bf16_x(x, xb, (long long)M * d, sizeof(TX) == 2, stream, &err);
+  if (err != cudaSuccess) return err;
+  err = gemm90::gemm(xin, w1, b1, hidden, M, ffn, d, gemm90::kBiasGeluBf16, stream);
+  if (err != cudaSuccess) return err;
+  err = gemm90::gemm(hidden, w2, b2, y, M, d, ffn, gemm90::kBiasF32, stream);
+  if (err != cudaSuccess) return err;
+  return tiles::residual_ln<bf16, TX>(y, xin, lns, lnb, static_cast<TX*>(out), M, d, eps, stream);
 }
 
 }  // namespace
 
 // A7. x, out: (rows, t_len, d), both fp32 or both bf16 (x_bf16); wqkv:
 // (d, 3 d) bf16, columns [q | k | v], q pre-scaled; bqkv: (3 d,) fp32;
-// wo: (d, d) bf16; bo, lns, lnb: (d,) fp32; scratch qkv (rows t_len, 3 d)
-// bf16, ctx (rows t_len, d) bf16, y (rows t_len, d) fp32. d % 32 == 0,
-// d % heads == 0, d / heads <= 128; mode 0 exp2, 1 exp2_bf16, 2 exact.
-extern "C" int fsem_attn_block(const void* x, const void* wqkv, const float* bqkv,
-                               const void* wo, const float* bo, const float* lns,
-                               const float* lnb, void* qkv, void* ctx, float* y, void* out,
-                               int rows, int t_len, int d, int heads, int mode, int x_bf16,
-                               float eps, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (heads <= 0 || d % heads || d / heads > attn::kMaxHead || d % kBK) return (int)cudaErrorInvalidValue;
+// wo: (d, d) bf16; bo, lns, lnb: (d,) fp32; scratch xb (rows t_len, d)
+// bf16 (unused when x is bf16), qkv (rows t_len, 3 d) bf16, ctx (rows
+// t_len, d) bf16, y (rows t_len, d) fp32, pad (4 rows heads t_len hd8)
+// bf16 where hd = d / heads is not a multiple of 8 (hd8 = hd rounded up
+// to one; else unused). d % 32 == 0, d % heads == 0, hd <= 128; mode 0
+// exp2, 1 exp2_bf16, 2 exact.
+extern "C" int fsem_attn_block(const void* x, const void* wqkv, const float* bqkv, const void* wo, const float* bo,
+                               const float* lns, const float* lnb, void* xb, void* qkv, void* ctx, float* y, void* pad,
+                               void* out, int rows, int t_len, int d, int heads, int mode, int x_bf16, float eps,
+                               void* stream_ptr) {
+  if (rows <= 0 || t_len <= 0 || heads <= 0 || d % heads || d / heads > flash90::kMaxHead || d % 32 || mode < 0 ||
+      mode > 2)
+    return (int)cudaErrorInvalidValue;
   auto block = x_bf16 ? attn_block<bf16> : attn_block<float>;
-  return block(x, static_cast<const bf16*>(wqkv), bqkv, static_cast<const bf16*>(wo), bo, lns,
-               lnb, static_cast<bf16*>(qkv), static_cast<bf16*>(ctx), y, out, rows, t_len, d,
-               heads, mode, eps, stream);
+  return (int)block(x, static_cast<const bf16*>(wqkv), bqkv, static_cast<const bf16*>(wo), bo, lns, lnb,
+                    static_cast<bf16*>(xb), static_cast<bf16*>(qkv), static_cast<bf16*>(ctx), y,
+                    static_cast<bf16*>(pad), out, rows, t_len, d, heads, mode, eps,
+                    static_cast<cudaStream_t>(stream_ptr));
 }
 
 // A8. x, out: (M, d), both fp32 or both bf16 (x_bf16); w1: (d, ffn) bf16;
-// b1: (ffn,) fp32; w2: (ffn, d) bf16; b2, lns, lnb: (d,) fp32; scratch
-// hidden (M, ffn) bf16, y (M, d) fp32. d % 32 == 0, ffn % 32 == 0. tanh GELU.
-extern "C" int fsem_ffn_block(const void* x, const void* w1, const float* b1, const void* w2,
-                              const float* b2, const float* lns, const float* lnb,
-                              void* hidden, float* y, void* out, int M, int d, int ffn,
-                              int x_bf16, float eps, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (d % kBK || ffn % kBK) return (int)cudaErrorInvalidValue;
+// b1: (ffn,) fp32; w2: (ffn, d) bf16; b2, lns, lnb: (d,) fp32; scratch xb
+// (M, d) bf16 (unused when x is bf16), hidden (M, ffn) bf16, y (M, d) fp32.
+// d % 32 == 0, ffn % 32 == 0. tanh GELU.
+extern "C" int fsem_ffn_block(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
+                              const float* lns, const float* lnb, void* xb, void* hidden, float* y, void* out, int M,
+                              int d, int ffn, int x_bf16, float eps, void* stream_ptr) {
+  if (M <= 0 || d % 32 || ffn % 32) return (int)cudaErrorInvalidValue;
   auto block = x_bf16 ? ffn_block<bf16> : ffn_block<float>;
-  return block(x, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2, lns, lnb,
-               static_cast<bf16*>(hidden), y, out, M, d, ffn, eps, stream);
+  return (int)block(x, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2, lns, lnb,
+                    static_cast<bf16*>(xb), static_cast<bf16*>(hidden), y, out, M, d, ffn, eps,
+                    static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The products of A7 and A8 alone: c (M, N) = epilogue(a (M, K) b (K, N) +
+// bias), a, b bf16 row-major, bias (N,) fp32; epilogue 0 bf16, 1 tanh GELU
+// then bf16, 2 fp32. K, N % 8 == 0.
+extern "C" int fsem_gemm(const void* a, const void* b, const float* bias, void* c, int M, int N, int K, int epi,
+                         void* stream_ptr) {
+  return (int)gemm90::gemm(static_cast<const bf16*>(a), static_cast<const bf16*>(b), bias, c, M, N, K, epi,
+                           static_cast<cudaStream_t>(stream_ptr));
 }

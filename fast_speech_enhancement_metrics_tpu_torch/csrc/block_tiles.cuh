@@ -1,7 +1,6 @@
-// Tile routines of the post-LN encoder blocks, shared by A7 / A8
-// (attn_block.cu, one launch per routine) and A11 (layer_block.cu, every
-// routine inside one persistent launch): the same code, so the same
-// arithmetic.
+// Tile routines of the post-LN encoder blocks: A11 (layer_block.cu) runs
+// them all inside one persistent launch; A7 / A8 (attn_block.cu) and A12
+// take residual_ln_kernel, their products are gemm_sm90.cuh's.
 //
 // * gemm_tile: one 128 x 128 output tile of C = epilogue(A B + bias) by
 //   256 threads (8 warps of 32 x 64, nvcuda::wmma 16x16x16 bf16 fragments
@@ -170,11 +169,12 @@ __device__ __forceinline__ void gemm_tile(const TA* __restrict__ A, const bf16* 
     }
 }
 
-// out[m] = LN(y[m] + bf16(x[m])) over n columns by one warp; out in x's type
-template <typename TX>
+// out[m] = LN(y[m] + bf16(x[m])) over n columns by one warp; out in TO (x's
+// type, unless x is already its bf16 copy)
+template <typename TX, typename TO = TX>
 __device__ __forceinline__ void residual_ln_row(const float* __restrict__ y, const TX* __restrict__ x,
                                                 const float* __restrict__ scale,
-                                                const float* __restrict__ shift, TX* __restrict__ out,
+                                                const float* __restrict__ shift, TO* __restrict__ out,
                                                 int m, int n, float eps, int lane) {
   const float* yr = y + (size_t)m * n;
   const TX* xr = x + (size_t)m * n;
@@ -187,7 +187,7 @@ __device__ __forceinline__ void residual_ln_row(const float* __restrict__ y, con
     sq = fmaf(v, v, sq);
   }
   const float inv = rsqrtf(fsem::warp_sum(sq) / (float)n + eps);
-  TX* o = out + (size_t)m * n;
+  TO* o = out + (size_t)m * n;
   for (int c = lane; c < n; c += 32) {
     const float v = yr[c] + bf16_round(xr[c]) - mean;
     store_out(o + c, v * inv * scale[c] + shift[c]);
@@ -197,19 +197,19 @@ __device__ __forceinline__ void residual_ln_row(const float* __restrict__ y, con
 constexpr int kLnWarps = 8;
 
 // residual_ln_row over M rows as one launch, one warp per row (A7, A8, A12)
-template <typename TX>
+template <typename TX, typename TO>
 __global__ void __launch_bounds__(kLnWarps * 32) residual_ln_kernel(
     const float* __restrict__ y, const TX* __restrict__ x, const float* __restrict__ scale,
-    const float* __restrict__ shift, TX* __restrict__ out, int M, int n, float eps) {
+    const float* __restrict__ shift, TO* __restrict__ out, int M, int n, float eps) {
   const int m = blockIdx.x * kLnWarps + (threadIdx.x >> 5);
   if (m >= M) return;
-  residual_ln_row<TX>(y, x, scale, shift, out, m, n, eps, threadIdx.x & 31);
+  residual_ln_row<TX, TO>(y, x, scale, shift, out, m, n, eps, threadIdx.x & 31);
 }
 
-template <typename TX>
-cudaError_t residual_ln(const float* y, const TX* x, const float* s, const float* b, TX* out,
+template <typename TX, typename TO = TX>
+cudaError_t residual_ln(const float* y, const TX* x, const float* s, const float* b, TO* out,
                         int M, int n, float eps, cudaStream_t stream) {
-  residual_ln_kernel<TX><<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(
+  residual_ln_kernel<TX, TO><<<(M + kLnWarps - 1) / kLnWarps, kLnWarps * 32, 0, stream>>>(
       y, x, s, b, out, M, n, eps);
   return cudaGetLastError();
 }

@@ -18,11 +18,34 @@
 //
 // Design: flash_sm90.cuh, a Hopper kernel (TMA loads in a ring of stages
 // fed by a producer warp, wgmma products, the softmax in registers) with
-// the (B H, T, D) layout read through TMA tensor maps. The TPU kernel holds
-// a head's K/V in VMEM; here K/V tiles of 128 keys stream through shared
-// memory. The float32 arm (sdpa_f32.cu) keeps attention_core.cuh: wgmma
+// the (B, H, T, D) layout read through 4-D TMA tensor maps; A7's attention
+// (attn_block.cu) launches the same instantiations on its strided qkv. The
+// TPU kernel holds a head's K/V in VMEM; here K/V tiles of 128 keys stream
+// through shared memory. The float32 arm (sdpa_f32.cu) keeps attention_core.cuh: wgmma
 // takes float32 only as TF32.
 #include "flash_sm90.cuh"
+
+int fsem_flash_attention(const void* q, const void* k, const void* v, long long ld, long long head_stride,
+                         long long row_stride, void* o, long long o_ld, long long o_head_stride,
+                         long long o_row_stride, int rows, int heads, int t_len, int hd, int mode, float scale,
+                         float l_pad, cudaStream_t stream) {
+  // the kernel indexes a (row, head)'s output frames in 32 bits
+  if (hd <= 0 || hd > flash90::kMaxHead || hd % 8 != 0 || t_len <= 0 || rows <= 0 || heads <= 0 ||
+      (long long)t_len * o_ld > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    if (!flash90::view_map(&maps[i], flash90::View{ptrs[i], ld, head_stride, row_stride}, rows, heads, t_len, hd))
+      return (int)cudaErrorInvalidValue;
+  }
+  const flash90::View out{o, o_ld, o_head_stride, o_row_stride};
+  if (hd <= sm90::kBoxCols)
+    return (int)flash90::launch_mode<1>(maps[0], maps[1], maps[2], out, rows, heads, t_len, hd, mode, scale, l_pad,
+                                        stream);
+  return (int)flash90::launch_mode<2>(maps[0], maps[1], maps[2], out, rows, heads, t_len, hd, mode, scale, l_pad,
+                                      stream);
+}
 
 // q, k, v, o: (batch, heads, t_len, head_dim) bf16, contiguous, 16-byte
 // aligned; head_dim a multiple of 8, at most 128. n_keys: the keys the
@@ -33,20 +56,8 @@
 extern "C" int fsem_sdpa(const void* q, const void* k, const void* v, void* o, int batch,
                          int heads, int t_len, int n_keys, int head_dim, int mode, float scale,
                          float l_pad, void* stream_ptr) {
-  if (head_dim <= 0 || head_dim > flash90::kMaxHead || head_dim % 8 != 0 || t_len <= 0 ||
-      n_keys < t_len || batch <= 0 || heads <= 0)
-    return (int)cudaErrorInvalidValue;
-  CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    if (!flash90::tensor_map(&maps[i], ptrs[i], batch * heads, t_len, head_dim))
-      return (int)cudaErrorInvalidValue;
-  }
-  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  auto* out = static_cast<__nv_bfloat16*>(o);
-  if (head_dim <= flash90::kBoxCols)
-    return (int)flash90::launch_mode<1>(maps[0], maps[1], maps[2], out, batch, heads, t_len,
-                                        head_dim, mode, scale, l_pad, stream);
-  return (int)flash90::launch_mode<2>(maps[0], maps[1], maps[2], out, batch, heads, t_len,
-                                      head_dim, mode, scale, l_pad, stream);
+  if (n_keys < t_len) return (int)cudaErrorInvalidValue;
+  const long long ld = head_dim, head_stride = (long long)t_len * head_dim, row_stride = heads * head_stride;
+  return fsem_flash_attention(q, k, v, ld, head_stride, row_stride, o, ld, head_stride, row_stride, batch, heads,
+                              t_len, head_dim, mode, scale, l_pad, static_cast<cudaStream_t>(stream_ptr));
 }

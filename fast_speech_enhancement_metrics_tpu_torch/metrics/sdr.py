@@ -32,16 +32,29 @@ class SDR(BaseMetric):
         self,
         sample_rate: int = 16000,
         solver: str = "levinson",
+        precision: str | None = "high",
         corr_impl: str = "auto",
         **kw,
     ):
-        """``corr_impl``: "gram_x4" (kernel A4, ``ops/sdr_corr_gram.py``:
+        """``precision``: the JAX package's class for its "xla" correlation
+        matmuls ("high" bf16x3, the default, or "highest" float32). The
+        port's "xla" path computes them in float32 with TF32 off, at least
+        as tight as either class, so here it only gates "auto", as in the
+        JAX package: gram_x4 is taken at "high" only.
+
+        ``zero_mean`` (False) and ``load_diag`` (None), attributes as in the
+        JAX package: set them to remove each signal's mean before the
+        correlations, and to add ``load_diag`` to the autocorrelation at lag
+        0 (diagonal loading of the Toeplitz system).
+
+        ``corr_impl``: "gram_x4" (kernel A4, ``ops/sdr_corr_gram.py``:
         correlate the raw signals in float32, then normalize), "gram" and
         "gram_x1" (the same with the JAX kernel's reduced product classes,
         split x3 and x1: bf16 halves hh + hl + lh, or hh alone; never chosen
         by "auto", and no faster on a CUDA card, where they exist to give
         the reference's results), "xla" (normalize, then overlap-save DFT
-        matmuls), or "auto" (gram_x4 on a CUDA device, xla otherwise), or
+        matmuls), or "auto" (gram_x4 on a CUDA device at precision "high",
+        xla otherwise), or
         "fused" (kernel A10, ``ops/sdr_corr_fused.py``: normalize, then
         chunk spectra and their products reduced on chip).
 
@@ -51,13 +64,21 @@ class SDR(BaseMetric):
         Cholesky fails)."""
         super().__init__(sample_rate, **kw)
         self.filter_length = 512
+        self.zero_mean = False
+        self.load_diag = None
+        self.precision = precision
         assert corr_impl in ("auto", "gram", "gram_x1", "gram_x4", "fused", "xla")
         self.corr_impl = corr_impl
         assert solver in ("levinson", "levinson_xla", "cholesky")
         self.solver = solver
 
-    @staticmethod
-    def _preprocess(speech):
+    def _centred(self, speech):
+        if self.zero_mean:
+            return speech - torch.mean(speech, dim=-1, keepdim=True)
+        return speech
+
+    def _preprocess(self, speech):
+        speech = self._centred(speech)
         norm = torch.clamp(torch.linalg.vector_norm(speech, dim=-1, keepdim=True), min=1e-6)
         return speech / norm
 
@@ -67,16 +88,17 @@ class SDR(BaseMetric):
 
         impl = self.corr_impl
         if impl == "auto":
-            impl = "gram_x4" if self._on_cuda() else "xla"
+            impl = "gram_x4" if self._on_cuda() and self.precision == "high" else "xla"
         if impl.startswith("gram"):
             # correlate the RAW signals and normalize the correlations
             # afterwards: the same formula as normalize-first for any signal
             # with ||x|| >= 1e-6 (correlations are bilinear, the coherence
             # ratio is scale-invariant), without normalized copies
             split = {"gram": "x3", "gram_x1": "x1", "gram_x4": "x4"}[impl]
-            r0, b = correlation_lags_gram(clean, denoised, corr_len, split)
+            c, d = self._centred(clean), self._centred(denoised)
+            r0, b = correlation_lags_gram(c, d, corr_len, split)
             nc2 = torch.clamp(r0[..., 0:1], min=1e-12)  # = clip(||c||, 1e-6)^2
-            nd2 = torch.clamp(torch.sum(denoised * denoised, dim=-1, keepdim=True), min=1e-12)
+            nd2 = torch.clamp(torch.sum(d * d, dim=-1, keepdim=True), min=1e-12)
             r0 = r0 / nc2
             b = b / torch.sqrt(nc2 * nd2)
         else:
@@ -86,6 +108,10 @@ class SDR(BaseMetric):
                 r0, b = correlation_lags_fused(c, d, corr_len)
             else:
                 r0, b = correlation_lags(c, (c, d), corr_len)
+
+        if self.load_diag is not None:
+            r0 = r0.clone()
+            r0[..., 0] += self.load_diag
 
         if self.solver == "levinson":
             sol = levinson_solve_fused(r0.contiguous(), b.contiguous())

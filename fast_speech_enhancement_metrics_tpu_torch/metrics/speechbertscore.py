@@ -58,6 +58,7 @@ class SpeechBERTScore(BaseMetric):
         gelu: str = "auto",
         softmax: str = "auto",
         device: torch.device | str | None = None,
+        **kw,
     ):
         """``params``: the JAX package's parameter pytree (numpy leaves, as
         ``init_params`` or ``load_params`` give) or a ``HubertEncoder``;
@@ -74,8 +75,9 @@ class SpeechBERTScore(BaseMetric):
         activation stream in bf16. ``batch_chunk`` encodes the doubled batch
         in row chunks (the same scores). ``host_chunk`` is an alias of it,
         kept for the JAX package's signature, where it splits the jit graph
-        on the host; it wins where both are given."""
-        super().__init__(sample_rate, device=device)
+        on the host; it wins where both are given. Other keywords (``mesh``,
+        ``dtype``) go to ``BaseMetric``."""
+        super().__init__(sample_rate, device=device, **kw)
         for name, value, allowed in (
             ("precision", precision, (None, "default", "highest")),
             ("gelu", gelu, ("auto", "erf", "tanh")),

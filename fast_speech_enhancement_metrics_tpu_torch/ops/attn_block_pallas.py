@@ -23,12 +23,13 @@ logit rounded to bf16, which is bf16(exp(bf16(s * bf16(ln 2))))) or
 ``"exact"`` (exp(s - rowmax)). The plain versions emulate "bf16 operands,
 fp32 accumulation" as float32 products of bf16-rounded values.
 
-The CUDA kernels are ``csrc/attn_block.cu`` (A7, A8), ``csrc/layer_block.cu``
-(A11: one cooperative launch whose phases are A7's and A8's tile routines)
-and ``csrc/attn_block_int8.cu`` (A12, on the int8 tensor cores); the bf16
-attention is ``csrc/attention_core.cuh``, shared with A9, for any head
-width up to 128. CPU tensors take the plain versions; CUDA tensors launch
-the kernels or raise.
+The CUDA kernels are ``csrc/attn_block.cu`` (A7, A8: the Hopper GEMM of
+``csrc/gemm_sm90.cuh`` with fused epilogues, ``gemm`` here alone, and A7's
+attention on ``csrc/flash_sm90.cuh``, A9's kernel, for any head width up
+to 128), ``csrc/layer_block.cu`` (A11: one cooperative launch of
+``block_tiles.cuh``'s wmma routines and ``attention_core.cuh``) and
+``csrc/attn_block_int8.cu`` (A12, on the int8 tensor cores). CPU tensors
+take the plain versions; CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -48,6 +49,9 @@ KERNEL_A7 = "attn_block"
 KERNEL_A8 = "ffn_block"
 KERNEL_A11 = "layer_block"
 KERNEL_A12 = "attn_block_int8"
+KERNEL_GEMM = "gemm"
+#: epilogues of ``gemm``: bf16(acc + bias), bf16(gelu_tanh(acc + bias)), acc + bias in fp32
+GEMM_EPILOGUES = ("bf16", "gelu_bf16", "f32")
 QUANT_MODES = (None, "int8")
 #: head widths the layer kernel A11 is built for (HuBERT base / large, xlarge)
 LAYER_HEAD_DIMS = (64, 80)
@@ -228,6 +232,8 @@ def _check_block_input(x: torch.Tensor, packed: tuple, weight_dtype: torch.dtype
     if x.dtype not in _IO_DTYPES or x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"x: need a contiguous (rows, T, d) fp32 or bf16 tensor, got "
                          f"{tuple(x.shape)} {x.dtype} (contiguous={x.is_contiguous()})")
+    if x.data_ptr() % 16:  # the kernels read x in 16-byte vectors and through TMA
+        raise ValueError(f"x: need a 16-byte aligned start, got a view at element offset {x.storage_offset()}")
     for i, t in enumerate(packed):
         want = weight_dtype if i in (0, 2) else torch.float32
         cuda_lib.check_operand(t, f"packed[{i}]", x.device, want, t.dim())
@@ -239,6 +245,12 @@ def _check_heads(d: int, num_heads: int) -> None:
                          f"got d={d}, heads={num_heads}")
 
 
+def _bf16_copy(x: torch.Tensor, m: int, d: int) -> torch.Tensor | None:
+    """Scratch for the kernels' bf16 copy of an fp32 x; None for a bf16 x,
+    which they read as it is."""
+    return None if x.dtype == torch.bfloat16 else torch.empty(m, d, device=x.device, dtype=torch.bfloat16)
+
+
 def _attn_block_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:
     _check_block_input(x, packed)
     rows, t, d = x.shape
@@ -248,13 +260,18 @@ def _attn_block_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float,
     wqkv, bqkv, wo, bo, lns, lnb = packed
     dev = x.device
     m = rows * t
+    hd = d // num_heads
     qkv = torch.empty(m, 3 * d, device=dev, dtype=torch.bfloat16)
     ctx = torch.empty(m, d, device=dev, dtype=torch.bfloat16)
     y = torch.empty(m, d, device=dev, dtype=torch.float32)
+    # heads whose width is not a multiple of 8 (TMA's 16-byte strides): q, k,
+    # v and the context through zero-padded (rows, heads, T, hd8) copies
+    pad = None if hd % 8 == 0 else torch.empty(4 * rows * num_heads * t * -(-hd // 8) * 8, device=dev,
+                                                dtype=torch.bfloat16)
     out = torch.empty_like(x)
     bf = int(x.dtype == torch.bfloat16)
     cuda_lib.launch(
-        KERNEL_A7, dev, x, wqkv, bqkv, wo, bo, lns, lnb, qkv, ctx, y, out,
+        KERNEL_A7, dev, x, wqkv, bqkv, wo, bo, lns, lnb, _bf16_copy(x, m, d), qkv, ctx, y, pad, out,
         rows, t, d, num_heads, SOFTMAX_MODES.index(softmax), bf, eps,
     )
     cuda_lib.launch_counts[KERNEL_A7] += 1
@@ -276,9 +293,43 @@ def _ffn_block_cuda(x: torch.Tensor, packed: tuple, eps: float, gelu: str) -> to
     y = torch.empty(m, d, device=dev, dtype=torch.float32)
     out = torch.empty_like(x)
     bf = int(x.dtype == torch.bfloat16)
-    cuda_lib.launch(KERNEL_A8, dev, x, w1, b1, w2, b2, lns, lnb, hidden, y, out, m, d, ffn, bf, eps)
+    cuda_lib.launch(KERNEL_A8, dev, x, w1, b1, w2, b2, lns, lnb, _bf16_copy(x, m, d), hidden, y, out, m, d, ffn, bf,
+                    eps)
     cuda_lib.launch_counts[KERNEL_A8] += 1
     return out
+
+
+def _gemm_plain(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, epilogue: str) -> torch.Tensor:
+    """Plain PyTorch version of the GEMM kernel of A7 and A8."""
+    c = _dot(a, b.float()) + bias
+    if epilogue == "gelu_bf16":
+        c = _gelu(c, "tanh")
+    return c if epilogue == "f32" else c.to(torch.bfloat16)
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, epilogue: str = "f32"):
+    """The products of A7 and A8 alone: epilogue(a (M, K) b (K, N) + bias)
+    with fp32 accumulation; ``epilogue`` one of ``GEMM_EPILOGUES`` (fp32
+    out, or bf16 after the bias or the tanh GELU). a and b bf16, bias (N,)
+    fp32; on the card K and N multiples of 8."""
+    if epilogue not in GEMM_EPILOGUES:
+        raise ValueError(f"epilogue must be one of {GEMM_EPILOGUES}, got {epilogue!r}")
+    if a.device.type == "cpu":
+        return _gemm_plain(a, b, bias, epilogue)
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM kernel for device {a.device}")
+    cuda_lib.check_operand(a, "a", a.device, torch.bfloat16, 2)
+    cuda_lib.check_operand(b, "b", a.device, torch.bfloat16, 2)
+    cuda_lib.check_operand(bias, "bias", a.device, torch.float32, 1)
+    m, k = a.shape
+    n = b.shape[1]
+    if b.shape[0] != k or bias.shape[0] != n or m == 0 or k % 8 or n % 8:
+        raise ValueError(f"the GEMM kernel needs (M, K) x (K, N) and K, N % 8 == 0, "
+                         f"got {tuple(a.shape)} x {tuple(b.shape)}, bias {tuple(bias.shape)}")
+    c = torch.empty(m, n, device=a.device, dtype=torch.float32 if epilogue == "f32" else torch.bfloat16)
+    cuda_lib.launch(KERNEL_GEMM, a.device, a, b, bias, c, m, n, k, GEMM_EPILOGUES.index(epilogue))
+    cuda_lib.launch_counts[KERNEL_GEMM] += 1
+    return c
 
 
 def _attn_block_int8_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:

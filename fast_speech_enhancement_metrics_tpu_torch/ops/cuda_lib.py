@@ -28,7 +28,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-HEADERS = ("common.cuh", "attention_core.cuh", "block_tiles.cuh", "flash_sm90.cuh")
+HEADERS = ("common.cuh", "attention_core.cuh", "block_tiles.cuh", "sm90.cuh", "flash_sm90.cuh", "gemm_sm90.cuh")
 SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
     "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu", "layer_block.cu",
@@ -56,9 +56,10 @@ _SIGNATURES = {
     "fsem_levinson_solve": (_P, _P, _P, _I, _I, _I, _P),
     # (tob clean, tob denoised, num_segments, tile partials, out, batch, frames, stream)
     "fsem_stoi_segment_sums": (_P, _P, _P, _P, _P, _I, _I, _P),
-    # (x, wqkv, bqkv, wo, bo, ln scale, ln shift, qkv, ctx, y, out, rows, frames,
-    #  width, heads, softmax mode, x and out are bf16, eps, stream)
-    "fsem_attn_block": (_P,) * 11 + (_I,) * 6 + (_F, _P),
+    # (x, wqkv, bqkv, wo, bo, ln scale, ln shift, bf16 x, qkv, ctx, y, padded
+    #  q / k / v / context, out, rows, frames, width, heads, softmax mode, x and
+    #  out are bf16, eps, stream)
+    "fsem_attn_block": (_P,) * 13 + (_I,) * 6 + (_F, _P),
     # (x, A7's six operands, A8's six, qkv, ctx, y, h, hidden, out, rows,
     #  frames, width, heads, ffn, softmax mode, x and out are bf16, eps, stream)
     "fsem_layer_block": (_P,) * 19 + (_I,) * 7 + (_F, _P),
@@ -67,9 +68,11 @@ _SIGNATURES = {
     #  q / k row scales, v column scales, ctx fp32, y, out, rows, frames, width,
     #  heads, softmax mode, x and out are bf16, eps, stream)
     "fsem_attn_block_int8": (_P,) * 16 + (_I,) * 6 + (_F, _P),
-    # (x, w1, b1, w2, b2, ln scale, ln shift, hidden, y, out, rows, width, ffn,
-    #  x and out are bf16, eps, stream)
-    "fsem_ffn_block": (_P,) * 10 + (_I,) * 4 + (_F, _P),
+    # (x, w1, b1, w2, b2, ln scale, ln shift, bf16 x, hidden, y, out, rows,
+    #  width, ffn, x and out are bf16, eps, stream)
+    "fsem_ffn_block": (_P,) * 11 + (_I,) * 4 + (_F, _P),
+    # (a, b, bias, c, M, N, K, epilogue, stream)
+    "fsem_gemm": (_P,) * 4 + (_I,) * 4 + (_P,),
     # (q, k, v, out, batch, heads, frames, keys walked, head width, softmax
     #  mode, logit scale, row-sum pad, stream); bf16 and float32
     "fsem_sdpa": (_P,) * 4 + (_I,) * 6 + (_F, _F, _P),

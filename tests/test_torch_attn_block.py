@@ -108,6 +108,37 @@ def test_block_wrappers_reject_other_devices():
         attn_block_pallas.pack_attn_block_params(tp, HEADS, "exp2", quant="int4")
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_block_input_check_rejects_a_misaligned_view(x_dtype):
+    """The kernels read x in 16-byte vectors and through TMA: a contiguous
+    view that starts off a 16-byte boundary is refused before any launch."""
+    p, _ = _params()
+    packed = attn_block_pallas.pack_ffn_block_params({k: torch.from_numpy(v) for k, v in p.items()})
+    flat = torch.zeros(2 * T * D + 1, dtype=x_dtype)
+    attn_block_pallas._check_block_input(flat[:-1].view(2, T, D), packed)
+    with pytest.raises(ValueError, match="aligned"):
+        attn_block_pallas._check_block_input(flat[1:].view(2, T, D), packed)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_gemm_plain_composes_the_ffn_block(x_dtype):
+    """The GEMM's plain version is A8's two products: W_1 with the tanh GELU
+    rounded to bf16, then W_2 in fp32; with the residual LayerNorm they give
+    the FFN block's plain version bit for bit (and so, through it, the JAX
+    kernel's function)."""
+    p, x = _params(seed=11)
+    w1, b1, w2, b2, lns, lnb = attn_block_pallas.pack_ffn_block_params({k: torch.from_numpy(v) for k, v in p.items()})
+    x = torch.from_numpy(x).to(x_dtype)
+    xb = x.to(torch.bfloat16).reshape(-1, D)
+    hidden = attn_block_pallas.gemm(xb, w1, b1, "gelu_bf16")
+    y = attn_block_pallas.gemm(hidden, w2, b2, "f32")
+    assert hidden.dtype == torch.bfloat16 and y.dtype == torch.float32 and y.shape == (2 * T, D)
+    got = attn_block_pallas._residual_ln(y, xb.float(), lns, lnb, 1e-5).reshape(x.shape).to(x_dtype)
+    assert torch.equal(got, attn_block_pallas.ffn_block(x, (w1, b1, w2, b2, lns, lnb), 1e-5))
+    with pytest.raises(ValueError, match="epilogue"):
+        attn_block_pallas.gemm(xb, w1, b1, "gelu")
+
+
 @pytest.mark.parametrize("softmax", ["exp2", "exact"])
 def test_layer_block_plain_matches_pallas(softmax):
     """A11's plain version against the JAX whole-layer kernel."""

@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
+import fast_speech_enhancement_metrics_tpu as jax_pkg
 from fast_speech_enhancement_metrics_tpu import LSD as JaxLSD
-from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR
+from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI, SpeechBERTScore
 from fast_speech_enhancement_metrics_tpu_torch.base import _is_ragged
+from fast_speech_enhancement_metrics_tpu_torch.models.hubert import HubertConfig, init_params
 from fast_speech_enhancement_metrics_tpu_torch.ops.resample import resample
 from fast_speech_enhancement_metrics_tpu_torch.utils import audio as pt_audio
 from fast_speech_enhancement_metrics_tpu.utils import audio as jax_audio
@@ -101,6 +103,58 @@ def test_ragged_equal_lengths_take_batched_path():
     noisy = [c + 0.1 * rs.randn(16000).astype(np.float32) for c in clean]
     assert not _is_ragged(noisy)
     assert len(LSD(device="cpu")(clean, noisy)) == 3
+
+
+def test_base_keywords_construct():
+    """The JAX package's ``dtype`` and ``mesh=None`` keywords construct every
+    metric, SpeechBERTScore included, and ``dtype`` is kept."""
+    assert SDR(device="cpu", dtype=torch.float32).dtype == torch.float32
+    assert STOI(device="cpu", mesh=None).mesh is None
+    config = HubertConfig(hidden_size=32, num_hidden_layers=1, num_attention_heads=2, intermediate_size=64,
+                          conv_dim=(8, 8), conv_kernel=(10, 3), conv_stride=(5, 2), num_conv_pos_embeddings=4,
+                          num_conv_pos_embedding_groups=2)
+    sbs = SpeechBERTScore(device="cpu", params=init_params(torch.Generator().manual_seed(0), config), config=config,
+                          output_layer=1, dtype=torch.float32)
+    assert sbs.dtype == torch.float32 and sbs.mesh is None
+
+
+@pytest.mark.parametrize("cls", [LSD, SDR, STOI, SpeechBERTScore], ids=lambda c: c.__name__)
+def test_mesh_other_than_none_raises(cls):
+    """The multi-device layer is not ported: a mesh raises, naming it."""
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        cls(device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("cls", [LSD, SDR, STOI, SpeechBERTScore], ids=lambda c: c.__name__)
+def test_dtype_other_than_float32_raises(cls):
+    """The port's parameters are float32 only: a bf16 ``dtype`` raises rather
+    than be stored and ignored (the JAX SpeechBERTScore loads a checkpoint's
+    weights in it)."""
+    with pytest.raises(NotImplementedError, match="float32"):
+        cls(device="cpu", dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("cls", [LSD, SDR, STOI, SpeechBERTScore], ids=lambda c: c.__name__)
+def test_non_intrusive_is_false(cls):
+    assert cls.NON_INTRUSIVE is False
+    assert getattr(jax_pkg, cls.__name__).NON_INTRUSIVE is False
+
+
+def test_compute_goes_through_run_prepared(speech_data):
+    """``compute`` (and so ``__call__``) hands the prepared audio to
+    ``_run_prepared``, which a subclass may override."""
+    calls = []
+
+    class Shifted(SDR):
+        def _run_prepared(self, clean, denoised):
+            calls.append((tuple(clean.shape), tuple(denoised.shape)))
+            return {"SDR": super()._run_prepared(clean, denoised)["SDR"] + 1.0}
+
+    clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
+    got = Shifted(device="cpu")(clean, noisy)
+    assert calls == [(clean.shape, noisy.shape)]
+    for a, b in zip(got, SDR(device="cpu")(clean, noisy)):
+        assert a["SDR"] == pytest.approx(b["SDR"] + 1.0, abs=1e-5)
 
 
 def test_default_device_is_cuda():

@@ -156,10 +156,12 @@ def _block_params(d, ffn, seed, qk_scale=0.12):
     return {k: torch.tensor(v, dtype=torch.float32) for k, v in p.items()}
 
 
-def _bf16_class(got, want):
-    """The JAX block tests' bf16 class: max abs 3e-2, median abs 1e-3."""
+def _bf16_class(got, want, stages=1):
+    """The JAX block tests' bf16 class: max abs 3e-2, median abs 1e-3; a
+    chain of two blocks (a whole layer) at twice the max."""
     diff = (got.float() - want.float()).abs()
-    assert diff.max().item() <= 3e-2 and diff.median().item() <= 1e-3, (diff.max().item(), diff.median().item())
+    assert diff.max().item() <= 3e-2 * stages and diff.median().item() <= 1e-3, (diff.max().item(),
+                                                                                diff.median().item())
 
 
 def _context_class(got, want):
@@ -172,10 +174,13 @@ def _context_class(got, want):
 
 
 @pytest.mark.parametrize("softmax", ["exp2", "exact", "exp2_bf16"])
-@pytest.mark.parametrize("t", [43, 130])
+@pytest.mark.parametrize("t", [43, 130, 799])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attn_block_kernel_matches_plain(dev, softmax, t, dtype):
-    d, heads = 128, 2  # heads of 64, the kernel's width
+    """Heads of 64; M = 2 T rows of the products is no multiple of their
+    128-row tiles, and T = 799 (the main path's) leaves the attention's last
+    128-query tile ragged."""
+    d, heads = 128, 2
     p = _block_params(d, 256, seed=t)
     x = torch.tensor(np.random.RandomState(1).randn(2, t, d), dtype=dtype)
     packed = attn_block_pallas.pack_attn_block_params(p, heads, softmax)
@@ -188,7 +193,8 @@ def test_attn_block_kernel_matches_plain(dev, softmax, t, dtype):
 
 @pytest.mark.parametrize("d,heads", [(64, 2), (160, 2), (96, 1), (96, 8)])
 def test_attn_block_kernel_any_head_width(dev, d, heads):
-    """Heads of 32, 80, 96 and 12 (not a multiple of 8: the scalar loads)."""
+    """Heads of 32, 80, 96 and 12 (not a multiple of 8: q, k, v and the
+    context go through zero-padded copies to the same attention kernel)."""
     p = _block_params(d, 128, seed=d)
     x = torch.tensor(np.random.RandomState(4).randn(2, 70, d), dtype=torch.float32)
     for softmax in ("exp2", "exact"):
@@ -222,9 +228,11 @@ def test_attn_block_int8_kernel_matches_plain(dev, softmax, t, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,heads,t", [(128, 2, 43), (160, 2, 130)])
 def test_layer_block_kernel_matches_plain_and_a7_a8(dev, softmax, dtype, d, heads, t):
-    """A11 against its plain version in the bf16 class, and bit for bit
-    against A7 then A8: one launch of the same tile routines in the same
-    order (heads of 64 and 80)."""
+    """A11 against its plain version in the bf16 class, and against A7 then
+    A8 at the class of a whole layer (twice the bf16 max), heads of 64 and
+    80: A11 runs the wmma tile routines, A7 and A8 the wgmma GEMM and the
+    flash attention, which sum in another order, and a sub-ulp difference
+    in the intermediate can flip one of its bf16 roundings at A8's entry."""
     p = _block_params(d, 256, seed=d + t)
     x = torch.tensor(np.random.RandomState(7).randn(3, t, d), dtype=dtype)
     attn_ops = tuple(a.to(dev) for a in attn_block_pallas.pack_attn_block_params(p, heads, softmax))
@@ -239,7 +247,7 @@ def test_layer_block_kernel_matches_plain_and_a7_a8(dev, softmax, dtype, d, head
     assert got.dtype == dtype
     separate = attn_block_pallas.ffn_block(attn_block_pallas.attn_block(xd, attn_ops, heads, 1e-5, softmax),
                                            ffn_ops, 1e-5)
-    assert torch.equal(got, separate)
+    _bf16_class(got, separate, stages=2)
     want = attn_block_pallas.layer_block(x, tuple(a.cpu() for a in attn_ops), tuple(a.cpu() for a in ffn_ops),
                                          heads, 1e-5, softmax)
     _bf16_class(got.cpu(), want)
@@ -301,16 +309,58 @@ def test_fused_corr_kernel_matches_plain(dev, t):
     torch.testing.assert_close(rc, pc, rtol=0, atol=2e-4 * scale)
 
 
+@pytest.mark.parametrize("t", [43, 799])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ffn_block_kernel_matches_plain(dev, dtype):
+def test_ffn_block_kernel_matches_plain(dev, dtype, t):
+    """M = 2 T rows, no multiple of the products' 128-row tiles."""
     d, ffn = 128, 256
     p = _block_params(d, ffn, seed=3)
-    x = torch.tensor(np.random.RandomState(2).randn(2, 43, d), dtype=dtype)
+    x = torch.tensor(np.random.RandomState(2).randn(2, t, d), dtype=dtype)
     packed = attn_block_pallas.pack_ffn_block_params(p)
     before = cuda_lib.launch_counts[attn_block_pallas.KERNEL_A8]
     got = attn_block_pallas.ffn_block(x.to(dev), tuple(a.to(dev) for a in packed), 1e-5)
     assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_A8] == before + 1
     _bf16_class(got.cpu(), attn_block_pallas.ffn_block(x, packed, 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_kernels_refuse_a_misaligned_x(dev, dtype):
+    """A contiguous x that starts off a 16-byte boundary raises ValueError
+    before any launch, and the card goes on working."""
+    d, ffn = 128, 256
+    packed = tuple(a.to(dev) for a in attn_block_pallas.pack_ffn_block_params(_block_params(d, ffn, seed=3)))
+    x = torch.randn(2 * 43 * d + 1, device=dev).to(dtype)[1:].view(2, 43, d)
+    before = cuda_lib.launch_counts[attn_block_pallas.KERNEL_A8]
+    with pytest.raises(ValueError, match="aligned"):
+        attn_block_pallas.ffn_block(x, packed, 1e-5)
+    assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_A8] == before
+    got = attn_block_pallas.ffn_block(x.clone(), packed, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("epilogue", attn_block_pallas.GEMM_EPILOGUES)
+@pytest.mark.parametrize("m,n,k", [(1598, 384, 128), (77, 160, 96), (300, 264, 3072)])
+def test_gemm_kernel_matches_plain(dev, m, n, k, epilogue):
+    """The products of A7 and A8 alone, against the plain version: fp32 out
+    to 1e-4 of max|c| (sums in another order), bf16 out within one bf16 ulp
+    (2^-7 relative: a sum a little off a rounding boundary can round to the
+    next value). M, N and K not multiples of the tiles (128 x 256, k
+    blocks of 64)."""
+    rs = np.random.RandomState(m + n)
+    a = torch.tensor(rs.randn(m, k), dtype=torch.bfloat16, device=dev)
+    b = torch.tensor(rs.randn(k, n) * k**-0.5, dtype=torch.bfloat16, device=dev)
+    bias = torch.tensor(rs.randn(n), dtype=torch.float32, device=dev)
+    before = cuda_lib.launch_counts[attn_block_pallas.KERNEL_GEMM]
+    got = attn_block_pallas.gemm(a, b, bias, epilogue)
+    assert cuda_lib.launch_counts[attn_block_pallas.KERNEL_GEMM] == before + 1
+    want = attn_block_pallas._gemm_plain(a, b, bias, epilogue)
+    assert got.dtype == want.dtype and got.shape == (m, n)
+    scale = want.float().abs().max().item()
+    if epilogue == "f32":
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2**-7, atol=1e-4 * scale)
 
 
 def test_speechbertscore_on_card_matches_cpu(dev):

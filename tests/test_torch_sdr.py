@@ -151,6 +151,38 @@ def test_sdr_metric_matches_jax(speech_data, kw):
     np.testing.assert_allclose(ours, theirs, atol=1e-2)
 
 
+@pytest.mark.parametrize("precision", ["highest", "high"])
+def test_sdr_precision_matches_jax(speech_data, precision):
+    """``precision`` is taken as the JAX metric takes it; on the CPU both
+    metrics score on their "xla" paths, the port's in float32."""
+    clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
+    ours = [r["SDR"] for r in SDR(device="cpu", precision=precision)(clean, noisy)]
+    theirs = [r["SDR"] for r in JaxSDR(precision=precision)(clean, noisy)]
+    np.testing.assert_allclose(ours, theirs, atol=1e-2)
+
+
+@pytest.mark.parametrize(
+    "attr,value,corr_impl",
+    [("zero_mean", True, "auto"), ("zero_mean", True, "gram_x4"), ("load_diag", 1e-3, "auto")],
+    ids=["zero_mean", "zero_mean-gram_x4", "load_diag"],
+)
+def test_sdr_zero_mean_and_load_diag_match_jax(attr, value, corr_impl):
+    """Each attribute, set after construction on both metrics, changes the
+    score as it does on the JAX metric (1e-2 dB); the signals carry a DC
+    offset, so that removing the mean matters."""
+    rs = np.random.RandomState(30)
+    clean = (rs.randn(3, 16000) + 0.4).astype(np.float32)
+    noisy = (clean + 0.6 * rs.randn(3, 16000)).astype(np.float32)
+    kw = {} if corr_impl == "auto" else {"corr_impl": corr_impl}
+    ours, theirs = SDR(device="cpu", **kw), JaxSDR(**kw)
+    setattr(ours, attr, value)
+    setattr(theirs, attr, value)
+    got = np.array([r["SDR"] for r in ours(clean, noisy)])
+    np.testing.assert_allclose(got, [r["SDR"] for r in theirs(clean, noisy)], atol=1e-2)
+    unset = np.array([r["SDR"] for r in SDR(device="cpu", **kw)(clean, noisy)])
+    assert np.all(np.abs(got - unset) > 1e-3), (got, unset)
+
+
 def test_sdr_gram_semantics_match_jax_gram_kernel():
     """Raw-signal correlation + normalization fold, at a non-unit scale."""
     rs = np.random.RandomState(24)

@@ -16,8 +16,11 @@ and ``"block_int8"`` (the int8 attention block A12, then the plain FFN),
 on its long-audio path at 16 x 60 s (2999 frames, the attention on
 kernel A9), and on one pair of 820 s clips (40 999 frames, kernel A15).
 Each line also gives the share of device time of the attention kernel
-(``flash_kernel``: A9 and A15; ``attention_kernel``: A7's and the float32
-arm's). The first line is the card's name and power limit. Needs a CUDA
+(``flash_kernel``: A9, A15 and A7's; ``attention_kernel``: A11's and the float32
+arm's), and the time of each kernel in an anonymous namespace by its short
+name: the package's own (A7 and A8 are several: ``cast_kernel``,
+``gemm_kernel<256, epilogue>``, ``flash_kernel``, ``residual_ln_kernel``)
+and a few of PyTorch's. The first line is the card's name and power limit. Needs a CUDA
 card; raises without one.
 """
 
@@ -93,6 +96,9 @@ def main() -> None:
         for e in kernels:
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total / 1e3 / CALLS
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+        # kernels in an anonymous namespace (the package's csrc/ and a few of PyTorch's), by short name
+        own = sorted(((k.split("(anonymous namespace)::", 1)[1].split("(", 1)[0], v) for k, v in per_name.items()
+                      if "(anonymous namespace)::" in k), key=lambda kv: -kv[1])
         attention_ms = sum(v for k, v in per_name.items() if any(a in k for a in ATTENTION_KERNELS))
         print(json.dumps({
             "metric": name, "batch": batch, "seconds": seconds,
@@ -103,6 +109,7 @@ def main() -> None:
             "attention_kernel_ms_per_call": attention_ms,
             "attention_kernel_share_of_busy": attention_ms / busy_ms,
             "top_kernels_ms_per_call": [[k[:90], v] for k, v in top],
+            "own_kernels_ms_per_call": own,
         }), flush=True)
 
 
