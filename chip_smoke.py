@@ -11,10 +11,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    float32 matmuls must not use TF32, nor the metrics' convs,
 2. build the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a) and print each
    kernel's registers and spills (``ptxas -v``), and any wgmma
-   serialization warning; the attention kernel of A9, A15 and A7 and the
-   GEMM of A7 and A8 must hold wgmma (HGMMA) and TMA (UTMALDG)
-   instructions in the SASS of every instantiation (``cuobjdump``) and
-   spill no register,
+   serialization warning; the attention kernel of A9, A15 and A7 (A11) and
+   the GEMM of A7 and A8 (A11) must hold bf16 wgmma (HGMMA) and TMA
+   (UTMALDG) instructions in the SASS of every instantiation
+   (``cuobjdump``), A12's int8 GEMM and int8 attention int8 wgmma (IGMMA)
+   and TMA, and none may spill a register,
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
    generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
@@ -27,14 +28,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    and 64 x (16 s + 100); A13 at 64 x 16 s, also against A1; each A14
    Levinson variant on the 64 x 512 systems that SDR builds from the 16 s
    batch; A11 and A12 on A7's mHuBERT-147 layer in every softmax mode, A11
-   also against A7 then A8 at the class of a whole layer, A12 also in the
-   JAX package's int8 screening class against A7),
+   also against A7 then A8 bit for bit, A12 also in the JAX package's int8
+   screening class against A7; A12's int8 GEMM alone exactly against its
+   plain version at the layer's QKV and W_o products),
 4. the main paths, each with every kernel's launch count set to 0 before
    it and read after it: ``LSD()``, ``SDR()`` and
    ``STOI(sample_rate=16000)`` through ``__call__`` on the 16 s batch;
    ``LSD()`` on the two unaligned batches; ``SpeechBERTScore`` at
    mHuBERT-147's full width with seeded random weights on the 16 s batch
-   (A7, A8; ``attention_impl="layer_block"``: A11; ``"block_int8"``: A12),
+   (A7, A8; ``attention_impl="layer_block"``: A11, its F1 equal to A7 +
+   A8's; ``"block_int8"``: A12),
    on 16 x 60 s (A9) and on one pair of 820 s clips (A15);
    ``SDR(corr_impl="fused")`` on the 16 s and 16 s + 100 batches (A10);
    ``SDR(corr_impl="gram")`` and ``"gram_x1"`` on the 16 s batch (A4 in
@@ -47,9 +50,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 5. times: each kernel, its plain version, a PyTorch library call (or, for
    A7, A8 and A11, a composite of library calls) for the same function where
    one exists (none computes int8 attention: A12's ``library_ms`` is null,
-   and its ``library_partial_ms`` is ``torch._int_mm`` for the q, k and v
-   projections only); the GEMM of A7 and A8 alone at the layer's four
-   products against bf16 ``F.linear``; and each metric end to end
+   and its ``library_partial_ms`` is ``torch._int_mm`` with the
+   dequantization for its QKV and W_o products only); the GEMM of A7 and A8
+   alone at the layer's four products against bf16 ``F.linear``, A12's
+   int8 GEMM alone at QKV and W_o against ``torch._int_mm`` and the
+   dequantization; and each metric end to end
    (SpeechBERTScore also on
    16 x 60 s and with ``attention_impl`` "layer_block" and "block_int8",
    SDR also fused),
@@ -199,27 +204,36 @@ def main() -> int:
                     log(f"  ptxas {src}: {line.strip()}")
 
     # the Hopper kernels must run on wgmma and TMA: count the warpgroup
-    # products (HGMMA) and tensor loads (UTMALDG) in the SASS of every
-    # instantiation of the attention kernel (A9, A15, A7: 2 head-width
-    # classes x 4 softmax modes, all in sdpa.cu) and of the GEMM (A7, A8: 3
-    # epilogues, in attn_block.cu) ...
+    # products (HGMMA in bf16, IGMMA in int8) and tensor loads (UTMALDG) in
+    # the SASS of every instantiation, and the spills ptxas reports for each:
+    # the attention kernel (A9, A15, A7: 2 head-width classes x 4 softmax
+    # modes, all in sdpa.cu), the GEMM (A7, A8: 3 bf16 epilogues in
+    # attn_block.cu; A12: its int8 arm, gemm_kernel<3>, in attn_block_int8.cu)
+    # and A12's int8 attention (4 head-width classes x 3 modes)
     cuobjdump = shutil.which("cuobjdump") or str(Path(cuda_lib._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
-    for kernel, source, n in (("flash_kernel", "sdpa", 8), ("gemm_kernel", "attn_block", 3)):
-        funcs = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
-        counts = [(f.count("HGMMA"), f.count("UTMALDG")) for f in funcs]
-        log(f"SASS: {len(funcs)} {kernel} instantiations; HGMMA and UTMALDG in each: {counts}")
+    int8_gemm = "gemm_kernelILi3E"
+    for kernel, source, n, product, keep in (
+        ("flash_kernel", "sdpa", 8, "HGMMA", lambda name: True),
+        ("gemm_kernel", "attn_block", 3, "HGMMA", lambda name: int8_gemm not in name),
+        ("gemm_kernel", "attn_block_int8", 1, "IGMMA", lambda name: int8_gemm in name),
+        ("i8_attention_kernel", "attn_block_int8", 12, "IGMMA", lambda name: True),
+    ):
+        funcs = [f for f in sass.split("Function : ")[1:]
+                 if kernel in f.split("\n", 1)[0] and keep(f.split("\n", 1)[0])]
+        counts = [(f.count(product), f.count("UTMALDG")) for f in funcs]
+        log(f"SASS: {len(funcs)} {kernel} instantiations of {source}.cu; {product} and UTMALDG in each: {counts}")
         check(len(funcs) == n and all(h > 0 and t > 0 for h, t in counts),
-              f"{kernel}: not {n} instantiations, each built on wgmma and TMA")
+              f"{kernel} ({source}.cu): not {n} instantiations, each built on {product} and TMA")
         # ... and spill nothing: ptxas's spill line follows each entry function
         spills, entry = [], ""
         for line in (cuda_lib.BUILD_DIR / f"{source}.log").read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line
-            elif "spill stores" in line and kernel in entry:
+            elif "spill stores" in line and kernel in entry and keep(entry):
                 spills.append(sum(int(k) for k in re.findall(r"(\d+) bytes spill", line)))
-        log(f"ptxas: {kernel} spill bytes (stores + loads) per instantiation: {spills}")
-        check(len(spills) == n and not any(spills), f"{kernel} spills registers")
+        log(f"ptxas: {kernel} ({source}.cu) spill bytes (stores + loads) per instantiation: {spills}")
+        check(len(spills) == n and not any(spills), f"{kernel} ({source}.cu) spills registers")
 
     # -- 3. kernels against their plain versions --------------------------------
     clean_np, noisy_np, _ = load_audio_data(SECONDS, BATCH, RATE)
@@ -394,27 +408,26 @@ def main() -> int:
                     "A8 gelu=tanh")
     record("A8", attn_block_pallas.KERNEL_A8, "attn_block.cu", "attn_block_pallas.py:213", err, blk_tol)
 
-    # A11: the whole layer in one launch, every softmax mode. Against the
-    # plain version of the whole layer the two stages' roundings compound:
-    # a sub-ulp difference in the intermediate h can flip bf16(h) at the FFN
-    # stage's entry, one bf16 ulp (0.031 for |h| in [4, 8)) carried through
-    # LN2, so the chain is held at the class of two stages, max 2 x 3e-2,
-    # median 1e-3. Against the A7 and A8 kernels in turn the same holds: A11
-    # runs the wmma tile routines, A7 and A8 the wgmma GEMM and the flash
-    # attention, which sum in another order
+    # A11: the whole layer, every softmax mode: A7's and A8's launches
+    # chained, LN1 written once in bf16 (which A8 rounds its input to
+    # anyway), so bit-equal to A7 then A8. Against the plain version of the
+    # whole layer the two stages' roundings compound: a sub-ulp difference in
+    # the intermediate h can flip bf16(h) at the FFN stage's entry, one bf16
+    # ulp (0.031 for |h| in [4, 8)) carried through LN2, so the chain is held
+    # at the class of two stages, max 2 x 3e-2, median 1e-3
     err = 0.0
     for mode in attn_block_pallas.SOFTMAX_MODES:
         got = attn_block_pallas.layer_block(x_blk, packed[mode], ffn_packed, heads, cfg.layer_norm_eps, mode)
         h_k = attn_block_pallas.attn_block(x_blk, packed[mode], heads, cfg.layer_norm_eps, mode)
-        vs_a7_a8 = block_err(got, attn_block_pallas.ffn_block(h_k, ffn_packed, cfg.layer_norm_eps),
-                             f"A11 softmax={mode} against A7 then A8")
-        check(vs_a7_a8 <= 2 * blk_tol,
-              f"A11 softmax={mode}: {vs_a7_a8:.3e} from A7 then A8, over the whole-layer class {2 * blk_tol}")
+        chained = attn_block_pallas.ffn_block(h_k, ffn_packed, cfg.layer_norm_eps)
+        vs_a7_a8 = torch.max(torch.abs(got - chained)).item()
+        log(f"  A11 softmax={mode} against A7 then A8: max abs {vs_a7_a8:.3e} (bit-equal: {torch.equal(got, chained)})")
+        check(torch.equal(got, chained), f"A11 softmax={mode} is not A7 then A8 bit for bit")
         err = max(err, block_err(got, attn_block_pallas._layer_block_plain(
             x_blk, packed[mode], ffn_packed, heads, cfg.layer_norm_eps, mode, "tanh"), f"A11 softmax={mode}"))
-        del got, h_k
+        del got, h_k, chained
     record("A11", attn_block_pallas.KERNEL_A11, "layer_block.cu", "attn_block_pallas.py:298", err, 2 * blk_tol,
-           " (the whole layer against its plain version and against A7 then A8, each at twice the bf16 class)")
+           " (the whole layer against its plain version, at twice the bf16 class; bit-equal to A7 then A8)")
 
     # A12: the int8 block, every softmax mode, against its plain version in
     # the bf16 class and against A7 in the JAX package's int8 screening
@@ -433,6 +446,22 @@ def main() -> int:
         del got, vs_a7
     record("A12", attn_block_pallas.KERNEL_A12, "attn_block_int8.cu", "attn_block_pallas.py:40", err, blk_tol,
            " (the int8 arm of _attn_block_kernel: _quant_rows :40, _quant_cols :47, _dot_i8 :55)")
+    # A12's int8 GEMM alone at the layer's QKV and W_o products, on the
+    # quantized x and the int8 weights, exactly against its plain version
+    # (the integer products are exact, the dequantization the same fp32 steps)
+    xq_i8, sx_i8 = attn_block_pallas._quant_rows(x_blk.reshape(-1, d_model).to(torch.bfloat16).float())
+    xq_i8, sx_i8 = xq_i8.to(torch.int8), sx_i8.reshape(-1).contiguous()
+    gemm_i8_args = {"QKV": (xq_i8, packed_i8["exp2"][0], sx_i8, packed_i8["exp2"][1][1].contiguous(),
+                            packed_i8["exp2"][1][0].contiguous()),
+                    "W_o": (xq_i8, packed_i8["exp2"][2], sx_i8, packed_i8["exp2"][3][1].contiguous(),
+                            packed_i8["exp2"][3][0].contiguous())}
+    for name, args in gemm_i8_args.items():
+        got, want = attn_block_pallas.gemm_i8(*args), attn_block_pallas._gemm_i8_plain(*args)
+        diff = torch.max(torch.abs(got - want)).item()
+        log(f"  A12 int8 GEMM {name} ({args[0].shape[0]} x {args[1].shape[0]} x {args[0].shape[1]}): max abs "
+            f"{diff:.3e} from its plain version (bit-equal: {torch.equal(got, want)})")
+        check(torch.equal(got, want), f"A12 int8 GEMM {name} is not its plain version bit for bit")
+        del got, want
 
     # A9 at the 16 x 60 s path's shape (16 rows x 12 heads x 2999 frames x
     # 64): the three softmax modes in bf16 and "exact" in float32 (atol
@@ -617,9 +646,9 @@ def main() -> int:
 
     # the whole-layer (A11) and int8 (A12) paths on the 16 s batch: one
     # launch per layer and row chunk, no A7 / A8; F1 against the CPU plain
-    # path of the same impl (atol 2e-4); A11's also against the A7 + A8 path
-    # above (the same tile routines in the same order), A12's only logged
-    # against it (the int8 screening mode is another function)
+    # path of the same impl (atol 2e-4); A11's also equal to the A7 + A8
+    # path's above (the same launches on the same operands), A12's only
+    # logged against it (the int8 screening mode is another function)
     for kid, impl in (("A11", "layer_block"), ("A12", "block_int8")):
         metric = pkg.SpeechBERTScore(params=sbs_params, attention_impl=impl)
         f1_i = f1_of(drive(lambda: metric(clean_np, noisy_np), f"SpeechBERTScore {impl}", (kid,)), BATCH)
@@ -632,8 +661,8 @@ def main() -> int:
         dev_cpu = float(np.max(np.abs(f1_i[:SBS_CPU_ROWS] - cpu_f1)))
         check(dev_cpu <= 2e-4, f"SpeechBERTScore {impl}: card vs CPU plain path {dev_cpu:.3e} (atol 2e-4)")
         vs_block = float(np.max(np.abs(f1_i - f1)))
-        if kid == "A11":
-            check(vs_block <= 2e-4, f"SpeechBERTScore layer_block vs block_ffn on the card {vs_block:.3e} (atol 2e-4)")
+        if kid == "A11":  # the default softmax (exp2) on both paths, A11 bit-equal to A7 then A8
+            check(vs_block == 0.0, f"SpeechBERTScore layer_block vs block_ffn on the card {vs_block:.3e} (not equal)")
         log(f"SpeechBERTScore {impl}: batch mean {f1_i.mean()}; card vs CPU plain path on {SBS_CPU_ROWS} rows: "
             f"max diff {dev_cpu:.3e} (atol 2e-4; the CPU took {cpu_s:.1f} s); vs the A7 + A8 path on the card: "
             f"max diff {vs_block:.3e}")
@@ -880,16 +909,18 @@ def main() -> int:
     )
     # A12: A7's products in int8 on the int8 tensor cores. No PyTorch call
     # computes int8 attention, so library_ms is null; library_partial_ms is
-    # torch._int_mm of the quantized x with the int8 W_qkv, the q, k and v
-    # projections only (a partial figure)
-    xq_lib = attn_block_pallas._quant_rows(x_blk.reshape(rows_t, d_model).to(torch.bfloat16).float())[0]
-    xq_lib, wq_lib = xq_lib.to(torch.int8), packed_i8["exp2"][0]
+    # torch._int_mm with the dequantization ((acc sa) sb + bias) for the
+    # QKV and W_o products only (a partial figure), on phase 3's operands
     timing["A12"] = (
         lambda: attn_block_pallas.attn_block(x_blk, packed_i8["exp2"], heads, cfg.layer_norm_eps, "exp2", quant="int8"),
         lambda: attn_block_pallas._attn_block_int8_plain(x_blk, packed_i8["exp2"], heads, cfg.layer_norm_eps, "exp2"),
         None, a7_ops, a7_ops, io_bytes + 4 * d_model * d_model + 14 * d_model * 4,
     )
-    library_partial = {"A12": lambda: torch._int_mm(xq_lib, wq_lib.t())}
+
+    def int_mm_dequant(a, b_t, sa, sb, bias):
+        return torch._int_mm(a, b_t.t()).float() * sa[:, None] * sb + bias
+
+    library_partial = {"A12": lambda: [int_mm_dequant(*args) for args in gemm_i8_args.values()]}
     # A13: A1's function (the same least work), its own algorithm the
     # factorized chunk DFT: 61 440 multiply-adds per chunk and signal
     timing["A13"] = (
@@ -987,6 +1018,16 @@ def main() -> int:
             f"{cuda_ms(lambda: attn_block_pallas.gemm(a_, w_, b_, epi)):.4f} ms (bound "
             f"{2 * m_ * w_.shape[1] * k_ / PEAK_BF16_TC_FLOPS * 1e3:.4f} ms); F.linear bf16 {lib_ms:.4f} ms")
     del xb2, hid
+    # A12's int8 GEMM alone at QKV and W_o (phase 3's operands) against
+    # torch._int_mm and the same dequantization, beside the least time of
+    # 2 M N K operations on the int8 tensor cores
+    for name, args in gemm_i8_args.items():
+        (m_, k_), n_ = args[0].shape, args[1].shape[0]
+        log(f"int8 GEMM {name} ({m_} x {n_} x {k_}): "
+            f"{cuda_ms(lambda: attn_block_pallas.gemm_i8(*args)):.4f} ms (bound "
+            f"{2 * m_ * n_ * k_ / PEAK_INT8_TC_OPS * 1e3:.4f} ms); torch._int_mm + dequantization "
+            f"{cuda_ms(lambda: int_mm_dequant(*args)):.4f} ms, torch._int_mm alone "
+            f"{cuda_ms(lambda: torch._int_mm(args[0], args[1].t())):.4f} ms")
 
     audio_s = BATCH * SECONDS
     for name, m in metrics.items():

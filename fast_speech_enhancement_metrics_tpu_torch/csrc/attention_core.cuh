@@ -1,19 +1,17 @@
-// Non-causal attention over one (row, head) per grid (y, z), 64 queries per
-// block: the core of A11 (layer_block.cu, heads of a (rows T, 3 d) qkv
-// buffer, as a device routine of its persistent kernel) and of A9 / A15's
-// float32 arm (sdpa_f32.cu, (B H, T, D) tensors). A7 and the bf16 A9 / A15
-// run flash_sm90.cuh.
+// Non-causal attention in float32 over one (row, head) per grid (y, z), 64
+// queries per block: the precision="highest" arm of A9 / A15 (sdpa_f32.cu,
+// (B H, T, D) tensors). The bf16 A9 / A15 and A7's attention (so A11's) run
+// flash_sm90.cuh.
 //
 // A block of 4 warps owns 64 queries; each warp owns 16. Key tiles stream
 // through shared memory (K/V of one head at 40 000 frames is 10 MB, far
 // beyond one SM, so nothing is resident as in the TPU kernel's VMEM). Per
-// key tile: S = Q K^T in fp32 into the warp's scratch, the softmax
-// element by element, then P V.
+// key tile: S = Q K^T by SIMT FMAs in fp32 (no TF32) into the warp's
+// scratch, the softmax element by element (P in place of S), then P V into
+// an fp32 accumulator in shared memory; K and V take turns in one tile so
+// that a head of 128 fits.
 //
 // Template parameters:
-// * T: bf16 (nvcuda::wmma 16x16x16, fp32 accumulation, P rounded to bf16 for
-//   the P V product) or float (SIMT FMAs in fp32, no TF32: the arm that
-//   precision="highest" takes);
 // * HDP: the head width zero-padded to a multiple of 16, at most 128. Rows
 //   load zeros past the real width hd, so the padded columns add nothing;
 // * kMode: kExp2 (p = 2^clamp(s, -100, 60); the scale and log2 e are in q
@@ -30,21 +28,15 @@
 // exp2 modes' clamped 2^-100 per padded key arrives as l_pad). The kOnline
 // arm walks n_keys keys (t_len padded to the flash kernel's 512) so its
 // per-tile rescales match the upstream kernel's. The output is ctx / l (or
-// acc) rounded to T; queries past t_len and columns past hd are not stored.
+// acc); queries past t_len and columns past hd are not stored.
 #pragma once
 
 #include <cuda_bf16.h>
-#include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 namespace attn {
-
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 enum Softmax { kExp2 = 0, kExp2Bf16 = 1, kExact = 2, kOnline = 3 };
 constexpr float kLn2Bf16 = 0.69140625f;  // ln 2 rounded to bf16
@@ -66,46 +58,32 @@ struct Args {
   int vec;                                // rows load 16 bytes at a time
 };
 
-template <typename T, int HDP, int kMode>
+template <int HDP, int kMode>
 struct Shape {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
   static constexpr int KT = kMode == kOnline ? 128 : 64;  // keys per tile
-  static constexpr int LDT = HDP + (kF32 ? 4 : 8);        // Q / K / V tiles
-  static constexpr int LDS = (KT > HDP ? KT : HDP) + 4;   // fp32 S (and the ctx epilogue)
-  static constexpr int LDP = KT + 8;                      // bf16 P
-  static constexpr int LDO = HDP + 4;                     // fp32 accumulator
-  static constexpr bool kAccSmem = kF32 || kMode == kOnline;
-  static constexpr bool kShareKV = kF32;  // fp32: V reuses K's tile
-  static constexpr size_t kQ = (size_t)kQTile * LDT * sizeof(T);
-  static constexpr size_t kKV = (size_t)KT * LDT * sizeof(T);
+  static constexpr int LDT = HDP + 4;                     // Q / K / V tiles
+  static constexpr int LDS = (KT > HDP ? KT : HDP) + 4;   // S, then P in place
+  static constexpr int LDO = HDP + 4;                     // the accumulator
+  static constexpr size_t kQ = (size_t)kQTile * LDT * sizeof(float);
+  static constexpr size_t kKV = (size_t)KT * LDT * sizeof(float);  // K, then V, of one tile
   static constexpr size_t kS = (size_t)kWarps * 16 * LDS * sizeof(float);
-  static constexpr size_t kP = kF32 ? 0 : (size_t)kWarps * 16 * LDP * sizeof(bf16);
-  static constexpr size_t kAcc = kAccSmem ? (size_t)kWarps * 16 * LDO * sizeof(float) : 0;
-  static constexpr size_t kSmem = kQ + (kShareKV ? 1 : 2) * kKV + kS + kP + kAcc;
+  static constexpr size_t kAcc = (size_t)kWarps * 16 * LDO * sizeof(float);
+  static constexpr size_t kSmem = kQ + kKV + kS + kAcc;
   static_assert(HDP % 16 == 0 && HDP <= kMaxHead, "head width");
   static_assert(kSmem <= 232448, "shared memory");
 };
 
 __device__ __forceinline__ float bf16_round(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
-template <typename T>
-__device__ __forceinline__ T zero_val() { return T(0.f); }
-template <>
-__device__ __forceinline__ bf16 zero_val<bf16>() { return __float2bfloat16(0.f); }
-
-__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_val(bf16* p, float v) { *p = __float2bfloat16(v); }
-
 // rows [r0, r0 + n_rows) of one head (frame stride ld, width hd) into an
 // (n_rows, LDT) tile of HDP columns; rows >= t_len and columns >= hd are zeros
-template <typename T, int HDP, int LDT>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int n_rows, int t_len,
-                                          int ld, int hd, bool vec, int tid) {
+template <int HDP, int LDT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int n_rows, int t_len, int ld,
+                                          int hd, bool vec, int tid) {
   if (vec) {  // hd, ld and the head offsets are multiples of 16 bytes
-    constexpr int kV = 16 / sizeof(T);
-    constexpr int kPerRow = HDP / kV;
+    constexpr int kPerRow = HDP / 4;
     for (int idx = tid; idx < n_rows * kPerRow; idx += kThreads) {
-      const int r = idx / kPerRow, c = (idx % kPerRow) * kV;
+      const int r = idx / kPerRow, c = (idx % kPerRow) * 4;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (r0 + r < t_len && c < hd) val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + c);
       *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
@@ -113,48 +91,31 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int n_ro
   } else {
     for (int idx = tid; idx < n_rows * HDP; idx += kThreads) {
       const int r = idx / HDP, c = idx % HDP;
-      T val = zero_val<T>();
+      float val = 0.f;
       if (r0 + r < t_len && c < hd) val = src[(size_t)(r0 + r) * ld + c];
       dst[r * LDT + c] = val;
     }
   }
 }
 
-// the warp's 16 x KT logits of the key tile in shared memory into s (ld LDS)
-template <typename T, int HDP, int KT, int LDT, int LDS>
-__device__ __forceinline__ void warp_logits(float* s, const T* q, const T* k, int lane) {
-  if constexpr (std::is_same<T, float>::value) {
-    // lane: query row lane / 2, keys (lane % 2) KT/2 .. + KT/2
-    const int r = lane >> 1, c0 = (lane & 1) * (KT / 2);
-    const float4* qr = reinterpret_cast<const float4*>(q + r * LDT);
-    for (int c = c0; c < c0 + KT / 2; ++c) {
-      const float4* kr = reinterpret_cast<const float4*>(k + c * LDT);
-      float acc = 0.f;
+// the warp's 16 x KT logits of the key tile in shared memory into s (ld
+// LDS); lane: query row lane / 2, keys (lane % 2) KT/2 .. + KT/2
+template <int HDP, int KT, int LDT, int LDS>
+__device__ __forceinline__ void warp_logits(float* s, const float* q, const float* k, int lane) {
+  const int r = lane >> 1, c0 = (lane & 1) * (KT / 2);
+  const float4* qr = reinterpret_cast<const float4*>(q + r * LDT);
+  for (int c = c0; c < c0 + KT / 2; ++c) {
+    const float4* kr = reinterpret_cast<const float4*>(k + c * LDT);
+    float acc = 0.f;
 #pragma unroll
-      for (int i = 0; i < HDP / 4; ++i) {
-        const float4 a = qr[i], b = kr[i];
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-        acc = fmaf(a.z, b.z, acc);
-        acc = fmaf(a.w, b.w, acc);
-      }
-      s[r * LDS + c] = acc;
+    for (int i = 0; i < HDP / 4; ++i) {
+      const float4 a = qr[i], b = kr[i];
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
     }
-  } else {
-#pragma unroll
-    for (int j = 0; j < KT / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HDP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, q + kk, LDT);
-        wmma::load_matrix_sync(b, k + j * 16 * LDT + kk, LDT);  // K^T
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(s + j * 16, acc, LDS, wmma::mem_row_major);
-    }
+    s[r * LDS + c] = acc;
   }
 }
 
@@ -185,66 +146,47 @@ __device__ __forceinline__ void simt_pv(float* acc, const float* p, const float*
   }
 }
 
-// the barrier of the kThreads threads that run one attention item: the
-// whole block (attention_kernel), or one named barrier per half of a
-// 256-thread block that runs two items at once (layer_block.cu)
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
-struct NamedSync {
-  int id;  // 1 .. 15; 0 is __syncthreads'
-  __device__ __forceinline__ void operator()() const {
-    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kThreads) : "memory");
-  }
-};
+// The block of queries blockIdx.x * 64 .. + 64 of head blockIdx.y of row
+// blockIdx.z, with Shape::kSmem bytes of dynamic shared memory.
+template <int HDP, int kMode>
+__global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
+  using Sh = Shape<HDP, kMode>;
+  constexpr int KT = Sh::KT, LDT = Sh::LDT, LDS = Sh::LDS, LDO = Sh::LDO;
+  extern __shared__ float4 smem4[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  float* qs = reinterpret_cast<float*>(base);
+  float* kv = reinterpret_cast<float*>(base + Sh::kQ);
+  float* s_all = reinterpret_cast<float*>(base + Sh::kQ + Sh::kKV);
+  float* acc_all = reinterpret_cast<float*>(base + Sh::kQ + Sh::kKV + Sh::kS);
 
-// One item: queries q_tile * 64 .. + 64 of head h of row `row`, by the
-// kThreads threads tid = 0 .. kThreads - 1 with Shape::kSmem bytes at base.
-template <typename T, int HDP, int kMode, typename Sync>
-__device__ __forceinline__ void attention_tile(const Args& a, int q_tile, int h, int row,
-                                               unsigned char* base, int tid, Sync sync) {
-  using Sh = Shape<T, HDP, kMode>;
-  constexpr int KT = Sh::KT, LDT = Sh::LDT, LDS = Sh::LDS, LDP = Sh::LDP, LDO = Sh::LDO;
-  constexpr bool kF32 = Sh::kF32;
-  T* qs = reinterpret_cast<T*>(base);
-  T* ks = reinterpret_cast<T*>(base + Sh::kQ);
-  T* vs = Sh::kShareKV ? ks : reinterpret_cast<T*>(base + Sh::kQ + Sh::kKV);
-  unsigned char* after_kv = base + Sh::kQ + (Sh::kShareKV ? 1 : 2) * Sh::kKV;
-  float* s_all = reinterpret_cast<float*>(after_kv);
-  bf16* p_all = reinterpret_cast<bf16*>(after_kv + Sh::kS);
-  float* acc_all = reinterpret_cast<float*>(after_kv + Sh::kS + Sh::kP);
-
-  const int warp = tid >> 5, lane = tid & 31;
-  const int q0 = q_tile * kQTile;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * kQTile, h = blockIdx.y, row = blockIdx.z;
   const long long off = row * a.row_stride + h * a.head_stride;
-  const T* qb = static_cast<const T*>(a.q) + off;
-  const T* kb = static_cast<const T*>(a.k) + off;
-  const T* vb = static_cast<const T*>(a.v) + off;
+  const float* qb = static_cast<const float*>(a.q) + off;
+  const float* kb = static_cast<const float*>(a.k) + off;
+  const float* vb = static_cast<const float*>(a.v) + off;
   const int t_len = a.t_len, ld = a.ld, hd = a.hd;
   const bool vec = a.vec != 0;
   float* s = s_all + warp * 16 * LDS;
-  bf16* p = p_all + warp * 16 * LDP;
   float* acc_s = acc_all + warp * 16 * LDO;
-  const T* qw = qs + warp * 16 * LDT;
+  const float* qw = qs + warp * 16 * LDT;
   // lane -> (query row r of the warp's 16, key columns c0 .. c0 + KT/2 and
   // accumulator columns oc0 .. oc0 + HDP/2)
   const int r = lane >> 1, c0 = (lane & 1) * (KT / 2), oc0 = (lane & 1) * (HDP / 2);
   const int n_ktiles = (a.n_keys + KT - 1) / KT;
   const float kNegInf = -__int_as_float(0x7f800000);
 
-  load_rows<T, HDP, LDT>(qs, qb, q0, kQTile, t_len, ld, hd, vec, tid);
-  if constexpr (Sh::kAccSmem) {
-    for (int c = oc0; c < oc0 + HDP / 2; ++c) acc_s[r * LDO + c] = 0.f;
-  }
+  load_rows<HDP, LDT>(qs, qb, q0, kQTile, t_len, ld, hd, vec, tid);
+  for (int c = oc0; c < oc0 + HDP / 2; ++c) acc_s[r * LDO + c] = 0.f;
 
   float row_max = 0.f;
   if constexpr (kMode == kExact) {  // pass 1: the row max over every valid key
     row_max = kNegInf;
     for (int kt = 0; kt < n_ktiles; ++kt) {
-      sync();
-      load_rows<T, HDP, LDT>(ks, kb, kt * KT, KT, t_len, ld, hd, vec, tid);
-      sync();
-      warp_logits<T, HDP, KT, LDT, LDS>(s, qw, ks, lane);
+      __syncthreads();
+      load_rows<HDP, LDT>(kv, kb, kt * KT, KT, t_len, ld, hd, vec, tid);
+      __syncthreads();
+      warp_logits<HDP, KT, LDT, LDS>(s, qw, kv, lane);
       __syncwarp();
       for (int c = 0; c < KT / 2; ++c) {
         if (kt * KT + c0 + c < t_len) row_max = fmaxf(row_max, s[r * LDS + c0 + c]);
@@ -254,19 +196,13 @@ __device__ __forceinline__ void attention_tile(const Args& a, int q_tile, int h,
     row_max = fmaxf(row_max, __shfl_xor_sync(fsem::kFullMask, row_max, 1));
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kF32 ? 1 : HDP / 16];
-  if constexpr (!Sh::kAccSmem) {
-#pragma unroll
-    for (int j = 0; j < HDP / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-  }
-  float l = 0.f;                // row sum (the lane's half until the end; kOnline: the row's)
-  float m_run = kNegInf;        // kOnline: running max
+  float l = 0.f;          // row sum (the lane's half until the end; kOnline: the row's)
+  float m_run = kNegInf;  // kOnline: running max
   for (int kt = 0; kt < n_ktiles; ++kt) {
-    sync();
-    load_rows<T, HDP, LDT>(ks, kb, kt * KT, KT, t_len, ld, hd, vec, tid);
-    if constexpr (!Sh::kShareKV) load_rows<T, HDP, LDT>(vs, vb, kt * KT, KT, t_len, ld, hd, vec, tid);
-    sync();
-    warp_logits<T, HDP, KT, LDT, LDS>(s, qw, ks, lane);
+    __syncthreads();
+    load_rows<HDP, LDT>(kv, kb, kt * KT, KT, t_len, ld, hd, vec, tid);
+    __syncthreads();
+    warp_logits<HDP, KT, LDT, LDS>(s, qw, kv, lane);
     __syncwarp();
 
     float m_next = 0.f, keep = 1.f, add = 1.f;
@@ -297,11 +233,7 @@ __device__ __forceinline__ void attention_tile(const Args& a, int q_tile, int h,
         }
       }
       l_tile += pv;
-      if constexpr (kF32) {
-        s[r * LDS + c0 + c] = pv;  // P in place, fp32 (v's dtype)
-      } else {
-        p[r * LDP + c0 + c] = __float2bfloat16(pv);
-      }
+      s[r * LDS + c0 + c] = pv;  // P in place
     }
     if constexpr (kMode == kOnline) {
       l_tile += __shfl_xor_sync(fsem::kFullMask, l_tile, 1);
@@ -317,110 +249,59 @@ __device__ __forceinline__ void attention_tile(const Args& a, int q_tile, int h,
     }
     __syncwarp();
 
-    if constexpr (kF32) {
-      if constexpr (Sh::kShareKV) {  // V into K's tile once every warp has its logits
-        sync();
-        load_rows<T, HDP, LDT>(vs, vb, kt * KT, KT, t_len, ld, hd, vec, tid);
-        sync();
-      }
-      simt_pv<HDP, KT, LDT, LDS, LDO>(acc_s, s, reinterpret_cast<const float*>(vs), lane, keep, add);
-    } else {
-      // o = bf16(P) V by wmma: across tiles in fragments, or (kOnline) per
-      // tile through the warp's S scratch into the accumulator
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[kMode == kOnline ? HDP / 16 : 1];
-      if constexpr (kMode == kOnline) {
-#pragma unroll
-        for (int j = 0; j < HDP / 16; ++j) wmma::fill_fragment(o[j], 0.f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < KT; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, p + kk, LDP);
-#pragma unroll
-        for (int j = 0; j < HDP / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, reinterpret_cast<const bf16*>(vs) + kk * LDT + j * 16, LDT);
-          if constexpr (kMode == kOnline) {
-            wmma::mma_sync(o[j], fa, fb, o[j]);
-          } else {
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
-          }
-        }
-      }
-      if constexpr (kMode == kOnline) {
-#pragma unroll
-        for (int j = 0; j < HDP / 16; ++j) wmma::store_matrix_sync(s + j * 16, o[j], LDS, wmma::mem_row_major);
-        __syncwarp();
-        for (int c = oc0; c < oc0 + HDP / 2; ++c) {
-          acc_s[r * LDO + c] = acc_s[r * LDO + c] * keep + s[r * LDS + c] * add;
-        }
-      }
-    }
+    __syncthreads();  // V into K's tile once every warp has its logits
+    load_rows<HDP, LDT>(kv, vb, kt * KT, KT, t_len, ld, hd, vec, tid);
+    __syncthreads();
+    simt_pv<HDP, KT, LDT, LDS, LDO>(acc_s, s, kv, lane, keep, add);
     __syncwarp();
   }
 
-  // the output: acc (kOnline, normalised already) or ctx / l, rounded to T
+  // the output: acc (kOnline, normalised already) or ctx / l
   float denom = 1.f;
-  const float* src = acc_s;
-  int ld_src = LDO;
   if constexpr (kMode != kOnline) {
     l += __shfl_xor_sync(fsem::kFullMask, l, 1);
     denom = l + a.l_pad;
   }
-  if constexpr (!Sh::kAccSmem) {
-#pragma unroll
-    for (int j = 0; j < HDP / 16; ++j) wmma::store_matrix_sync(s + j * 16, acc[j], LDS, wmma::mem_row_major);
-    __syncwarp();
-    src = s;
-    ld_src = LDS;
-  }
   const int q = q0 + warp * 16 + r;
   if (q < t_len) {
-    T* out = static_cast<T*>(a.o) + row * a.o_row_stride + h * a.o_head_stride + (size_t)q * a.ld_o;
+    float* out = static_cast<float*>(a.o) + row * a.o_row_stride + h * a.o_head_stride + (size_t)q * a.ld_o;
     for (int c = oc0; c < oc0 + HDP / 2 && c < hd; ++c) {
-      const float val = src[r * ld_src + c];
-      store_val(out + c, kMode == kOnline ? val : val / denom);
+      const float val = acc_s[r * LDO + c];
+      out[c] = kMode == kOnline ? val : val / denom;
     }
   }
 }
 
-template <typename T, int HDP, int kMode>
-__global__ void __launch_bounds__(kThreads) attention_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  attention_tile<T, HDP, kMode>(a, blockIdx.x, blockIdx.y, blockIdx.z,
-                                reinterpret_cast<unsigned char*>(smem4), threadIdx.x, BlockSync{});
-}
-
-template <typename T, int HDP, int kMode>
+template <int HDP, int kMode>
 cudaError_t launch(const Args& a, int heads, int rows, cudaStream_t stream) {
-  constexpr size_t smem = Shape<T, HDP, kMode>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, HDP, kMode>,
+  constexpr size_t smem = Shape<HDP, kMode>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(attention_kernel<HDP, kMode>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.t_len + kQTile - 1) / kQTile, heads, rows);
-  attention_kernel<T, HDP, kMode><<<grid, kThreads, smem, stream>>>(a);
+  attention_kernel<HDP, kMode><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // the instantiation for hd padded to a multiple of 16; wider than 128 is refused
-template <typename T, int kMode>
+template <int kMode>
 cudaError_t launch_any_width(const Args& a, int heads, int rows, cudaStream_t stream) {
   switch ((a.hd + 15) / 16) {
-    case 1: return launch<T, 16, kMode>(a, heads, rows, stream);
-    case 2: return launch<T, 32, kMode>(a, heads, rows, stream);
-    case 3: return launch<T, 48, kMode>(a, heads, rows, stream);
-    case 4: return launch<T, 64, kMode>(a, heads, rows, stream);
-    case 5: return launch<T, 80, kMode>(a, heads, rows, stream);
-    case 6: return launch<T, 96, kMode>(a, heads, rows, stream);
-    case 7: return launch<T, 112, kMode>(a, heads, rows, stream);
-    case 8: return launch<T, 128, kMode>(a, heads, rows, stream);
+    case 1: return launch<16, kMode>(a, heads, rows, stream);
+    case 2: return launch<32, kMode>(a, heads, rows, stream);
+    case 3: return launch<48, kMode>(a, heads, rows, stream);
+    case 4: return launch<64, kMode>(a, heads, rows, stream);
+    case 5: return launch<80, kMode>(a, heads, rows, stream);
+    case 6: return launch<96, kMode>(a, heads, rows, stream);
+    case 7: return launch<112, kMode>(a, heads, rows, stream);
+    case 8: return launch<128, kMode>(a, heads, rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // A9 / A15 layout: q, k, v, o contiguous (batch, heads, t_len, head_dim)
-inline Args bhtd_args(const void* q, const void* k, const void* v, void* o, int heads, int t_len,
-                      int n_keys, int head_dim, float scale, float l_pad, int elem_bytes) {
+inline Args bhtd_args(const void* q, const void* k, const void* v, void* o, int heads, int t_len, int n_keys,
+                      int head_dim, float scale, float l_pad) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -434,42 +315,17 @@ inline Args bhtd_args(const void* q, const void* k, const void* v, void* o, int 
   a.hd = head_dim;
   a.scale = scale;
   a.l_pad = l_pad;
-  a.vec = (head_dim * elem_bytes) % 16 == 0;
-  return a;
-}
-
-// A11's layout: heads of a (rows t_len, 3 d) qkv buffer, columns
-// [q | k | v], into a (rows t_len, d) context
-__host__ __device__ inline Args qkv_args(const bf16* qkv, bf16* ctx, int t_len, int d, int heads) {
-  const int hd = d / heads;
-  Args a{};
-  a.q = qkv;
-  a.k = qkv + d;
-  a.v = qkv + 2 * d;
-  a.o = ctx;
-  a.row_stride = (long long)t_len * 3 * d;
-  a.head_stride = hd;
-  a.o_row_stride = (long long)t_len * d;
-  a.o_head_stride = hd;
-  a.ld = 3 * d;
-  a.ld_o = d;
-  a.t_len = t_len;
-  a.n_keys = t_len;
-  a.hd = hd;
-  a.scale = 1.f;
-  a.l_pad = 0.f;
-  a.vec = hd % 8 == 0;
+  a.vec = head_dim % 4 == 0;
   return a;
 }
 
 // the instantiation for a runtime softmax mode
-template <typename T>
-cudaError_t launch_mode(const Args& a, int mode, int heads, int rows, cudaStream_t stream) {
+inline cudaError_t launch_mode(const Args& a, int mode, int heads, int rows, cudaStream_t stream) {
   switch (mode) {
-    case kExp2: return launch_any_width<T, kExp2>(a, heads, rows, stream);
-    case kExp2Bf16: return launch_any_width<T, kExp2Bf16>(a, heads, rows, stream);
-    case kExact: return launch_any_width<T, kExact>(a, heads, rows, stream);
-    case kOnline: return launch_any_width<T, kOnline>(a, heads, rows, stream);
+    case kExp2: return launch_any_width<kExp2>(a, heads, rows, stream);
+    case kExp2Bf16: return launch_any_width<kExp2Bf16>(a, heads, rows, stream);
+    case kExact: return launch_any_width<kExact>(a, heads, rows, stream);
+    case kOnline: return launch_any_width<kOnline>(a, heads, rows, stream);
     default: return cudaErrorInvalidValue;
   }
 }

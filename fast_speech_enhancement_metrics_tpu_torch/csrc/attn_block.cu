@@ -34,16 +34,38 @@
 // * block_tiles.cuh's residual_ln_kernel, one warp per row.
 // The qkv, the context, the (rows T, ffn) hidden and y pass through device
 // memory between these launches (qkv is 235 MB at the main path's shape,
-// ~0.07 ms of bytes). A11 (layer_block.cu) runs block_tiles.cuh's wmma
-// routines and attention_core.cuh in one persistent launch: it sums in
-// another order than wgmma, so it is not bit-equal to A7 then A8.
+// ~0.07 ms of bytes). The two blocks' launch chains are exported as the
+// stages of block_stages.cuh, which A11 (layer_block.cu) chains too.
 #include <cuda_bf16.h>
 
+#include "block_stages.cuh"
 #include "block_tiles.cuh"
 #include "flash_sm90.cuh"
 #include "gemm_sm90.cuh"
 
 namespace {
+
+namespace gemm90 {
+
+// C = epilogue(A B + bias) in bf16 (gemm_sm90.cuh): this translation unit
+// instantiates the three bf16 epilogues, A12's the int8 one
+inline cudaError_t gemm(const bf16* A, const bf16* B, const float* bias, void* C, int M, int N, int K, int epi,
+                        cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || N % 8 || K % 8) return cudaErrorInvalidValue;
+  CUtensorMap ta, tb;
+  const cuuint64_t a_dims[2] = {(cuuint64_t)K, (cuuint64_t)M}, a_strides[1] = {(cuuint64_t)K * 2};
+  const cuuint64_t b_dims[2] = {(cuuint64_t)N, (cuuint64_t)K}, b_strides[1] = {(cuuint64_t)N * 2};
+  if (!tensor_map(&ta, A, 2, a_dims, a_strides, kBM) || !tensor_map(&tb, B, 2, b_dims, b_strides, kBK))
+    return cudaErrorInvalidValue;
+  switch (epi) {
+    case kBiasBf16: return launch<kBiasBf16>(ta, tb, nullptr, nullptr, bias, C, M, N, K, stream);
+    case kBiasGeluBf16: return launch<kBiasGeluBf16>(ta, tb, nullptr, nullptr, bias, C, M, N, K, stream);
+    case kBiasF32: return launch<kBiasF32>(ta, tb, nullptr, nullptr, bias, C, M, N, K, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace gemm90
 
 using bf16 = __nv_bfloat16;
 
@@ -101,14 +123,6 @@ __global__ void __launch_bounds__(kCopyThreads) unpad_kernel(const bf16* __restr
   }
 }
 
-// x (M, d) as bf16: x itself, or its rounded copy in xb
-const bf16* bf16_x(const void* x, bf16* xb, long long n, int x_bf16, cudaStream_t stream, cudaError_t* err) {
-  if (x_bf16) return static_cast<const bf16*>(x);
-  cast_kernel<<<copy_blocks(n / 8), kCopyThreads, 0, stream>>>(static_cast<const float*>(x), xb, n / 8);
-  *err = cudaGetLastError();
-  return xb;
-}
-
 cudaError_t attention(const bf16* qkv, bf16* ctx, bf16* pad, int rows, int t_len, int d, int heads, int mode,
                       cudaStream_t stream) {
   const int hd = d / heads;
@@ -132,38 +146,41 @@ cudaError_t attention(const bf16* qkv, bf16* ctx, bf16* pad, int rows, int t_len
   return cudaGetLastError();
 }
 
-template <typename TX>
-cudaError_t attn_block(const void* x, const bf16* wqkv, const float* bqkv, const bf16* wo, const float* bo,
-                       const float* lns, const float* lnb, bf16* xb, bf16* qkv, bf16* ctx, float* y, bf16* pad,
-                       void* out, int rows, int t_len, int d, int heads, int mode, float eps, cudaStream_t stream) {
+}  // namespace
+
+namespace fsem {
+
+cudaError_t cast_to_bf16(const float* x, bf16* out, long long n, cudaStream_t stream) {
+  cast_kernel<<<copy_blocks(n / 8), kCopyThreads, 0, stream>>>(x, out, n / 8);
+  return cudaGetLastError();
+}
+
+cudaError_t attn_stage(const bf16* x, const bf16* wqkv, const float* bqkv, const bf16* wo, const float* bo,
+                       const float* lns, const float* lnb, bf16* qkv, bf16* ctx, float* y, bf16* pad, void* out,
+                       int out_bf16, int rows, int t_len, int d, int heads, int mode, float eps, cudaStream_t stream) {
   const int M = rows * t_len;
-  cudaError_t err = cudaSuccess;
-  const bf16* xin = bf16_x(x, xb, (long long)M * d, sizeof(TX) == 2, stream, &err);
-  if (err != cudaSuccess) return err;
-  err = gemm90::gemm(xin, wqkv, bqkv, qkv, M, 3 * d, d, gemm90::kBiasBf16, stream);
+  cudaError_t err = gemm90::gemm(x, wqkv, bqkv, qkv, M, 3 * d, d, gemm90::kBiasBf16, stream);
   if (err != cudaSuccess) return err;
   err = attention(qkv, ctx, pad, rows, t_len, d, heads, mode, stream);
   if (err != cudaSuccess) return err;
   err = gemm90::gemm(ctx, wo, bo, y, M, d, d, gemm90::kBiasF32, stream);
   if (err != cudaSuccess) return err;
-  return tiles::residual_ln<bf16, TX>(y, xin, lns, lnb, static_cast<TX*>(out), M, d, eps, stream);
+  return out_bf16 ? tiles::residual_ln<bf16, bf16>(y, x, lns, lnb, static_cast<bf16*>(out), M, d, eps, stream)
+                  : tiles::residual_ln<bf16, float>(y, x, lns, lnb, static_cast<float*>(out), M, d, eps, stream);
 }
 
-template <typename TX>
-cudaError_t ffn_block(const void* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
-                      const float* lns, const float* lnb, bf16* xb, bf16* hidden, float* y, void* out, int M, int d,
-                      int ffn, float eps, cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
-  const bf16* xin = bf16_x(x, xb, (long long)M * d, sizeof(TX) == 2, stream, &err);
-  if (err != cudaSuccess) return err;
-  err = gemm90::gemm(xin, w1, b1, hidden, M, ffn, d, gemm90::kBiasGeluBf16, stream);
+cudaError_t ffn_stage(const bf16* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
+                      const float* lns, const float* lnb, bf16* hidden, float* y, void* out, int out_bf16, int M,
+                      int d, int ffn, float eps, cudaStream_t stream) {
+  cudaError_t err = gemm90::gemm(x, w1, b1, hidden, M, ffn, d, gemm90::kBiasGeluBf16, stream);
   if (err != cudaSuccess) return err;
   err = gemm90::gemm(hidden, w2, b2, y, M, d, ffn, gemm90::kBiasF32, stream);
   if (err != cudaSuccess) return err;
-  return tiles::residual_ln<bf16, TX>(y, xin, lns, lnb, static_cast<TX*>(out), M, d, eps, stream);
+  return out_bf16 ? tiles::residual_ln<bf16, bf16>(y, x, lns, lnb, static_cast<bf16*>(out), M, d, eps, stream)
+                  : tiles::residual_ln<bf16, float>(y, x, lns, lnb, static_cast<float*>(out), M, d, eps, stream);
 }
 
-}  // namespace
+}  // namespace fsem
 
 // A7. x, out: (rows, t_len, d), both fp32 or both bf16 (x_bf16); wqkv:
 // (d, 3 d) bf16, columns [q | k | v], q pre-scaled; bqkv: (3 d,) fp32;
@@ -180,11 +197,16 @@ extern "C" int fsem_attn_block(const void* x, const void* wqkv, const float* bqk
   if (rows <= 0 || t_len <= 0 || heads <= 0 || d % heads || d / heads > flash90::kMaxHead || d % 32 || mode < 0 ||
       mode > 2)
     return (int)cudaErrorInvalidValue;
-  auto block = x_bf16 ? attn_block<bf16> : attn_block<float>;
-  return (int)block(x, static_cast<const bf16*>(wqkv), bqkv, static_cast<const bf16*>(wo), bo, lns, lnb,
-                    static_cast<bf16*>(xb), static_cast<bf16*>(qkv), static_cast<bf16*>(ctx), y,
-                    static_cast<bf16*>(pad), out, rows, t_len, d, heads, mode, eps,
-                    static_cast<cudaStream_t>(stream_ptr));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bf16* xin = static_cast<const bf16*>(x_bf16 ? x : xb);
+  if (!x_bf16) {
+    const cudaError_t err = fsem::cast_to_bf16(static_cast<const float*>(x), static_cast<bf16*>(xb),
+                                               (long long)rows * t_len * d, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)fsem::attn_stage(xin, static_cast<const bf16*>(wqkv), bqkv, static_cast<const bf16*>(wo), bo, lns, lnb,
+                               static_cast<bf16*>(qkv), static_cast<bf16*>(ctx), y, static_cast<bf16*>(pad), out,
+                               x_bf16, rows, t_len, d, heads, mode, eps, stream);
 }
 
 // A8. x, out: (M, d), both fp32 or both bf16 (x_bf16); w1: (d, ffn) bf16;
@@ -195,10 +217,15 @@ extern "C" int fsem_ffn_block(const void* x, const void* w1, const float* b1, co
                               const float* lns, const float* lnb, void* xb, void* hidden, float* y, void* out, int M,
                               int d, int ffn, int x_bf16, float eps, void* stream_ptr) {
   if (M <= 0 || d % 32 || ffn % 32) return (int)cudaErrorInvalidValue;
-  auto block = x_bf16 ? ffn_block<bf16> : ffn_block<float>;
-  return (int)block(x, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2, lns, lnb,
-                    static_cast<bf16*>(xb), static_cast<bf16*>(hidden), y, out, M, d, ffn, eps,
-                    static_cast<cudaStream_t>(stream_ptr));
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bf16* xin = static_cast<const bf16*>(x_bf16 ? x : xb);
+  if (!x_bf16) {
+    const cudaError_t err =
+        fsem::cast_to_bf16(static_cast<const float*>(x), static_cast<bf16*>(xb), (long long)M * d, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)fsem::ffn_stage(xin, static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2, lns, lnb,
+                              static_cast<bf16*>(hidden), y, out, x_bf16, M, d, ffn, eps, stream);
 }
 
 // The products of A7 and A8 alone: c (M, N) = epilogue(a (M, K) b (K, N) +

@@ -1,7 +1,8 @@
 // Non-causal attention over (rows, heads, T, D) bf16 views on Hopper: kernels
 // A9 (sdpa.cu, softmax exp2 / exp2_bf16 / exact), A15 (the same entry,
-// softmax online) and A7's attention (attn_block.cu, modes 0-2). TMA brings
-// the tiles, wgmma multiplies, the softmax stays in registers.
+// softmax online) and A7's attention (attn_block.cu, modes 0-2; A11 chains
+// A7). TMA brings the tiles, wgmma multiplies, the softmax stays in
+// registers.
 //
 // Block: 128 queries of one (row, head), 384 threads. Two consumer
 // warpgroups own 64 query rows each; one thread of a producer warpgroup
@@ -19,8 +20,8 @@
 //                  read transposed (MN-major); O stays in registers.
 // Nothing of S, P or O goes through shared memory.
 //
-// Per-element softmax (as attention_core.cuh:19-27, which A11 and the
-// float32 arm run):
+// Per-element softmax (as attention_core.cuh's, which the float32 arm
+// runs):
 // * kExp2: p = 2^clamp(s, -100, 60) (scale and log2 e are in q already);
 // * kExp2Bf16: p = bf16(exp(bf16(bf16(clamp(s)) * bf16(ln 2))));
 // * kExact: a first pass over the key tiles (S only) for the row max, then

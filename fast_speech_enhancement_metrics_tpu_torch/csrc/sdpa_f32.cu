@@ -5,11 +5,11 @@
 // tensor cores (67 TFLOP/s; never TF32): 0.44 TFLOP at 16 x 12 x 2999 x 64
 // is 6.6 ms at best.
 //
-// Design: attention_core.cuh's SIMT arm: per warp 16 queries, each lane one
-// query row and half of the key columns for q k^T and half of the head's
-// columns for p v, the accumulator in shared memory; K and V take turns in
-// one shared tile so a head of 128 fits. Kept in its own source so that nvcc
-// builds it beside sdpa.cu.
+// Design: attention_core.cuh (SIMT, float32 throughout): per warp 16
+// queries, each lane one query row and half of the key columns for q k^T
+// and half of the head's columns for p v, the accumulator in shared
+// memory; K and V take turns in one shared tile so a head of 128 fits.
+// Kept in its own source so that nvcc builds it beside sdpa.cu.
 #include "attention_core.cuh"
 
 // as fsem_sdpa, with q, k, v, o float32
@@ -18,6 +18,6 @@ extern "C" int fsem_sdpa_f32(const void* q, const void* k, const void* v, void* 
                              float scale, float l_pad, void* stream_ptr) {
   if (head_dim <= 0 || head_dim > attn::kMaxHead || t_len <= 0 || n_keys < t_len)
     return (int)cudaErrorInvalidValue;
-  const attn::Args a = attn::bhtd_args(q, k, v, o, heads, t_len, n_keys, head_dim, scale, l_pad, 4);
-  return (int)attn::launch_mode<float>(a, mode, heads, batch, static_cast<cudaStream_t>(stream_ptr));
+  const attn::Args a = attn::bhtd_args(q, k, v, o, heads, t_len, n_keys, head_dim, scale, l_pad);
+  return (int)attn::launch_mode(a, mode, heads, batch, static_cast<cudaStream_t>(stream_ptr));
 }

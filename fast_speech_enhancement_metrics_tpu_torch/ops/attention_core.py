@@ -1,9 +1,9 @@
 """Softmax numerics shared by the attention kernels' plain versions and wrappers.
 
-The Python side of ``csrc/attention_core.cuh``: the softmax modes that A7
-(``attn_block_pallas``) and A9 (``sdpa_pallas``) take, in the kernels' mode
-order, the widest head the kernels hold, and the bf16 roundings the plain
-versions use to follow the kernels.
+The softmax modes that A7 (``attn_block_pallas``) and A9 (``sdpa_pallas``)
+take, in the kernels' mode order (``csrc/flash_sm90.cuh``,
+``csrc/attention_core.cuh``), the widest head the kernels hold, and the
+bf16 roundings the plain versions use to follow the kernels.
 """
 
 from __future__ import annotations

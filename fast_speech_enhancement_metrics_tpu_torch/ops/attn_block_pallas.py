@@ -6,8 +6,9 @@ Counterpart of the JAX package's ``ops/attn_block_pallas.py``:
   y = LN(x + W_o · attn(x · W_qkv + b_qkv) + b_o) over (rows, T, d);
 * ``ffn_block`` (A8, ``_ffn_block_kernel``):
   y = LN(x + W_2 · gelu(W_1 · x + b_1) + b_2);
-* ``layer_block`` (A11, ``_layer_block_kernel``): A7 then A8 in one
-  launch, the intermediate held in x's dtype;
+* ``layer_block`` (A11, ``_layer_block_kernel``): A7 then A8, the
+  intermediate crossing in x's dtype (on the card written once in bf16,
+  which A8 rounds it to at entry anyway);
 * ``attn_block(..., quant="int8")`` (A12, A7's kernel with ``_quant_rows``,
   ``_quant_cols`` and ``_dot_i8``): every product int8 x int8 -> int32,
   dynamic per-row activation scales and per-column weight scales
@@ -26,10 +27,12 @@ fp32 accumulation" as float32 products of bf16-rounded values.
 The CUDA kernels are ``csrc/attn_block.cu`` (A7, A8: the Hopper GEMM of
 ``csrc/gemm_sm90.cuh`` with fused epilogues, ``gemm`` here alone, and A7's
 attention on ``csrc/flash_sm90.cuh``, A9's kernel, for any head width up
-to 128), ``csrc/layer_block.cu`` (A11: one cooperative launch of
-``block_tiles.cuh``'s wmma routines and ``attention_core.cuh``) and
-``csrc/attn_block_int8.cu`` (A12, on the int8 tensor cores). CPU tensors
-take the plain versions; CUDA tensors launch the kernels or raise.
+to 128), ``csrc/layer_block.cu`` (A11: A7's and A8's launches chained,
+LN1 written straight to a bf16 h, so bit-equal to A7 then A8, at every
+head width A7 takes) and ``csrc/attn_block_int8.cu`` (A12: the int8 arm
+of the same GEMM, ``gemm_i8`` here alone, and an int8 attention on TMA
+and int8 ``wgmma``). CPU tensors take the plain versions; CUDA tensors
+launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -50,11 +53,10 @@ KERNEL_A8 = "ffn_block"
 KERNEL_A11 = "layer_block"
 KERNEL_A12 = "attn_block_int8"
 KERNEL_GEMM = "gemm"
+KERNEL_GEMM_I8 = "gemm_i8"
 #: epilogues of ``gemm``: bf16(acc + bias), bf16(gelu_tanh(acc + bias)), acc + bias in fp32
 GEMM_EPILOGUES = ("bf16", "gelu_bf16", "f32")
 QUANT_MODES = (None, "int8")
-#: head widths the layer kernel A11 is built for (HuBERT base / large, xlarge)
-LAYER_HEAD_DIMS = (64, 80)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -62,18 +64,27 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(round_bf16(a), round_bf16(b))
 
 
-def _quant_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+#: 1 / 127 rounded to fp32. Inside the JAX kernel XLA's algebraic
+#: simplifier turns each division by the constant 127 into a product with
+#: this reciprocal (on every backend), so A12's activation scales are
+#: max|x| * INV_127, and its P V dequantization acc * INV_127; the weights,
+#: quantized by the packing outside the kernel, keep the division.
+INV_127 = torch.tensor(1.0 / 127.0, dtype=torch.float32).item()
+
+
+def _quant_rows(x: torch.Tensor, in_kernel: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantization over the last axis (JAX ``_quant_rows``):
-    (int8 values as float, scale (..., 1)); s = max(max|x| / 127, 1e-12),
-    q = round-half-even(x / s)."""
-    s = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True) / 127.0, min=1e-12)
+    (int8 values as float, scale (..., 1)); s = max(max|x| / 127, 1e-12) (in
+    the kernel, max|x| * INV_127), q = round-half-even(x / s)."""
+    amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    s = torch.clamp(amax * INV_127 if in_kernel else amax / 127.0, min=1e-12)
     return torch.round(x / s), s
 
 
 def _quant_cols(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The same over the second-to-last axis (JAX ``_quant_cols``): a scale
-    per column, (..., 1, N)."""
-    q, s = _quant_rows(x.transpose(-1, -2))
+    """The same over the second-to-last axis (JAX ``_quant_cols``) for the
+    weights, outside the kernel: a scale per column, (..., 1, N)."""
+    q, s = _quant_rows(x.transpose(-1, -2), in_kernel=False)
     return q.transpose(-1, -2), s.transpose(-1, -2)
 
 
@@ -177,7 +188,7 @@ def _v_scales(v: torch.Tensor, b_v: torch.Tensor, t: int) -> torch.Tensor:
     amax = torch.amax(torch.abs(v), dim=-2, keepdim=True)
     if t % 8:
         amax = torch.maximum(amax, torch.abs(b_v))
-    return torch.clamp(amax / 127.0, min=1e-12)
+    return torch.clamp(amax * INV_127, min=1e-12)
 
 
 def _attn_block_int8_plain(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:
@@ -190,6 +201,7 @@ def _attn_block_int8_plain(x: torch.Tensor, packed: tuple, num_heads: int, eps: 
        (qq kq^T)_i32 sq sk^T, the softmax mode as A7's, l = sum p in fp32;
     4. normalise first, pn = p / l, pq = round(127 pn); v quantized per
        column over the keys (``_v_scales``); ctx = ((pq vq)_i32 / 127) sv;
+    each "/ 127" of the kernel as XLA compiles it, a product with INV_127;
     5. the context quantized per row over d (all heads); out = (cq
        wo_q)_i32 sc so + bo;
     6. residual and LayerNorm as A7, in x's dtype.
@@ -207,7 +219,7 @@ def _attn_block_int8_plain(x: torch.Tensor, packed: tuple, num_heads: int, eps: 
     l = torch.sum(p, dim=-1, keepdim=True)
     pq = torch.round(p / l * 127.0)
     sv = _v_scales(v, bq2[0, 2 * d:].reshape(num_heads, 1, hd), t)
-    ctx = _dot_i8(pq, torch.round(v / sv)) / 127.0 * sv  # (b, h, t, hd)
+    ctx = _dot_i8(pq, torch.round(v / sv)) * INV_127 * sv  # (b, h, t, hd)
     cq, sc = _quant_rows(ctx.transpose(1, 2).reshape(b, t, d))
     out = _dot_i8(cq, wo_t.t().float()) * sc * bo2[1] + bo2[0]
     return _residual_ln(out, xb, lns, lnb, eps).to(x.dtype)
@@ -251,6 +263,15 @@ def _bf16_copy(x: torch.Tensor, m: int, d: int) -> torch.Tensor | None:
     return None if x.dtype == torch.bfloat16 else torch.empty(m, d, device=x.device, dtype=torch.bfloat16)
 
 
+def _head_pad(x: torch.Tensor, rows: int, t: int, heads: int, hd: int) -> torch.Tensor | None:
+    """Scratch for heads whose width is not a multiple of 8 (TMA's 16-byte
+    strides): q, k, v and the context through zero-padded (rows, heads, T,
+    hd8) copies; None for other widths."""
+    if hd % 8 == 0:
+        return None
+    return torch.empty(4 * rows * heads * t * -(-hd // 8) * 8, device=x.device, dtype=torch.bfloat16)
+
+
 def _attn_block_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:
     _check_block_input(x, packed)
     rows, t, d = x.shape
@@ -264,14 +285,11 @@ def _attn_block_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float,
     qkv = torch.empty(m, 3 * d, device=dev, dtype=torch.bfloat16)
     ctx = torch.empty(m, d, device=dev, dtype=torch.bfloat16)
     y = torch.empty(m, d, device=dev, dtype=torch.float32)
-    # heads whose width is not a multiple of 8 (TMA's 16-byte strides): q, k,
-    # v and the context through zero-padded (rows, heads, T, hd8) copies
-    pad = None if hd % 8 == 0 else torch.empty(4 * rows * num_heads * t * -(-hd // 8) * 8, device=dev,
-                                                dtype=torch.bfloat16)
     out = torch.empty_like(x)
     bf = int(x.dtype == torch.bfloat16)
     cuda_lib.launch(
-        KERNEL_A7, dev, x, wqkv, bqkv, wo, bo, lns, lnb, _bf16_copy(x, m, d), qkv, ctx, y, pad, out,
+        KERNEL_A7, dev, x, wqkv, bqkv, wo, bo, lns, lnb, _bf16_copy(x, m, d), qkv, ctx, y,
+        _head_pad(x, rows, t, num_heads, hd), out,
         rows, t, d, num_heads, SOFTMAX_MODES.index(softmax), bf, eps,
     )
     cuda_lib.launch_counts[KERNEL_A7] += 1
@@ -341,23 +359,59 @@ def _attn_block_int8_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: f
     wq_t, bq2, wo_t, bo2, lns, lnb = packed
     dev = x.device
     m = rows * t
+    hd = d // num_heads
     i8, f32 = torch.int8, torch.float32
+    t16, t128, hd16 = -(-t // 16) * 16, -(-t // 128) * 128, -(-hd // 16) * 16
     xq = torch.empty(m, d, device=dev, dtype=i8)  # then the quantized context
     s_row = torch.empty(m, device=dev, dtype=f32)  # sx, then sc
     qkv = torch.empty(m, 3 * d, device=dev, dtype=f32)
-    qkv_q = torch.empty(m, 3 * d, device=dev, dtype=i8)
-    s_qk = torch.empty(m, 2 * num_heads, device=dev, dtype=f32)
+    qk_q = torch.empty(2, rows, num_heads, t, hd16, device=dev, dtype=i8)  # q, k per head, zero-padded to 16
+    # their scales, padded to a key tile; the kernel selects p = 0 for keys
+    # past t and writes no query past t, so the padding is never used
+    s_qk = torch.empty(2, rows, num_heads, t128, device=dev, dtype=f32)
     s_v = torch.empty(rows, d, device=dev, dtype=f32)
+    vt = torch.empty(rows, num_heads, hd, t16, device=dev, dtype=i8)  # v transposed, keys contiguous
     ctx = torch.empty(m, d, device=dev, dtype=f32)
     y = torch.empty(m, d, device=dev, dtype=f32)
     out = torch.empty_like(x)
     bf = int(x.dtype == torch.bfloat16)
     cuda_lib.launch(
-        KERNEL_A12, dev, x, wq_t, bq2, wo_t, bo2, lns, lnb, xq, s_row, qkv, qkv_q, s_qk, s_v, ctx, y, out,
+        KERNEL_A12, dev, x, wq_t, bq2, wo_t, bo2, lns, lnb, xq, s_row, qkv, qk_q, s_qk, s_v, vt, ctx, y, out,
         rows, t, d, num_heads, SOFTMAX_MODES.index(softmax), bf, eps,
     )
     cuda_lib.launch_counts[KERNEL_A12] += 1
     return out
+
+
+def _gemm_i8_plain(a: torch.Tensor, b_t: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of A12's int8 GEMM: ((a b_t^T)_i32 sa) sb + bias
+    in fp32, as ``_attn_block_int8_plain`` spells its products."""
+    return _dot_i8(a.float(), b_t.t().float()) * sa[:, None] * sb + bias
+
+
+def gemm_i8(a: torch.Tensor, b_t: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor, bias: torch.Tensor):
+    """The int8 products of A12 alone: c (M, N) fp32 = ((a b_t^T)_i32 sa[m])
+    sb[n] + bias[n], each step rounded to fp32 in that order. a (M, K) and
+    b_t (N, K) int8 (the (out, in) layout of the int8 packing), sa (M,), sb
+    and bias (N,) fp32; on the card K % 16 == 0 and N % 8 == 0."""
+    if a.device.type == "cpu":
+        return _gemm_i8_plain(a, b_t, sa, sb, bias)
+    if a.device.type != "cuda":
+        raise ValueError(f"no int8 GEMM kernel for device {a.device}")
+    for t_, what, dtype, ndim in ((a, "a", torch.int8, 2), (b_t, "b_t", torch.int8, 2), (sa, "sa", torch.float32, 1),
+                                  (sb, "sb", torch.float32, 1), (bias, "bias", torch.float32, 1)):
+        cuda_lib.check_operand(t_, what, a.device, dtype, ndim)
+    m, k = a.shape
+    n = b_t.shape[0]
+    if b_t.shape[1] != k or sa.shape[0] != m or sb.shape[0] != n or bias.shape[0] != n or m == 0 or k % 16 or n % 8:
+        raise ValueError(f"the int8 GEMM kernel needs (M, K) x (N, K)^T, K % 16 == 0 and N % 8 == 0, got "
+                         f"{tuple(a.shape)} x {tuple(b_t.shape)}, sa {tuple(sa.shape)}, sb {tuple(sb.shape)}, "
+                         f"bias {tuple(bias.shape)}")
+    c = torch.empty(m, n, device=a.device, dtype=torch.float32)
+    cuda_lib.launch(KERNEL_GEMM_I8, a.device, a, b_t, sa, sb, bias, c, m, n, k)
+    cuda_lib.launch_counts[KERNEL_GEMM_I8] += 1
+    return c
 
 
 def attn_block(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str = "exp2",
@@ -405,24 +459,22 @@ def _layer_block_cuda(x: torch.Tensor, attn_packed: tuple, ffn_packed: tuple, nu
         raise ValueError(f"the layer kernel is tanh-GELU only, got gelu={gelu!r}")
     rows, t, d = x.shape
     _check_heads(d, num_heads)
-    if d // num_heads not in LAYER_HEAD_DIMS:
-        raise NotImplementedError(f"the layer kernel is built for heads of {LAYER_HEAD_DIMS}, got "
-                                  f"{d // num_heads}; attention_impl='block_ffn' runs such a layer")
     ffn = ffn_packed[0].shape[1]
     if ffn % 32 or rows == 0 or t == 0:
         raise ValueError(f"the layer kernel needs ffn % 32 == 0 and rows, got ffn={ffn}, {tuple(x.shape)}")
     dev = x.device
     m = rows * t
-    qkv = torch.empty(m, 3 * d, device=dev, dtype=torch.bfloat16)
-    ctx = torch.empty(m, d, device=dev, dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    qkv = torch.empty(m, 3 * d, device=dev, dtype=bf)
+    ctx = torch.empty(m, d, device=dev, dtype=bf)
     y = torch.empty(m, d, device=dev, dtype=torch.float32)
-    h = torch.empty_like(x)
-    hidden = torch.empty(m, ffn, device=dev, dtype=torch.bfloat16)
+    h = torch.empty(m, d, device=dev, dtype=bf)  # LN1's output, bf16 whatever x's dtype
+    hidden = torch.empty(m, ffn, device=dev, dtype=bf)
     out = torch.empty_like(x)
-    bf = int(x.dtype == torch.bfloat16)
     cuda_lib.launch(
-        KERNEL_A11, dev, x, *attn_packed, *ffn_packed, qkv, ctx, y, h, hidden, out,
-        rows, t, d, num_heads, ffn, SOFTMAX_MODES.index(softmax), bf, eps,
+        KERNEL_A11, dev, x, *attn_packed, *ffn_packed, _bf16_copy(x, m, d), qkv, ctx, y, h, hidden,
+        _head_pad(x, rows, t, num_heads, d // num_heads), out,
+        rows, t, d, num_heads, ffn, SOFTMAX_MODES.index(softmax), int(x.dtype == bf), eps,
     )
     cuda_lib.launch_counts[KERNEL_A11] += 1
     return out

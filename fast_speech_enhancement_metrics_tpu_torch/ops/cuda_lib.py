@@ -28,7 +28,10 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-HEADERS = ("common.cuh", "attention_core.cuh", "block_tiles.cuh", "sm90.cuh", "flash_sm90.cuh", "gemm_sm90.cuh")
+HEADERS = (
+    "common.cuh", "attention_core.cuh", "block_tiles.cuh", "block_stages.cuh", "sm90.cuh", "flash_sm90.cuh",
+    "gemm_sm90.cuh",
+)
 SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
     "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu", "layer_block.cu",
@@ -60,14 +63,18 @@ _SIGNATURES = {
     #  q / k / v / context, out, rows, frames, width, heads, softmax mode, x and
     #  out are bf16, eps, stream)
     "fsem_attn_block": (_P,) * 13 + (_I,) * 6 + (_F, _P),
-    # (x, A7's six operands, A8's six, qkv, ctx, y, h, hidden, out, rows,
-    #  frames, width, heads, ffn, softmax mode, x and out are bf16, eps, stream)
-    "fsem_layer_block": (_P,) * 19 + (_I,) * 7 + (_F, _P),
+    # (x, A7's six operands, A8's six, bf16 x, qkv, ctx, y, h, hidden, padded
+    #  q / k / v / context, out, rows, frames, width, heads, ffn, softmax mode,
+    #  x and out are bf16, eps, stream)
+    "fsem_layer_block": (_P,) * 21 + (_I,) * 7 + (_F, _P),
     # (x, int8 wqkv (3d, d), [bqkv; column scales], int8 wo (d, d), [bo; column
-    #  scales], ln scale, ln shift, x / ctx int8, row scales, qkv fp32, qkv int8,
-    #  q / k row scales, v column scales, ctx fp32, y, out, rows, frames, width,
-    #  heads, softmax mode, x and out are bf16, eps, stream)
-    "fsem_attn_block_int8": (_P,) * 16 + (_I,) * 6 + (_F, _P),
+    #  scales], ln scale, ln shift, x / ctx int8, row scales, qkv fp32, q / k
+    #  int8 head-major, their scales, v column scales, v int8 transposed, ctx
+    #  fp32, y, out, rows, frames, width, heads, softmax mode, x and out are
+    #  bf16, eps, stream)
+    "fsem_attn_block_int8": (_P,) * 17 + (_I,) * 6 + (_F, _P),
+    # (a, bt, sa, sb, bias, c, M, N, K, stream)
+    "fsem_gemm_i8": (_P,) * 6 + (_I,) * 3 + (_P,),
     # (x, w1, b1, w2, b2, ln scale, ln shift, bf16 x, hidden, y, out, rows,
     #  width, ffn, x and out are bf16, eps, stream)
     "fsem_ffn_block": (_P,) * 11 + (_I,) * 4 + (_F, _P),

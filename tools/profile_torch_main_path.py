@@ -2,7 +2,7 @@
 
 Usage, from the repository root, on a machine with a CUDA card:
 
-    python3 tools/profile_torch_main_path.py [--batch 64] [--seconds 16]
+    python3 tools/profile_torch_main_path.py [--batch 64] [--seconds 16] [--only NAME ...]
 
 For each of LSD, SDR, STOI(sample_rate=16000) and SpeechBERTScore (at
 mHuBERT-147's width with seeded random weights, ``init_params`` seed 0),
@@ -11,15 +11,18 @@ benchmark would hold it) a few times under ``torch.profiler`` and prints
 one JSON line: the wall time per call, the device-busy time per call (the
 sum of all kernel times), the device idle share, and the ten kernels with
 the most device time. SpeechBERTScore is profiled again at the same batch
-with ``attention_impl="layer_block"`` (each layer one launch of kernel A11)
-and ``"block_int8"`` (the int8 attention block A12, then the plain FFN),
+with ``attention_impl="layer_block"`` (each layer one launch of kernel A11,
+A7's and A8's launches chained) and ``"block_int8"`` (the int8 attention
+block A12, then the plain FFN),
 on its long-audio path at 16 x 60 s (2999 frames, the attention on
 kernel A9), and on one pair of 820 s clips (40 999 frames, kernel A15).
 Each line also gives the share of device time of the attention kernel
-(``flash_kernel``: A9, A15 and A7's; ``attention_kernel``: A11's and the float32
-arm's), and the time of each kernel in an anonymous namespace by its short
-name: the package's own (A7 and A8 are several: ``cast_kernel``,
-``gemm_kernel<256, epilogue>``, ``flash_kernel``, ``residual_ln_kernel``)
+(``flash_kernel``: A9, A15, A7's and so A11's; ``attention_kernel``: the
+float32 arm's; ``i8_attention_kernel``: A12's), and the time of each kernel
+in an anonymous namespace by its short name: the package's own (A7 and A8
+are several: ``cast_kernel``, ``gemm_kernel<epilogue>``, ``flash_kernel``,
+``residual_ln_kernel``; A12 adds the int8 ``gemm_kernel<3>`` and its
+quantization passes)
 and a few of PyTorch's. The first line is the card's name and power limit. Needs a CUDA
 card; raises without one.
 """
@@ -45,13 +48,15 @@ from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_dat
 CALLS = 5  # profiled calls per metric, after 3 warm-ups
 LONG_BATCH, LONG_SECONDS = 16, 60  # SpeechBERTScore's long-audio run (A9)
 FLASH_SECONDS = 820  # one pair past the sdpa range (A15)
-ATTENTION_KERNELS = ("flash_kernel", "attention_kernel")
+ATTENTION_KERNELS = ("flash_kernel", "attention_kernel")  # the second also matches i8_attention_kernel
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--seconds", type=float, default=16)
+    ap.add_argument("--only", nargs="+", metavar="NAME",
+                    help='profile only these runs, by the name in their line ("SpeechBERTScore block_int8")')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_main_path: needs a CUDA card")
@@ -78,6 +83,8 @@ def main() -> None:
         ("SpeechBERTScore", sbs, *on_card(FLASH_SECONDS, 1), 1, FLASH_SECONDS),
     ]
     for name, metric, c, d, batch, seconds in runs:
+        if args.only and name not in args.only:
+            continue
         for _ in range(3):
             metric(c, d)
         torch.cuda.synchronize()
