@@ -15,12 +15,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    the GEMM of A7 and A8 (A11) must hold bf16 wgmma (HGMMA) and TMA
    (UTMALDG) instructions in the SASS of every instantiation
    (``cuobjdump``), A12's int8 GEMM and int8 attention int8 wgmma (IGMMA)
-   and TMA, and none may spill a register,
+   and TMA, SDR's correlation kernels (A4's Gram in splits x4, x3, x1 and
+   A10's chunk DFT) bf16 wgmma and TMA, and none may spill a register,
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
    generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
    A2 and A3; A4 in its split modes x3 and x1 against the plain
-   correlation summed over the bf16 halves; one mHuBERT-147 layer at 64 x
+   correlation summed over the bf16 halves, x4 (the four-term bf16 class)
+   against the float32 correlation, its distance printed; the split pass
+   of A4 and A10 bit for bit; one mHuBERT-147 layer at 64 x
    799 frames for A7 and A8, and A7
    at 8 x 799 with heads of 32, 80, 96 and 12; A9 at 16 x 12 heads x 2999 frames x
    64 in its three softmax modes in bf16 and "exact" in float32, and at
@@ -47,7 +50,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    The first rows are scored again on the CPU (plain path) for agreement,
    and SpeechBERTScore's also by the card's float32 path (the 820 s pair:
    by the exact A9 path); fused SDR also against ``SDR()``,
-5. times: each kernel, its plain version, a PyTorch library call (or, for
+5. times: each kernel (CUDA events around one call; also its device time
+   alone, the card kept busy while the host enqueues it), its plain
+   version, a PyTorch library call (or, for
    A7, A8 and A11, a composite of library calls) for the same function where
    one exists (none computes int8 attention: A12's ``library_ms`` is null,
    and its ``library_partial_ms`` is ``torch._int_mm`` with the
@@ -57,7 +62,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    dequantization; and each metric end to end
    (SpeechBERTScore also on
    16 x 60 s and with ``attention_impl`` "layer_block" and "block_int8",
-   SDR also fused),
+   SDR also with ``corr_impl`` "fused", "gram" and "gram_x1"),
 6. the result: a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -108,13 +113,18 @@ def check(ok: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, warmup: int = 3, reps: int = 10) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events around each call)."""
+def cuda_ms(fn, warmup: int = 3, reps: int = 10, busy: bool = False) -> float:
+    """Median time of ``fn()`` in ms (CUDA events around each call). With
+    ``busy``, a sleep kernel queued before each start event keeps the card
+    busy while the host enqueues ``fn``: its launches' device time alone,
+    without the host's time to enqueue them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if busy:
+            torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -209,7 +219,8 @@ def main() -> int:
     # the attention kernel (A9, A15, A7: 2 head-width classes x 4 softmax
     # modes, all in sdpa.cu), the GEMM (A7, A8: 3 bf16 epilogues in
     # attn_block.cu; A12: its int8 arm, gemm_kernel<3>, in attn_block_int8.cu)
-    # and A12's int8 attention (4 head-width classes x 3 modes)
+    # and A12's int8 attention (4 head-width classes x 3 modes); SDR's
+    # correlations: A4's Gram (splits x4, x3, x1) and A10's chunk DFT
     cuobjdump = shutil.which("cuobjdump") or str(Path(cuda_lib._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
     int8_gemm = "gemm_kernelILi3E"
@@ -218,6 +229,8 @@ def main() -> int:
         ("gemm_kernel", "attn_block", 3, "HGMMA", lambda name: int8_gemm not in name),
         ("gemm_kernel", "attn_block_int8", 1, "IGMMA", lambda name: int8_gemm in name),
         ("i8_attention_kernel", "attn_block_int8", 12, "IGMMA", lambda name: True),
+        ("gram_kernel", "sdr_corr_gram", 3, "HGMMA", lambda name: True),
+        ("corr_dft_kernel", "sdr_corr_fused", 1, "HGMMA", lambda name: True),
     ):
         funcs = [f for f in sass.split("Function : ")[1:]
                  if kernel in f.split("\n", 1)[0] and keep(f.split("\n", 1)[0])]
@@ -271,7 +284,16 @@ def main() -> int:
     ra_p, rc_p = sdr_corr_gram._correlation_lags_plain(c, d, LAGS)
     scale = torch.max(torch.abs(ra_p)).item()
     err = max(torch.max(torch.abs(ra_k - ra_p)).item(), torch.max(torch.abs(rc_k - rc_p)).item())
-    record("A4", sdr_corr_gram.KERNEL, "sdr_corr_gram.cu", "sdr_corr_gram.py:57", err, 2e-4 * scale)
+    record("A4", sdr_corr_gram.KERNEL, "sdr_corr_gram.cu", "sdr_corr_gram.py:57", err, 2e-4 * scale,
+           f"; the four-term bf16 class against the float32 correlation: {err / scale:.3e} of max|r_auto|")
+    # the split pass that A4 and A10 run first, bit for bit against its
+    # plain version, also with a zero-padded tail
+    for row_len in (-(-t_len // 128) * 128, -(-t_len // LAGS) * LAGS + LAGS):
+        got_h = sdr_corr_gram.split_halves(c, d, row_len)
+        check(torch.equal(got_h.view(torch.int16),
+                          sdr_corr_gram._split_halves_plain(c, d, row_len).view(torch.int16)),
+              f"the split pass differs from its plain version at row length {row_len}")
+    log("split pass (A4, A10): bit-equal to its plain version")
     # A4 in the JAX kernel's reduced product classes (split x3: bf16 halves
     # hh + hl + lh; x1: hh), against the plain correlation summed over the
     # halves, atol 2e-4 * max|r_auto|
@@ -807,7 +829,9 @@ def main() -> int:
     # Operation counts. "ops" is the least the function needs: FFT-level
     # counts for the spectra and correlations (log and sqrt one operation
     # each). "direct" is what the kernel's own algorithm does, where that is
-    # more: A1's chunk DFT as a 256 x 512 product, A4's direct 512-lag sums.
+    # more: A1's chunk DFT as a 256 x 512 product; A4's shifted Grams (128 x
+    # 1280 per frame and bf16 term) and A10's bf16x3 chunk DFT on the bf16
+    # tensor cores.
     frames = nc + 1
     a1_ops = (2 * BATCH * frames * (rfft_flops(2 * HOP) + 2 * HOP)  # windowed 512-point spectra
               + BATCH * frames * (HOP + 1) * 14  # |C|^2 / (|D| + eps)^2, log, square, sum
@@ -817,7 +841,7 @@ def main() -> int:
     a4_ops = BATCH * ((2 * k_blocks + 1) * rfft_flops(2 * LAGS)  # chunk spectra of c and d
                       + k_blocks * (LAGS + 1) * (4 + 2 * 8)  # window combine, two products
                       + 2 * rfft_flops(2 * LAGS))  # two inverse transforms
-    a4_direct = 2 * BATCH * t_len * LAGS * 2
+    a4_direct = 2 * 128 * 10 * 128 * -(-t_len // 128) * BATCH  # one bf16 term; x3 three, x4 four
     # x3: the chunk spectra of four half signals and three products per
     # correlation, plus the splits (4 operations a sample and signal); x1:
     # two half signals, one product each, and the splits
@@ -834,7 +858,7 @@ def main() -> int:
                a1_ops, a1_direct, 2 * BATCH * t_len * 4 + HOP * 2 * HOP * 4 + BATCH * 4),
         "A4": (lambda: sdr_corr_gram.correlation_lags_gram(c, d, LAGS),
                lambda: sdr_corr_gram._correlation_lags_plain(c, d, LAGS), corr_library,
-               a4_ops, a4_direct, 2 * BATCH * t_len * 4 + 2 * BATCH * LAGS * 4),
+               a4_ops, 4 * a4_direct, 2 * BATCH * t_len * 4 + 2 * BATCH * LAGS * 4),
         "A4-x3": (lambda: sdr_corr_gram.correlation_lags_gram(c, d, LAGS, "x3"),
                   lambda: sdr_corr_gram._correlation_lags_plain(c, d, LAGS, "x3"), split_library["x3"],
                   a4_x3_ops, 3 * a4_direct, 2 * BATCH * t_len * 4 + 2 * BATCH * LAGS * 4),
@@ -957,13 +981,13 @@ def main() -> int:
         )
 
     # A10 at both variants' shapes on the normalised signals, FFT-level
-    # operations as A4; "direct" is the kernel's chunk DFT: 257 chunk rows
-    # (128 windows' clean chunks, one before, 128 denoised) per group, each
-    # an (h) x (h, 2h) product; the yardstick is A4's grouped conv1d
+    # operations as A4; "direct" is the kernel's chunk DFT: 256 chunk rows
+    # (127 windows' clean chunks, one before, 128 denoised) per group, each
+    # three bf16 (h) x (h, 2h) products; the yardstick is A4's grouped conv1d
     for kid, (cn, dn) in a10_inputs.items():
         n = cn.shape[1]
         kb = -(-n // LAGS)
-        groups = -(-kb // sdr_corr_fused.KERNEL_CHUNK_BLOCK)
+        groups = -(-kb // sdr_corr_fused.KERNEL_WINDOWS)
         pairs_n = torch.nn.functional.pad(torch.cat([cn, dn], dim=0)[None], (0, LAGS - 1))
         lagged_n = torch.cat([cn, cn], dim=0)[:, None]
 
@@ -977,25 +1001,29 @@ def main() -> int:
             conv_library,
             BATCH * ((2 * kb + 1) * rfft_flops(2 * LAGS) + kb * (LAGS + 1) * (4 + 2 * 8)
                      + 2 * rfft_flops(2 * LAGS)),
-            BATCH * groups * (2 * sdr_corr_fused.KERNEL_CHUNK_BLOCK + 1) * 2 * LAGS * 2 * LAGS,
+            BATCH * groups * 2 * 128 * 3 * 2 * LAGS * 2 * LAGS,
             2 * BATCH * n * 4 + 2 * BATCH * LAGS * 4,
         )
 
     peaks = {"A7": PEAK_BF16_TC_FLOPS, "A8": PEAK_BF16_TC_FLOPS, "A9": PEAK_BF16_TC_FLOPS,
              "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS}
+    # the kernels' own algorithms on the bf16 tensor cores
+    direct_peaks = {"A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
+                    "A10": PEAK_BF16_TC_FLOPS, "A10r": PEAK_BF16_TC_FLOPS}
     slow = {"A15": 3}  # one A15 launch takes ~0.1 s or more: fewer repetitions
     for kid, (kern, plain, library, ops, direct_ops, nbytes) in timing.items():
         r = results[kid]
         peak = peaks.get(kid, PEAK_FP32_FLOPS)
         reps = slow.get(kid, 10)
         r["ms"] = cuda_ms(kern, warmup=min(3, reps), reps=reps)
+        r["device_ms"] = cuda_ms(kern, warmup=0, reps=reps, busy=True)
         r["plain_ms"] = cuda_ms(plain, warmup=1, reps=reps)
         r["library_ms"] = None if library is None else cuda_ms(library, warmup=1, reps=reps)
         partial = library_partial.get(kid)
         r["library_partial_ms"] = None if partial is None else cuda_ms(partial, warmup=1, reps=reps)
         r["bound_ms"], r["bound_by"] = bound(ops, nbytes, peak)
-        r["direct_bound_ms"], _ = bound(direct_ops, nbytes, peak)
-        log(f"{kid} {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+        r["direct_bound_ms"], _ = bound(direct_ops, nbytes, direct_peaks.get(kid, peak))
+        log(f"{kid} {r['name']}: {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; {r['direct_bound_ms']:.4f} ms for the kernel's own algorithm), "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}"
             + ("" if partial is None else f", library (partial) {r['library_partial_ms']:.4f} ms"))
@@ -1052,14 +1080,16 @@ def main() -> int:
     log(json.dumps({"metric": "SpeechBERTScore", "batch": LONG_BATCH, "seconds": LONG_SECONDS, "ms": ms,
                     "audio_seconds_per_s": LONG_BATCH * LONG_SECONDS / (ms / 1e3),
                     "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}))
-    ms = host_ms(lambda: sdr_fused(c, d))
-    log(json.dumps({"metric": "SDR", "corr_impl": "fused", "batch": BATCH, "seconds": SECONDS, "ms": ms,
-                    "audio_seconds_per_s": audio_s / (ms / 1e3)}))
+    for impl in ("fused", "gram", "gram_x1"):
+        metric = sdr_fused if impl == "fused" else pkg.SDR(corr_impl=impl)
+        ms = host_ms(lambda m=metric: m(c, d))
+        log(json.dumps({"metric": "SDR", "corr_impl": impl, "batch": BATCH, "seconds": SECONDS, "ms": ms,
+                        "audio_seconds_per_s": audio_s / (ms / 1e3)}))
     log(f"peak device memory: {peak_all / 2**30:.2f} GiB up to the end-to-end times")
 
     # -- 6. result ---------------------------------------------------------------
     keys = ("name", "id", "route", "source", "replaces", "launches", "max_abs_err",
-            "tolerance", "ms", "plain_ms", "bound_ms", "bound_by", "direct_bound_ms",
+            "tolerance", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "direct_bound_ms",
             "library_ms", "library_partial_ms")
     log(json.dumps({"kernels": [{k: results[kid][k] for k in keys} for kid in sorted(results)]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,191 +1,204 @@
-// Overlap-save SDR correlations with the chunk spectra kept on chip.
+// Overlap-save SDR correlations with the chunk spectra kept on chip; the
+// chunk DFT on Hopper's tensor cores (bf16x3 wgmma, TMA).
 //
 // Replaces A10, ops/sdr_corr_fused.py of the JAX package (Pallas, TPU):
 // _corr_kernel (signals padded in device memory) and _corr_kernel_raw (T a
 // multiple of h, no padded copies), behind correlation_lags_fused, SDR's
-// corr_impl="fused". Both are this one kernel: it reads the raw signals and
-// zeroes, by a bounds check and never by a multiply, every sample outside
-// [0, T), which covers the zero left pad (the chunk before chunk 0), the
-// ragged tail and the groups past the last chunk.
+// corr_impl="fused". Both are this one kernel: the zero left pad (the
+// chunk before chunk 0) and the ragged tail come from TMA's zero fill and
+// the zero-padded halves, never from a multiply.
 //
-// What it computes, per row b and group j of kCB = 128 windows, for the
+// What it computes, per row b and group j of kWin = 127 windows, for the
 // packed 2h-point chunk DFT W (h, 2h) = [cos 0..h-1 | cos_h | sin 1..h-1]:
-//   C_m = clean chunk (j kCB - 1 + m) W, m = 0..kCB (kCB + 1 chunks)
-//   D_m = denoised chunk (j kCB + m) W, m = 0..kCB-1
+//   C_m = clean chunk (j kWin - 1 + m) W, m = 0..kWin
+//   D_m = denoised chunk (j kWin + m) W, m = 0..kWin-1
 //   window spectra A_m = C_m + (-1)^col C_{m+1}
 //   for Y_m in (C_{m+1}, D_m), column by column over bins f < h:
 //     P1 = sum_m reA reY, P2 = sum_m x2A x2Y, Q = sum_m (x2A reY - reA x2Y)
 // with re = column f, x2 = column h + f. The partials land in
 // partial[b][j][0..5][f] (auto P1, P2, Q, then cross); the sum over groups,
 // the unpack and the inverse DFT at the lags stay in PyTorch, as they are
-// XLA in JAX.
+// XLA in JAX. A group is 127 windows, not the JAX kernel's 128, so that its
+// 128 clean chunks (the one before it and 127 of its own) and 128 denoised
+// chunks (one past it, unused) fill four m64 tiles; the sum over groups
+// only reorders.
 //
-// The chunk DFT is float32 (SIMT FMAs): the TPU kernel's bf16x3 split
-// exists to reach float32 class on its matrix unit; here plain float32 is
-// both simpler and tighter, as A1 chose.
+// The chunk DFT is bf16x3, as the TPU kernel's: x = xh + xl, W = wh + wl
+// (bf16 halves, the table's split once on the host), X W ~ xh wh + xh wl +
+// xl wh, each product exact in float32 and summed in float32.
 //
-// What bounds it on this card: the function (a correlation at 512 lags) is
-// bound by bytes, 2 x 4 bytes per sample read once (0.04 ms at 64 x 16 s).
-// This direct chunk DFT does 2 h x 2h multiply-adds per chunk and signal
-// (69 GFLOP at 64 x 16 s, h = 512: 1.0 ms of float32 at 67 TFLOP/s), so its
-// operations set its own floor.
+// What bounds it on this card: the tensor cores. The chunk DFT is
+// 2 x 3 x h x 2h operations per chunk and signal (201 GFLOP at 64 x 16 s,
+// h = 512: 0.20 ms at 989 TFLOP/s); the function's bytes (the signals read
+// once) are 0.04 ms, and the split pass (sdr_halves.cuh) about 0.08 ms.
 //
-// Design: one block per (32 bins, group, row). The block's product is the
-// group's 128 clean and 128 denoised chunks (256 x h) times the 32 bins' 64
-// packed columns (h x 64), K in steps of 16 through shared memory: the
-// chunk tile transposed (sample-major) so that each thread reads its 8 rows
-// and 8 columns as four 16-byte loads and keeps an 8 x 8 tile of the
-// spectra in registers; the next step's samples and table values are
-// fetched into registers while the current step computes. The clean chunk
-// before the group (row 0 of the spectra) is one more row, which 64 threads
-// add as a dot product per column. The 257 x 64 spectra then go to shared
-// memory, thread (f, slice) sums its 16 windows' six products, and the 8
-// slices are added in a fixed order. The spectra never reach device memory.
-// Each block re-reads its group's chunks for every bin tile (from L2), and
-// no tensor cores.
-#include <cstdint>
-
-#include "common.cuh"
+// Design: one CTA per (64 bins, group, row). The host permutes the table's
+// columns so that a bin tile's 64 re and 64 x2 columns are one 128-row
+// block of the K-major (transposed) table, and splits it into wh and wl.
+// A stage holds 32 samples: the group's clean and denoised chunks, hi and
+// lo (four 128-row boxes, K-major), and the tile's wh and wl (two 128-row
+// boxes), in rows of 64 bytes with the 64-byte swizzle: 48 KB, a ring of
+// four (two stages of 64 samples, 96 KB each, left one stage of loads
+// ahead of the products and ran 1.22x slower on an H100). A
+// producer warpgroup (24 registers) loads it with TMA; consumer warpgroup
+// 0 owns the 128 clean rows, 1 the 128 denoised ones, each as two m64n128
+// accumulators (128 float32 registers), and runs the three wgmma
+// m64n128k16 products of each half pair per 16 samples. The epilogue
+// writes the 256 x 128 spectra to shared memory over the ring (8-float
+// groups swizzled by row, so that neither the float2 stores nor the bins'
+// reads conflict); thread (bin f, slice s) sums its 32 windows' six
+// products, and the four slices are added in a fixed order. The spectra
+// never reach device memory; no float atomics.
+#include "sdr_halves.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kCB = 128;             // windows per group
-constexpr int kRowsC = kCB + 1;      // clean chunk rows of a group's spectra
-constexpr int kRows = kRowsC + kCB;  // + denoised rows = 257
-constexpr int kMain = 2 * kCB;       // rows of the tiled product: 128 clean, 128 denoised chunks
-constexpr int kNB = 32;              // bins per block
-constexpr int kCols = 2 * kNB;       // packed columns per block
-constexpr int kKStep = 16;           // samples per step of the product
-constexpr int kThreads = 256;
-constexpr int kT = 4;                             // a thread: 2 x kT rows, 2 x kT columns
-constexpr int kColGroups = kNB / kT;              // 8
-constexpr int kRowGroups = kThreads / kColGroups;  // 32
-static_assert(kRowGroups * kT == kCB, "row tiling");
-constexpr int kLdX = kMain + 4;  // transposed chunk tile (kKStep, kLdX)
-constexpr int kLdS = kCols + 1;
-constexpr int kSlices = kThreads / kNB;      // 8
-constexpr int kWinPerSlice = kCB / kSlices;  // 16
+using namespace sm90;
+
+constexpr int kWin = 127;           // windows per group
+constexpr int kRows = 128;          // chunk rows per consumer warpgroup
+constexpr int kNB = 64;             // bins per CTA
+constexpr int kN = 2 * kNB;         // packed columns: kNB re, then kNB x2
+constexpr int kKB = 32;             // samples per stage: one 64-byte row (64-byte swizzle)
+constexpr int kKRow = kKB * 2;      // bytes of a box row
+constexpr int kConsumers = 2;
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStages = 4;
+constexpr int kBoxA = kRows * kKRow;  // 128 chunks x 32 samples, 8 KB
+constexpr int kBoxW = kN * kKRow;     // 128 table columns x 32 samples, 8 KB
+// a stage: [clean hi | denoised hi | clean lo | denoised lo | wh | wl]
+constexpr int kStage = 4 * kBoxA + 2 * kBoxW;  // 48 KB
+// the spectra's rows: kN floats, the 8-float groups of row r at group
+// g ^ (r % 8) (no bank conflicts for the accumulators' float2 stores nor
+// the bins' reads)
+__device__ __forceinline__ int swz(int row, int col) { return row * kN + (col ^ ((row & 7) << 3)); }
+constexpr int kSlices = 128 * kConsumers / kNB;  // 4
+constexpr int kWinPerSlice = (kWin + kSlices - 1) / kSlices;  // 32
 constexpr int kOut = 6;
-constexpr int kXLoads = kMain * kKStep / 4 / kThreads;  // float4 chunk loads per thread and step
-constexpr int kWLoads = kKStep * kCols / kThreads;      // table loads per thread and step
-constexpr size_t kTileFloats = (size_t)kKStep * kLdX + kKStep * kCols + kKStep;
-constexpr size_t kSpecFloats = (size_t)kRows * kLdS + kSlices * kOut * kNB;
-constexpr size_t kSmem = (kTileFloats > kSpecFloats ? kTileFloats : kSpecFloats) * sizeof(float);
+constexpr int kSpecBytes = 2 * kRows * kN * (int)sizeof(float);
+constexpr int kRedBytes = kSlices * kOut * kNB * (int)sizeof(float);
+constexpr int kBarOff = kStages * kStage;
+constexpr size_t kSmem = kBarOff + 16 * kStages + 1024;  // + slack to align the base to 1 KB
+static_assert(kSpecBytes + kRedBytes <= kBarOff, "the epilogue fits over the ring");
+static_assert(kSmem <= 232448, "shared memory");
 
-// samples t .. t + 3 of one row, zero at or past t_len; vec: t and t_len are
-// multiples of 4 and the row is 16-byte aligned, so the four are all in or out
-__device__ __forceinline__ float4 fetch4(const float* src, long long t, long long t_len, bool vec) {
-  if (vec) return t < t_len ? *reinterpret_cast<const float4*>(src + t) : make_float4(0.f, 0.f, 0.f, 0.f);
-  return make_float4(t < t_len ? src[t] : 0.f, t + 1 < t_len ? src[t + 1] : 0.f,
-                     t + 2 < t_len ? src[t + 2] : 0.f, t + 3 < t_len ? src[t + 3] : 0.f);
-}
-
-__global__ void __launch_bounds__(kThreads) corr_fused_kernel(
-    const float* __restrict__ c, const float* __restrict__ d, const float* __restrict__ w,
-    float* __restrict__ partial, long long t_len, int h, int n_groups, int vec) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* xs = smem;                  // phase 1: (kKStep, kLdX) chunk tile, sample-major
-  float* ws = xs + kKStep * kLdX;    // phase 1: (kKStep, kCols) table tile
-  float* xe = ws + kKStep * kCols;   // phase 1: (kKStep) of the chunk before the group
-  float* sp = smem;                  // phase 2: (kRows, kLdS) spectra
-  float* red = smem + kRows * kLdS;  // phase 2: (kSlices, kOut, kNB)
+// grid (h / kNB, n_groups, batch). tm_x: the halves (sdr_halves.cuh) as
+// (plane x row, chunk, h samples); tm_w: the table halves (2 x 2h, h), row
+// hh 2h + n holding column n of the permuted table, half hh (wh, wl).
+__global__ void __launch_bounds__(kThreads, 1)
+    corr_dft_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                    float* __restrict__ partial, int batch, int h, int n_groups) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + kBarOff;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kStages + s); };
+  auto stage = [&](int s) { return base + (uint32_t)s * kStage; };
 
   const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kNB, grp = blockIdx.y, b = blockIdx.z;
-  const float* cr = c + (size_t)b * t_len;
-  const float* dr = d + (size_t)b * t_len;
-  const long long chunk0 = (long long)grp * kCB;
-  // thread (rg, cg): product rows rg kT + i (clean) and kCB + rg kT + i
-  // (denoised); columns cg kT + e (re) and kNB + cg kT + e (x2)
-  const int cg = tid % kColGroups, rg = tid / kColGroups;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int tile = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int k_blocks = h / kKB;
+  const int chunk0 = grp * kWin;
 
-  float4 xr[kXLoads];
-  float wr[kWLoads];
-  float er = 0.f;
-  auto fetch = [&](int k0) {  // one step's operands into registers
-#pragma unroll
-    for (int i = 0; i < kXLoads; ++i) {
-      const int idx = tid + i * kThreads, m = idx / (kKStep / 4), kk = (idx % (kKStep / 4)) * 4;
-      const long long chunk = chunk0 + (m < kCB ? m : m - kCB);
-      xr[i] = fetch4(m < kCB ? cr : dr, chunk * h + k0 + kk, t_len, vec != 0);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers * 128);
     }
-#pragma unroll
-    for (int i = 0; i < kWLoads; ++i) {
-      const int idx = tid + i * kThreads, kk = idx / kCols, n = idx % kCols;
-      const int col = n < kNB ? j0 + n : h + j0 + n - kNB;
-      wr[i] = w[(size_t)(k0 + kk) * 2 * h + col];
-    }
-    if (tid < kKStep) {  // the chunk before the group; before group 0, the zero left pad
-      const long long t = (chunk0 - 1) * h + k0 + tid;
-      er = (chunk0 > 0 && t < t_len) ? cr[t] : 0.f;
-    }
-  };
-  auto stage = [&]() {  // the fetched step into shared memory
-#pragma unroll
-    for (int i = 0; i < kXLoads; ++i) {
-      const int idx = tid + i * kThreads, m = idx / (kKStep / 4), kk = (idx % (kKStep / 4)) * 4;
-      xs[(kk + 0) * kLdX + m] = xr[i].x;
-      xs[(kk + 1) * kLdX + m] = xr[i].y;
-      xs[(kk + 2) * kLdX + m] = xr[i].z;
-      xs[(kk + 3) * kLdX + m] = xr[i].w;
-    }
-#pragma unroll
-    for (int i = 0; i < kWLoads; ++i) ws[tid + i * kThreads] = wr[i];
-    if (tid < kKStep) xe[tid] = er;
-  };
-
-  float acc[2 * kT][2 * kT];
-#pragma unroll
-  for (int i = 0; i < 2 * kT; ++i)
-#pragma unroll
-    for (int e = 0; e < 2 * kT; ++e) acc[i][e] = 0.f;
-  float acc_e = 0.f;  // tid < kCols: the chunk before the group, column tid
-
-  fetch(0);
-  for (int k0 = 0; k0 < h; k0 += kKStep) {
-    __syncthreads();  // every thread is done with the previous step's tiles
-    stage();
-    __syncthreads();
-    if (k0 + kKStep < h) fetch(k0 + kKStep);
-#pragma unroll
-    for (int kk = 0; kk < kKStep; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(xs + kk * kLdX + rg * kT);
-      const float4 a1 = *reinterpret_cast<const float4*>(xs + kk * kLdX + kCB + rg * kT);
-      const float4 b0 = *reinterpret_cast<const float4*>(ws + kk * kCols + cg * kT);
-      const float4 b1 = *reinterpret_cast<const float4*>(ws + kk * kCols + kNB + cg * kT);
-      const float a[2 * kT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[2 * kT] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 2 * kT; ++i)
-#pragma unroll
-        for (int e = 0; e < 2 * kT; ++e) acc[i][e] = fmaf(a[i], bv[e], acc[i][e]);
-    }
-    if (tid < kCols) {
-#pragma unroll
-      for (int kk = 0; kk < kKStep; ++kk) acc_e = fmaf(xe[kk], ws[kk * kCols + tid], acc_e);
-    }
+    mbar_init_fence();
   }
-  __syncthreads();  // every thread is done with the tiles: reuse them for the spectra
-  // spectra rows: 0 the chunk before the group, 1..kCB the clean chunks,
-  // kRowsC.. the denoised ones
-#pragma unroll
-  for (int i = 0; i < 2 * kT; ++i) {
-    const int row = i < kT ? 1 + rg * kT + i : kRowsC + rg * kT + i - kT;
-#pragma unroll
-    for (int e = 0; e < 2 * kT; ++e) sp[row * kLdS + (e < kT ? cg * kT + e : kNB + cg * kT + e - kT)] = acc[i][e];
-  }
-  if (tid < kCols) sp[tid] = acc_e;
   __syncthreads();
 
-  // thread (bin f, slice s): windows s * 16 .. s * 16 + 15
-  const int f = tid % kNB, s = tid / kNB;
-  const float sign = ((j0 + f) & 1) ? -1.f : 1.f;  // (-1)^col; col h + f has f's parity (h even)
+  if (wg == kConsumers) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers * 128) {
+      for (int kb = 0; kb < k_blocks; ++kb) {
+        const int s = kb % kStages;
+        if (kb >= kStages) mbar_wait(empty(s), ((kb / kStages) - 1) & 1);
+        mbar_expect_tx(full(s), kStage);
+        const int k0 = kb * kKB;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // clean chunks chunk0 - 1 ..: before the first group, TMA's zeros
+          tma_load_3d(stage(s) + (2 * hh) * kBoxA, &tm_x, full(s), k0, chunk0 - 1, hh * batch + b);
+          tma_load_3d(stage(s) + (2 * hh + 1) * kBoxA, &tm_x, full(s), k0, chunk0, (2 + hh) * batch + b);
+          tma_load_2d(stage(s) + 4 * kBoxA + hh * kBoxW, &tm_w, full(s), k0, hh * 2 * h + tile * kN);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: wg 0 the clean rows, 1 the denoised ones, as two
+  // m64 tiles
+  setmaxnreg_inc<kConsumerRegs>();
+  float acc[2][kN / 2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc[t][i] = 0.f;  // the first product overwrites it (scale_d 0)
+  for (int kb = 0; kb < k_blocks; ++kb) {
+    const int s = kb % kStages;
+    mbar_wait(full(s), (kb / kStages) & 1);
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKB / 16; ++kk) {  // 16 samples (32 bytes) a product
+      const uint64_t wh = desc_sw64(stage(s) + 4 * kBoxA + kk * 32);
+      const uint64_t wl = desc_sw64(stage(s) + 4 * kBoxA + kBoxW + kk * 32);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const uint32_t rows = t * 64 * kKRow + kk * 32;
+        const uint64_t xh = desc_sw64(stage(s) + wg * kBoxA + rows);
+        const uint64_t xl = desc_sw64(stage(s) + (2 + wg) * kBoxA + rows);
+        wgmma_ss_n128<0>(acc[t], xh, wh, kb > 0 || kk > 0);
+        wgmma_ss_n128<0>(acc[t], xh, wl, 1);
+        wgmma_ss_n128<0>(acc[t], xl, wh, 1);
+      }
+    }
+    wg_commit();
+    wg_wait<1>();  // the previous stage's products are done: release it
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    if (kb > 0) mbar_arrive(empty((kb - 1) % kStages));
+  }
+  wg_wait<0>();
+  reg_fence(acc[0]);
+  reg_fence(acc[1]);
+
+  // the epilogue, over the ring (both warpgroups are done with it): spectra
+  // rows 0..127 the clean chunks C_0.., 128.. the denoised ones
+  named_sync(1, kConsumers * 128);
+  float* sp = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)));
+  float* red = sp + 2 * kRows * kN;  // (kSlices, kOut, kNB)
+  const int lane = tid % 32, warp = (tid / 32) % 4, gq = lane / 4, cq = lane % 4;
+  // accumulator register 4 j + e: row 16 warp + gq + 8 (e / 2) of the
+  // tile's 64, column 8 j + 2 cq + e % 2
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wg * kRows + t * 64 + 16 * warp + gq + 8 * r;
+        *reinterpret_cast<float2*>(sp + swz(row, 8 * j + 2 * cq)) =
+            make_float2(acc[t][4 * j + 2 * r], acc[t][4 * j + 2 * r + 1]);
+      }
+  named_sync(1, kConsumers * 128);
+
+  // thread (bin f, slice sl): windows sl * 32 .. (the last slice 31 of them)
+  const int f = tid % kNB, sl = tid / kNB;
+  const float sign = (f & 1) ? -1.f : 1.f;  // (-1)^col: the tile starts at an even bin, col h + f has f's parity
   float o[kOut] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int r = s * kWinPerSlice; r < (s + 1) * kWinPerSlice; ++r) {
-    const float re0 = sp[r * kLdS + f], x20 = sp[r * kLdS + kNB + f];
-    const float re1 = sp[(r + 1) * kLdS + f], x21 = sp[(r + 1) * kLdS + kNB + f];
-    const float red_ = sp[(kRowsC + r) * kLdS + f], x2d = sp[(kRowsC + r) * kLdS + kNB + f];
+  const int m_end = min(kWin, (sl + 1) * kWinPerSlice);
+  for (int m = sl * kWinPerSlice; m < m_end; ++m) {
+    const float re0 = sp[swz(m, f)], x20 = sp[swz(m, kNB + f)];
+    const float re1 = sp[swz(m + 1, f)], x21 = sp[swz(m + 1, kNB + f)];
+    const float red_ = sp[swz(kRows + m, f)], x2d = sp[swz(kRows + m, kNB + f)];
     const float re_w = re0 + sign * re1, x2_w = x20 + sign * x21;
     o[0] += re_w * re1;
     o[1] += x2_w * x21;
@@ -195,34 +208,46 @@ __global__ void __launch_bounds__(kThreads) corr_fused_kernel(
     o[5] += x2_w * red_ - re_w * x2d;
   }
 #pragma unroll
-  for (int q = 0; q < kOut; ++q) red[(s * kOut + q) * kNB + f] = o[q];
-  __syncthreads();
-  if (tid < kOut * kNB) {
-    const int q = tid / kNB, ff = tid % kNB;
+  for (int q = 0; q < kOut; ++q) red[(sl * kOut + q) * kNB + f] = o[q];
+  named_sync(1, kConsumers * 128);
+  for (int idx = tid; idx < kOut * kNB; idx += kConsumers * 128) {
+    const int q = idx / kNB, ff = idx % kNB;
     float sum = 0.f;
 #pragma unroll
     for (int ss = 0; ss < kSlices; ++ss) sum += red[(ss * kOut + q) * kNB + ff];
-    partial[(((size_t)b * n_groups + grp) * kOut + q) * h + j0 + ff] = sum;
+    partial[(((size_t)b * n_groups + grp) * kOut + q) * h + tile * kNB + ff] = sum;
   }
 }
 
 }  // namespace
 
-// clean, denoised: (batch, t_len) float32; table: (h, 2h) float32 packed
-// chunk DFT; partial: (batch, n_groups, 6, h) float32 with n_groups =
-// ceil(ceil(t_len / h) / 128). h % 32 == 0 and even.
-extern "C" int fsem_corr_fused(const float* clean, const float* denoised, const float* table,
+// clean, denoised: (batch, t_len) float32; halves: (4, batch, ceil(t_len /
+// h) h) bf16 scratch; table: (2, 2h, h) bf16, the packed chunk DFT's
+// columns permuted per 64-bin tile ([re f0.. | x2 f0..]) and transposed,
+// hi then lo; partial: (batch, n_groups, 6, h) float32 with n_groups =
+// ceil(ceil(t_len / h) / 127). h % 64 == 0.
+extern "C" int fsem_corr_fused(const float* clean, const float* denoised, void* halves, const void* table,
                                float* partial, int batch, long long t_len, int h, int n_groups,
                                void* stream_ptr) {
-  if (h <= 0 || h % kNB || h % kKStep || batch <= 0 || n_groups <= 0 || t_len <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int vec = t_len % 4 == 0 && reinterpret_cast<std::uintptr_t>(clean) % 16 == 0 &&
-                  reinterpret_cast<std::uintptr_t>(denoised) % 16 == 0;
+  if (h <= 0 || h % kNB || h % kKB || batch <= 0 || batch > 65535 || t_len <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (t_len + h - 1) / h;
+  if (n_groups != (n_chunks + kWin - 1) / kWin || n_groups > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = cudaFuncSetAttribute(corr_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  const long long row_len = n_chunks * h;
+  cudaError_t err = halves::split(clean, denoised, halves, t_len, row_len, batch, true, stream);
   if (err != cudaSuccess) return (int)err;
-  corr_fused_kernel<<<dim3(h / kNB, n_groups, batch), kThreads, kSmem, stream>>>(
-      clean, denoised, table, partial, t_len, h, n_groups, vec);
+
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)h, (cuuint64_t)n_chunks, (cuuint64_t)4 * batch};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)h * 2, (cuuint64_t)row_len * 2};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)h, (cuuint64_t)4 * h};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)h * 2};
+  if (!tensor_map(&tm_x, halves, 3, x_dims, x_strides, kRows, 2, kKRow) ||
+      !tensor_map(&tm_w, table, 2, w_dims, w_strides, kN, 2, kKRow))
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(corr_dft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  corr_dft_kernel<<<dim3(h / kNB, n_groups, batch), kThreads, kSmem, stream>>>(tm_x, tm_w, partial, batch, h,
+                                                                              n_groups);
   return (int)cudaGetLastError();
 }

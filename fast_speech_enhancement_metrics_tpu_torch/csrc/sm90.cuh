@@ -64,6 +64,13 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
                                             int c2, int c3) {
   asm volatile(
@@ -94,9 +101,18 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile: start address,
 // leading byte offset (MN-major: the stride between 64-column boxes), stride
 // byte offset 1024 (between groups of 8 rows of 128 bytes), layout 1 (SW128).
+// wgmma swizzles the absolute shared-memory address, as TMA writes a box
+// that starts on a 1 KB boundary, so the start may also lie whole 128-byte
+// rows into such a box (sdr_corr_gram.cu's shifted views), base offset 0.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead_bytes) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lead_bytes >> 4) & 0x3FFF) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+// The same for a K-major tile of 64-byte rows in the 64-byte swizzle
+// (layout 2): 8-row groups 512 bytes apart; a k16 step advances the start
+// by 32 bytes.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 __device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
 __device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
@@ -118,10 +134,11 @@ __device__ __forceinline__ void reg_fence(int (&r)[N]) {
 }
 
 // D (64 x N, fp32) [+]= A (64 x 16) B (16 x N). ss: A and B from shared memory,
-// A K-major, B K-major (kTransB 0) or MN-major (kTransB 1); scale_d 0
+// A K-major (kTransA 0) or MN-major (kTransA 1), B K-major
+// (kTransB 0) or MN-major (kTransB 1); scale_d 0
 // overwrites D. rs: A from registers (the m16n8k16 A fragments of the four
 // warps), B from shared memory read transposed (MN-major); rs accumulates.
-template <int kTransB = 0>
+template <int kTransB = 0, int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
@@ -132,7 +149,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -142,7 +159,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
 template <int kTransB = 0>
@@ -394,18 +411,22 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
 
 // A bf16 (elem_bytes 2) or int8 (1) tensor of `rank` dimensions, innermost
 // first (dims[0] contiguous), strides[i] the bytes between steps of
-// dimension i + 1 (multiples of 16), boxes of one 128-byte row (64 bf16 or
-// 128 int8 columns) x box_rows rows (1 along the outer dimensions), 128-byte
-// swizzle, zeros outside the tensor
+// dimension i + 1 (multiples of 16), boxes of one row of row_bytes (128:
+// 64 bf16 or 128 int8 columns, the 128-byte swizzle; 64: the 64-byte
+// swizzle) x box_rows rows (1 along the outer dimensions), zeros outside
+// the tensor
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims, const cuuint64_t* strides,
-                       int box_rows, int elem_bytes = 2) {
+                       int box_rows, int elem_bytes = 2, int row_bytes = kRowBytes) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (encode == nullptr || rank < 2 || rank > 4 || (elem_bytes != 1 && elem_bytes != 2)) return false;
-  const cuuint32_t box[4] = {(cuuint32_t)(kRowBytes / elem_bytes), (cuuint32_t)box_rows, 1, 1};
+  if (encode == nullptr || rank < 2 || rank > 4 || (elem_bytes != 1 && elem_bytes != 2) ||
+      (row_bytes != 64 && row_bytes != kRowBytes))
+    return false;
+  const cuuint32_t box[4] = {(cuuint32_t)(row_bytes / elem_bytes), (cuuint32_t)box_rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapDataType type = elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -48,15 +48,19 @@ class SDR(BaseMetric):
         0 (diagonal loading of the Toeplitz system).
 
         ``corr_impl``: "gram_x4" (kernel A4, ``ops/sdr_corr_gram.py``:
-        correlate the raw signals in float32, then normalize), "gram" and
+        correlate the raw signals, then normalize; on a CUDA card shifted
+        Gram matrices on the bf16 tensor cores with the signals' bf16
+        halves K-stacked, hh + hl + lh + ll, the JAX kernel's four-term
+        class; on the CPU the float32 plain correlation), "gram" and
         "gram_x1" (the same with the JAX kernel's reduced product classes,
-        split x3 and x1: bf16 halves hh + hl + lh, or hh alone; never chosen
-        by "auto", and no faster on a CUDA card, where they exist to give
-        the reference's results), "xla" (normalize, then overlap-save DFT
+        split x3 and x1: hh + hl + lh, or hh alone, one and three bf16
+        products fewer per term; never chosen by "auto", which keeps the
+        four-term class), "xla" (normalize, then overlap-save DFT
         matmuls), or "auto" (gram_x4 on a CUDA device at precision "high",
         xla otherwise), or
         "fused" (kernel A10, ``ops/sdr_corr_fused.py``: normalize, then
-        chunk spectra and their products reduced on chip).
+        the chunk spectra as a bf16x3 tensor-core product and their
+        products reduced on chip).
 
         ``solver``: "levinson" (kernel A5 on a CUDA device, its plain
         version elsewhere), "levinson_xla" (the plain recursion everywhere),

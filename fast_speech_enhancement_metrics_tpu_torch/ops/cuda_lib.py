@@ -30,7 +30,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 HEADERS = (
     "common.cuh", "attention_core.cuh", "block_tiles.cuh", "block_stages.cuh", "sm90.cuh", "flash_sm90.cuh",
-    "gemm_sm90.cuh",
+    "gemm_sm90.cuh", "sdr_halves.cuh",
 )
 SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
@@ -52,9 +52,11 @@ _SIGNATURES = {
     # (clean, denoised, scale or null, fold twiddles, branch DFT table, scale
     #  partials, tile partials, out, batch, chunks, eps, stream)
     "fsem_lsd_wholesig_ct": (_P,) * 8 + (_I, _I, _F, _P),
-    # (clean, denoised, slab partials, r_auto, r_cross, batch, samples, split
-    #  terms 4 / 3 / 1, stream)
-    "fsem_correlation_lags_gram": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # (clean, denoised, bf16 halves, k-range partials, r_auto, r_cross, batch,
+    #  samples, split terms 4 / 3 / 1, frames per k range, k ranges, stream)
+    "fsem_correlation_lags_gram": (_P,) * 6 + (_I, _L, _I, _I, _I, _P),
+    # (clean, denoised, bf16 halves, batch, samples, row length, lo planes, stream)
+    "fsem_split_halves": (_P, _P, _P, _I, _L, _L, _I, _P),
     # (r0, b, x, batch, order, variant, stream)
     "fsem_levinson_solve": (_P, _P, _P, _I, _I, _I, _P),
     # (tob clean, tob denoised, num_segments, tile partials, out, batch, frames, stream)
@@ -84,9 +86,9 @@ _SIGNATURES = {
     #  mode, logit scale, row-sum pad, stream); bf16 and float32
     "fsem_sdpa": (_P,) * 4 + (_I,) * 6 + (_F, _F, _P),
     "fsem_sdpa_f32": (_P,) * 4 + (_I,) * 6 + (_F, _F, _P),
-    # (clean, denoised, packed DFT table, partials, batch, samples, lags,
-    #  chunk groups, stream)
-    "fsem_corr_fused": (_P,) * 4 + (_I, _L, _I, _I, _P),
+    # (clean, denoised, bf16 halves, bf16 table halves, partials, batch,
+    #  samples, lags, chunk groups, stream)
+    "fsem_corr_fused": (_P,) * 5 + (_I, _L, _I, _I, _P),
 }
 
 _lock = threading.Lock()

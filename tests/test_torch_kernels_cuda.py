@@ -73,6 +73,54 @@ def test_corr_kernel_matches_plain(dev, t, split):
     torch.testing.assert_close(rc, pc, rtol=0, atol=2e-4 * scale)
 
 
+#: SDR's main shape (16 s at 16 kHz), its unaligned neighbours and a clip
+#: shorter than the five frames of the Gram's shifts
+CORR_LENGTHS = [16 * 16000, 16 * 16000 + 100, 16 * 16000 + 37, 500]
+
+
+def _twice_equal(fn, *args):
+    """Two launches give the same bits; returns the first result."""
+    first = [x.clone() for x in fn(*args)]
+    second = fn(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b), "two launches differ"
+    return first
+
+
+@pytest.mark.parametrize("split", ["x4", "x3", "x1"])
+@pytest.mark.parametrize("t", CORR_LENGTHS)
+@pytest.mark.parametrize("rows", [1, 64])
+def test_corr_kernel_main_shapes(dev, rows, t, split):
+    """A4 on the tensor cores at SDR's shapes: one launch under the mode's
+    own counter per call, 2e-4 of max|r_auto| from its plain version (x4:
+    the float32 correlation, so the four-term bf16 class), bit-identical
+    from launch to launch."""
+    c, d = _audio(dev, rows=rows, t=t, seed=rows + t)
+    before = dict(cuda_lib.launch_counts)
+    ra, rc = _twice_equal(sdr_corr_gram.correlation_lags_gram, c, d, 512, split)
+    assert {k: cuda_lib.launch_counts[k] - before.get(k, 0) for k in sdr_corr_gram.KERNELS.values()} == {
+        k: 2 * int(s == split) for s, k in sdr_corr_gram.KERNELS.items()}
+    pa, pc = sdr_corr_gram._correlation_lags_plain(c, d, 512, split)
+    scale = pa.abs().max().item()
+    torch.testing.assert_close(ra, pa, rtol=0, atol=2e-4 * scale)
+    torch.testing.assert_close(rc, pc, rtol=0, atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("lo", [True, False])
+@pytest.mark.parametrize("t", [16 * 16000 + 37, 500])
+def test_split_halves_kernel_is_plain(dev, t, lo):
+    """The split pass of A4 and A10 writes the plain version's bf16 halves
+    bit for bit, zeros past T (lo=False: the hi planes only)."""
+    c, d = _audio(dev, rows=3, t=t, seed=t)
+    row_len = -(-t // 512) * 512
+    before = cuda_lib.launch_counts[sdr_corr_gram.KERNEL_SPLIT]
+    got = sdr_corr_gram.split_halves(c, d, row_len, lo)
+    assert cuda_lib.launch_counts[sdr_corr_gram.KERNEL_SPLIT] == before + 1
+    want = sdr_corr_gram._split_halves_plain(c, d, row_len)
+    planes = [0, 1, 2, 3] if lo else [0, 2]
+    assert torch.equal(got[planes].view(torch.int16), want[planes].view(torch.int16))
+
+
 @pytest.mark.parametrize("n", [128, 512])
 def test_levinson_kernel_matches_plain(dev, n):
     rs = np.random.RandomState(11)
@@ -411,6 +459,25 @@ def test_fused_corr_kernel_matches_plain(dev, t):
     ra, rc = sdr_corr_fused.correlation_lags_fused(c, d, 512)
     assert cuda_lib.launch_counts[kname] == before + 1
     pa, pc = sdr_corr_gram._correlation_lags_plain(c, d, 512)
+    scale = pa.abs().max().item()
+    torch.testing.assert_close(ra, pa, rtol=0, atol=2e-4 * scale)
+    torch.testing.assert_close(rc, pc, rtol=0, atol=2e-4 * scale)
+
+
+@pytest.mark.parametrize("t", CORR_LENGTHS)
+@pytest.mark.parametrize("rows", [1, 64])
+def test_fused_corr_kernel_main_shapes(dev, rows, t):
+    """A10's chunk DFT on the tensor cores at SDR's shapes, on normalised
+    signals as SDR(corr_impl="fused") feeds it: one launch of the raw or
+    padded counter per call, 2e-4 of max|r_auto| from its plain version,
+    bit-identical from launch to launch."""
+    c, d = _audio(dev, rows=rows, t=t, seed=rows + t + 1)
+    c, d = (x / torch.linalg.vector_norm(x, dim=-1, keepdim=True) for x in (c, d))
+    kname = sdr_corr_fused.KERNEL_A10_RAW if t % 512 == 0 else sdr_corr_fused.KERNEL_A10
+    before = cuda_lib.launch_counts[kname]
+    ra, rc = _twice_equal(sdr_corr_fused.correlation_lags_fused, c, d, 512)
+    assert cuda_lib.launch_counts[kname] == before + 2
+    pa, pc = sdr_corr_fused._correlation_lags_fused_plain(c, d, 512)
     scale = pa.abs().max().item()
     torch.testing.assert_close(ra, pa, rtol=0, atol=2e-4 * scale)
     torch.testing.assert_close(rc, pc, rtol=0, atol=2e-4 * scale)

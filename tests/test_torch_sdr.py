@@ -6,6 +6,7 @@ tests/test_ops.py holds the fused kernel, whose chunk DFT is bf16x3),
 Levinson solutions 2e-3 (as tests/test_ops.py holds the Levinson kernel),
 SDR atol 1e-2 dB."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -69,6 +70,181 @@ def test_corr_split_x4_plain_is_the_plain_correlation():
             torch.testing.assert_close(g, w, rtol=0, atol=tol * scale)
     with pytest.raises(ValueError, match="split"):
         sdr_corr_gram.correlation_lags_gram(c, d, 512, "x2")
+
+
+def _jax_hi_lo(x):
+    """The JAX kernels' split (``hi_lo`` in ``_gram_kernel``, ``dot3`` in
+    ``_corr_kernel``): bf16 halves of a float32 array."""
+    xh = x.astype(jnp.bfloat16)
+    return xh, (x - xh.astype(jnp.float32)).astype(jnp.bfloat16)
+
+
+def _jax_gram_operands(c, d, split):
+    """The K-stacked operands of the JAX ``_gram_kernel`` (ops/sdr_corr_gram.py:
+    the frames, the shifted right operand [C_0..C_4 | D_0..D_4] and the
+    concatenations at :102-124) over a whole row, one frame block."""
+    t = c.shape[-1]
+    frames = -(-t // 128)
+    cc = jnp.pad(jnp.asarray(c), (0, frames * 128 - t)).reshape(frames, 128)
+    dc = jnp.pad(jnp.asarray(d), (0, frames * 128 - t)).reshape(frames, 128)
+
+    def shifts(x):  # row f of shift s holds frame f + s, zeros past the last
+        xp = jnp.pad(x, ((0, 4), (0, 0)))
+        return [xp[s:s + frames] for s in range(5)]
+
+    b_op = jnp.concatenate(shifts(cc) + shifts(dc), axis=1)
+    ah, al = _jax_hi_lo(cc)
+    bh, bl = _jax_hi_lo(b_op)
+    if split == "x4":
+        return jnp.concatenate([ah, ah, al, al], axis=0), jnp.concatenate([bh, bl, bh, bl], axis=0)
+    if split == "x3":
+        return jnp.concatenate([ah, ah, al], axis=0), jnp.concatenate([bh, bl, bh], axis=0)
+    return ah, bh
+
+
+def _bits(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("t", [1000 + 37, 500])
+def test_split_halves_are_jax_halves(t):
+    """The split pass's plain version (the halves the A4 and A10 kernels
+    read): per signal the JAX kernels' bf16 hi and lo, zeros past T."""
+    rs = np.random.RandomState(40)
+    c, d = rs.randn(2, t).astype(np.float32), rs.randn(2, t).astype(np.float32)
+    row_len = -(-t // 512) * 512
+    got = sdr_corr_gram.split_halves(torch.from_numpy(c), torch.from_numpy(d), row_len).float().numpy()
+    assert got.shape == (4, 2, row_len)
+    for p, x in enumerate((c, c, d, d)):
+        want = _bits(_jax_hi_lo(jnp.asarray(x))[p % 2])
+        np.testing.assert_array_equal(got[p, :, :t], want)
+        assert not got[p, :, t:].any()
+
+
+@pytest.mark.parametrize("split", ["x4", "x3", "x1"])
+def test_gram_operands_are_jax_stacking(split):
+    """A4's K-stacked operands, as the kernel's TMA boxes read them from the
+    halves (``_gram_operands``), equal the JAX kernel's: the clean frames
+    [ch, ch, cl, cl] and the shifted targets [yh, yl, yh, yl] (x3 the first
+    three, x1 the first), bit for bit."""
+    rs = np.random.RandomState(41)
+    t = 128 * 9 + 37
+    c, d = rs.randn(2, t).astype(np.float32), rs.randn(2, t).astype(np.float32)
+    halves = sdr_corr_gram.split_halves(torch.from_numpy(c), torch.from_numpy(d), -(-t // 128) * 128)
+    a, b = sdr_corr_gram._gram_operands(halves, split)
+    assert len(sdr_corr_gram.K_STACK[split]) == {"x4": 4, "x3": 3, "x1": 1}[split]
+    for row in range(2):
+        ja, jb = _jax_gram_operands(c[row], d[row], split)
+        np.testing.assert_array_equal(a[row].float().numpy(), _bits(ja))
+        np.testing.assert_array_equal(b[row].float().numpy(), _bits(jb))
+
+
+@pytest.mark.parametrize("t", [16000, 16000 + 37, 500])
+def test_gram_decomposition_is_the_correlation(t):
+    """The shifted Grams and the epilogue's diagonal sums (``_gram_reference``,
+    the kernel's indexing: k ranges, two row halves, U_a + L_{a+1}) in
+    float64 on the raw signals are the correlation: against a direct
+    float64 sum to 1e-12 and ``ops/dft.py::correlation_lags`` (float32) to
+    2e-6 of max|r|, at T a multiple of 128, not one, and under 5 frames."""
+    rs = np.random.RandomState(42)
+    c, d = rs.randn(2, t), rs.randn(2, t)
+    row_len = -(-t // 128) * 128
+    zeros = np.zeros((2, row_len))
+    planes = torch.from_numpy(np.stack([np.pad(c, ((0, 0), (0, row_len - t))), zeros,
+                                        np.pad(d, ((0, 0), (0, row_len - t))), zeros]))
+    direct_a = np.array([[c[b, :t - l] @ c[b, l:] if l < t else 0.0 for l in range(512)] for b in range(2)])
+    direct_c = np.array([[c[b, :t - l] @ d[b, l:] if l < t else 0.0 for l in range(512)] for b in range(2)])
+    scale = np.abs(direct_a).max()
+    plain = correlation_lags(torch.from_numpy(c).float(), (torch.from_numpy(c).float(), torch.from_numpy(d).float()),
+                             512)
+    for split_frames in (32, 64, row_len // 128):
+        ra, rc = sdr_corr_gram._gram_reference(planes, "x1", split_frames)
+        np.testing.assert_allclose(ra.numpy(), direct_a, rtol=0, atol=1e-12 * scale)
+        np.testing.assert_allclose(rc.numpy(), direct_c, rtol=0, atol=1e-12 * scale)
+        np.testing.assert_allclose(ra.numpy(), plain[0].double().numpy(), rtol=0, atol=2e-6 * scale)
+        np.testing.assert_allclose(rc.numpy(), plain[1].double().numpy(), rtol=0, atol=2e-6 * scale)
+
+
+@pytest.mark.parametrize("split", ["x4", "x3", "x1"])
+def test_gram_reference_matches_pallas_kernel(split):
+    """The kernel's arithmetic on the halves in each split against the JAX
+    kernel in that mode (interpret mode), 2e-5 of max|r_auto|: the same
+    bf16 products, summed in another order."""
+    rs = np.random.RandomState(43)
+    t = 128 * 20 + 37
+    c = rs.randn(2, t).astype(np.float32)
+    d = (0.8 * c + 0.3 * rs.randn(2, t)).astype(np.float32)
+    halves = sdr_corr_gram.split_halves(torch.from_numpy(c), torch.from_numpy(d), -(-t // 128) * 128)
+    ra, rc = sdr_corr_gram._gram_reference(halves, split, 64)
+    ja, jc = jax_corr_gram(c, d, 512, split=split, interpret=True)
+    scale = float(np.abs(np.asarray(ja)).max())
+    np.testing.assert_allclose(ra.numpy(), np.asarray(ja), rtol=0, atol=2e-5 * scale)
+    np.testing.assert_allclose(rc.numpy(), np.asarray(jc), rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("batch,frames", [(64, 2000), (1, 2000), (64, 2001), (3, 4), (1, 1)])
+@pytest.mark.parametrize("split", ["x4", "x3", "x1"])
+def test_gram_k_ranges_cover_the_frames(batch, frames, split):
+    """The k ranges the wrapper hands the kernel: whole stages, every frame
+    in exactly one range, the last range not empty."""
+    split_frames, n = sdr_corr_gram._gram_k_ranges(batch, frames, split, 132)
+    assert split_frames % sdr_corr_gram._STAGE_FRAMES[split] == 0
+    assert (n - 1) * split_frames < frames <= n * split_frames
+
+
+def test_fused_table_halves_are_jax_operand():
+    """A10's table operand: ``_table_halves`` is the JAX kernel's pre-split
+    [wh; wl; wh] (ops/sdr_corr_fused.py), columns in the kernel's tile
+    order (each 64-bin tile's re columns, then its x2 columns) and
+    transposed, bit for bit; the order is a permutation."""
+    h = 512
+    w = jnp.asarray(jax_corr_fused._packed_corr_matrix(h))
+    wh = w.astype(jnp.bfloat16)
+    wl = (w - wh.astype(jnp.float32)).astype(jnp.bfloat16)
+    ws = _bits(jnp.concatenate([wh, wl, wh], axis=0))  # (3h, 2h)
+    cols = sdr_corr_fused._table_columns(h).numpy()
+    assert sorted(cols) == list(range(2 * h))
+    np.testing.assert_array_equal(cols[:128], np.r_[0:64, h:h + 64])
+    got = sdr_corr_fused._table_halves(h).float().numpy()  # (2, 2h, h)
+    np.testing.assert_array_equal(got[0].T, ws[:h][:, cols])
+    np.testing.assert_array_equal(got[1].T, ws[h:2 * h][:, cols])
+    np.testing.assert_array_equal(got[0].T, ws[2 * h:][:, cols])
+
+
+def test_fused_lag_matrix_is_unpack_and_inverse_dft():
+    """A10's tail folds the unpack and the inverse DFT into one (3h, L)
+    matrix: on random partials it gives the JAX package's unpack and
+    einsums (ops/sdr_corr_fused.py) to 1e-5 of max|r| (float32 sums
+    reordered)."""
+    h, lags = 64, 64
+    rs = np.random.RandomState(45)
+    partial = rs.randn(3, 2, 6, h).astype(np.float32)
+    ra, rc = sdr_corr_fused._lags_from_partials(torch.from_numpy(partial), lags)
+    s = partial.sum(axis=1).astype(np.float64)
+    icos, isin = (np.asarray(a, np.float64) for a in jax_corr_fused._inverse_lag_matrices(h, lags))
+    for got, (p1, p2, q) in ((ra, s[:, 0:3].transpose(1, 0, 2)), (rc, s[:, 3:6].transpose(1, 0, 2))):
+        s_re = np.concatenate([p1[:, :1], p1[:, 1:] + p2[:, 1:], p2[:, :1]], axis=1)
+        s_im = np.concatenate([np.zeros_like(q[:, :1]), q[:, 1:], np.zeros_like(q[:, :1])], axis=1)
+        want = s_re @ icos - s_im @ isin
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("t", [16384, 7000 + 37, 300])
+def test_fused_dft_reference_matches_pallas_kernel(t):
+    """A10's kernel arithmetic (``_corr_dft_reference``: groups of 127
+    windows from the chunk before, 64-bin tiles of the permuted table,
+    xh wh + xh wl + xl wh) gives the JAX fused kernel's correlations
+    (interpret mode) to 2e-5 of max|r_auto|: the same bf16x3 class,
+    grouped and summed in another order."""
+    rs = np.random.RandomState(44)
+    c = rs.randn(2, t).astype(np.float32)
+    d = (0.6 * c + 0.4 * rs.randn(2, t)).astype(np.float32)
+    halves = sdr_corr_gram.split_halves(torch.from_numpy(c), torch.from_numpy(d), -(-t // 512) * 512)
+    ra, rc = sdr_corr_fused._lags_from_partials(sdr_corr_fused._corr_dft_reference(halves, 512).float(), 512)
+    ja, jc = jax_corr_fused.correlation_lags_fused(c, d, 512, interpret=True)
+    scale = float(np.abs(np.asarray(ja)).max())
+    np.testing.assert_allclose(ra.numpy(), np.asarray(ja), rtol=0, atol=2e-5 * scale)
+    np.testing.assert_allclose(rc.numpy(), np.asarray(jc), rtol=0, atol=2e-5 * scale)
 
 
 def _spd_rows(n, rows=5, seed=11):
