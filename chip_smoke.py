@@ -16,11 +16,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    (UTMALDG) instructions in the SASS of every instantiation
    (``cuobjdump``), A12's int8 GEMM and int8 attention int8 wgmma (IGMMA)
    and TMA, SDR's correlation kernels (A4's Gram in splits x4, x3, x1 and
-   A10's chunk DFT) bf16 wgmma and TMA, and none may spill a register,
+   A10's chunk DFT) and LSD's frame-tile kernel (A1-A3) bf16 wgmma and
+   TMA, and none may spill a register,
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
    generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
-   A2 and A3; A4 in its split modes x3 and x1 against the plain
+   A2 and A3; A1-A3 also on near-clean pairs (speech + 1e-3 max|speech|
+   noise; A1 from three noise seeds), two launches bit-equal, and their distance from a float64
+   reference printed beside the plain version's; A4 in its split modes x3 and x1 against the plain
    correlation summed over the bf16 halves, x4 (the four-term bf16 class)
    against the float32 correlation, its distance printed; the split pass
    of A4 and A10 bit for bit; one mHuBERT-147 layer at 64 x
@@ -220,7 +223,8 @@ def main() -> int:
     # modes, all in sdpa.cu), the GEMM (A7, A8: 3 bf16 epilogues in
     # attn_block.cu; A12: its int8 arm, gemm_kernel<3>, in attn_block_int8.cu)
     # and A12's int8 attention (4 head-width classes x 3 modes); SDR's
-    # correlations: A4's Gram (splits x4, x3, x1) and A10's chunk DFT
+    # correlations: A4's Gram (splits x4, x3, x1) and A10's chunk DFT;
+    # LSD's frame-tile kernel (A1, A2, A3)
     cuobjdump = shutil.which("cuobjdump") or str(Path(cuda_lib._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
     int8_gemm = "gemm_kernelILi3E"
@@ -231,6 +235,7 @@ def main() -> int:
         ("i8_attention_kernel", "attn_block_int8", 12, "IGMMA", lambda name: True),
         ("gram_kernel", "sdr_corr_gram", 3, "HGMMA", lambda name: True),
         ("corr_dft_kernel", "sdr_corr_fused", 1, "HGMMA", lambda name: True),
+        ("lsd_tile_kernel", "lsd_fused", 1, "HGMMA", lambda name: True),
     ):
         funcs = [f for f in sass.split("Function : ")[1:]
                  if kernel in f.split("\n", 1)[0] and keep(f.split("\n", 1)[0])]
@@ -265,11 +270,57 @@ def main() -> int:
             "max_abs_err": err, "tolerance": tol,
         }
 
-    # A1: LSD scores, atol 2e-4 (the metric's contract without its rtol part)
-    lsd_k = lsd_fused.lsd_wholesig_raw(c, d, HOP, EPS)
-    lsd_p = lsd_fused._lsd_wholesig_raw_plain(c, d, HOP, EPS)
-    err = torch.max(torch.abs(lsd_k - lsd_p)).item()
-    record("A1", lsd_fused.KERNEL, "lsd_fused.cu", "lsd_fused.py:208", err, 2e-4)
+    # A1: LSD scores, atol 2e-4 (the metric's contract without its rtol
+    # part), on the speech pairs and on a near-clean pair (speech + 1e-3
+    # max|speech| Gaussian noise: log ratios near 0, where the chunk DFT's
+    # precision class shows); two launches bit-equal; the distance of the
+    # kernel (bf16x6 chunk DFT) and of the plain version (float32) from a
+    # float64 reference printed
+    def near_clean(x, seed=0):
+        g = torch.Generator().manual_seed(seed)
+        return (x + 1e-3 * x.abs().max() * torch.randn(x.shape, generator=g).to(x.device)).contiguous()
+
+    def lsd_f64(cx, dx):
+        """LSD of pre-scaled pairs in float64: framed rfft of the centered,
+        Hann-windowed frames."""
+        cx, dx = cx.double(), dx.double()
+        t_n = cx.shape[1]
+        f_n = 1 + t_n // HOP
+        win = torch.hann_window(2 * HOP, periodic=True, dtype=torch.float64, device=cx.device)
+
+        def power(x):
+            xp = torch.nn.functional.pad(x, (HOP, (f_n + 1) * HOP - t_n - HOP))
+            return torch.fft.rfft(xp.unfold(-1, 2 * HOP, HOP)[:, :f_n] * win, dim=-1).abs() ** 2
+
+        dm = torch.sqrt(power(dx)) + EPS
+        lr = torch.log(power(cx) / (dm * dm) + EPS)
+        return torch.sqrt(torch.mean(lr * lr, dim=-1)).mean(dim=-1)
+
+    def lsd_check(kid, wrapper, plain, cx, dx, scaled_dx, what):
+        """wrapper vs plain at atol 2e-4, twice bit-equal; both against
+        float64 (on the pre-scaled pair); returns the kernel's error."""
+        got = wrapper(cx, dx, HOP, EPS)
+        check(torch.equal(got, wrapper(cx, dx, HOP, EPS)), f"{kid}: two launches differ ({what})")
+        err_ = torch.max(torch.abs(got - plain(cx, dx, HOP, EPS))).item()
+        check(math.isfinite(err_) and err_ <= 2e-4, f"{kid}: {err_:.3e} from its plain version ({what}; atol 2e-4)")
+        ref = lsd_f64(cx, scaled_dx)
+        log(f"{kid} {what}: vs plain {err_:.3e}; vs float64: kernel (bf16x6) "
+            f"{torch.max(torch.abs(got.double() - ref)).item():.3e}, plain (float32) "
+            f"{torch.max(torch.abs(plain(cx, dx, HOP, EPS).double() - ref)).item():.3e}; two launches bit-equal")
+        return err_, got
+
+    def prescaled(cx, dx):
+        return dx * (torch.sum(cx * dx, dim=1, keepdim=True) / (torch.sum(dx * dx, dim=1, keepdim=True) + EPS))
+
+    raw_a1 = (lsd_fused.lsd_wholesig_raw, lsd_fused._lsd_wholesig_raw_plain)
+    err, lsd_k = lsd_check("A1", *raw_a1, c, d, prescaled(c, d), "speech pairs")
+    err_near = 0.0
+    for seed in range(3):  # A1's near-clean pairs from three noise seeds
+        d_near = near_clean(c, seed)
+        err_near = max(err_near, lsd_check("A1", *raw_a1, c, d_near, prescaled(c, d_near),
+                                           f"near-clean pairs, seed {seed}")[0])
+    record("A1", lsd_fused.KERNEL, "lsd_fused.cu", "lsd_fused.py:208", max(err, err_near), 2e-4,
+           f"; speech pairs {err:.3e}, near-clean pairs {err_near:.3e}")
 
     # A13: the factorized chunk DFT, against its plain version and A1, atol 2e-4
     ct_k = lsd_fused.lsd_wholesig_ct(c, d, HOP, EPS)
@@ -360,11 +411,13 @@ def main() -> int:
     ):
         c_np, d_np = np.ascontiguousarray(long_c_np[:, :n]), np.ascontiguousarray(long_d_np[:, :n])
         cu, du = torch.from_numpy(c_np).to(dev), torch.from_numpy(d_np).to(dev)
-        scale = torch.sum(cu * du, dim=1, keepdim=True) / (torch.sum(du * du, dim=1, keepdim=True) + EPS)
-        ds = (du * scale).contiguous()
+        ds = prescaled(cu, du).contiguous()
         unaligned[kid] = (c_np, d_np, cu, ds)
-        err = torch.max(torch.abs(wrapper(cu, ds, HOP, EPS) - plain(cu, ds, HOP, EPS))).item()
-        record(kid, kname, "lsd_fused.cu", line, err, 2e-4, f" ({n} samples)")
+        err, _ = lsd_check(kid, wrapper, plain, cu, ds, ds, f"{n} samples, speech pairs")
+        ds_near = prescaled(cu, near_clean(cu)).contiguous()
+        err_near, _ = lsd_check(kid, wrapper, plain, cu, ds_near, ds_near, f"{n} samples, near-clean pairs")
+        record(kid, kname, "lsd_fused.cu", line, max(err, err_near), 2e-4,
+               f" ({n} samples; speech pairs {err:.3e}, near-clean pairs {err_near:.3e})")
 
     # A7, A8: one mHuBERT-147 layer at full width on a (64, 799, 768) input;
     # q_w and k_w drawn large enough that the softmax is far from flat
@@ -829,14 +882,19 @@ def main() -> int:
     # Operation counts. "ops" is the least the function needs: FFT-level
     # counts for the spectra and correlations (log and sqrt one operation
     # each). "direct" is what the kernel's own algorithm does, where that is
-    # more: A1's chunk DFT as a 256 x 512 product; A4's shifted Grams (128 x
-    # 1280 per frame and bf16 term) and A10's bf16x3 chunk DFT on the bf16
-    # tensor cores.
+    # more: A1-A3's bf16x6 chunk DFT (six 256 x 512 products per chunk and
+    # signal, chunks -1 .. F - 1), A4's shifted Grams (128 x 1280 per frame
+    # and bf16 term) and A10's bf16x3 chunk DFT on the bf16 tensor cores.
     frames = nc + 1
     a1_ops = (2 * BATCH * frames * (rfft_flops(2 * HOP) + 2 * HOP)  # windowed 512-point spectra
               + BATCH * frames * (HOP + 1) * 14  # |C|^2 / (|D| + eps)^2, log, square, sum
               + 4 * BATCH * t_len)  # projection-scale sums
-    a1_direct = 2 * BATCH * nc * HOP * 2 * HOP * 2 + 4 * BATCH * t_len
+    a1_direct = 2 * BATCH * (frames + 1) * HOP * 2 * HOP * 2 * 6
+
+    def lsd_bytes(n):
+        """the signals read once, the scores"""
+        return 2 * BATCH * n * 4 + BATCH * 4
+
     k_blocks = -(-t_len // LAGS)  # overlap-save as in ops/dft.py::correlation_lags
     a4_ops = BATCH * ((2 * k_blocks + 1) * rfft_flops(2 * LAGS)  # chunk spectra of c and d
                       + k_blocks * (LAGS + 1) * (4 + 2 * 8)  # window combine, two products
@@ -855,7 +913,7 @@ def main() -> int:
     timing = {
         "A1": (lambda: lsd_fused.lsd_wholesig_raw(c, d, HOP, EPS),
                lambda: lsd_fused._lsd_wholesig_raw_plain(c, d, HOP, EPS), None,
-               a1_ops, a1_direct, 2 * BATCH * t_len * 4 + HOP * 2 * HOP * 4 + BATCH * 4),
+               a1_ops, a1_direct, lsd_bytes(t_len)),
         "A4": (lambda: sdr_corr_gram.correlation_lags_gram(c, d, LAGS),
                lambda: sdr_corr_gram._correlation_lags_plain(c, d, LAGS), corr_library,
                a4_ops, 4 * a4_direct, 2 * BATCH * t_len * 4 + 2 * BATCH * LAGS * 4),
@@ -882,8 +940,8 @@ def main() -> int:
             lambda w=wrapper, cu=cu, ds=ds: w(cu, ds, HOP, EPS),
             lambda p=plain, cu=cu, ds=ds: p(cu, ds, HOP, EPS), None,
             2 * BATCH * f_n * (rfft_flops(2 * HOP) + 2 * HOP) + BATCH * f_n * (HOP + 1) * 14,
-            2 * BATCH * f_n * HOP * 2 * HOP * 2,
-            2 * BATCH * n * 4 + HOP * 2 * HOP * 4 + BATCH * 4,
+            2 * BATCH * (f_n + 1) * HOP * 2 * HOP * 2 * 6,
+            lsd_bytes(n),
         )
 
     # A7 / A8 at the main path's mode (exp2, tanh); the library yardstick is
@@ -950,8 +1008,7 @@ def main() -> int:
     timing["A13"] = (
         lambda: lsd_fused.lsd_wholesig_ct(c, d, HOP, EPS),
         lambda: lsd_fused._lsd_wholesig_ct_plain(c, d, HOP, EPS), None,
-        a1_ops, 2 * BATCH * nc * 61440 * 2 + 4 * BATCH * t_len,
-        2 * BATCH * t_len * 4 + (8 * 256 + 64 * 64) * 4 + BATCH * 4,
+        a1_ops, 2 * BATCH * nc * 61440 * 2 + 4 * BATCH * t_len, lsd_bytes(t_len),
     )
     # A14: A5's function and yardstick, each variant's kernel and plain version
     for variant, kid in a14_ids.items():
@@ -1008,7 +1065,8 @@ def main() -> int:
     peaks = {"A7": PEAK_BF16_TC_FLOPS, "A8": PEAK_BF16_TC_FLOPS, "A9": PEAK_BF16_TC_FLOPS,
              "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS}
     # the kernels' own algorithms on the bf16 tensor cores
-    direct_peaks = {"A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
+    direct_peaks = {"A1": PEAK_BF16_TC_FLOPS, "A2": PEAK_BF16_TC_FLOPS, "A3": PEAK_BF16_TC_FLOPS,
+                    "A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
                     "A10": PEAK_BF16_TC_FLOPS, "A10r": PEAK_BF16_TC_FLOPS}
     slow = {"A15": 3}  # one A15 launch takes ~0.1 s or more: fewer repetitions
     for kid, (kern, plain, library, ops, direct_ops, nbytes) in timing.items():

@@ -2,15 +2,15 @@
 //
 // Replaces four Pallas TPU kernels of the JAX package's ops/lsd_fused.py:
 //   A1 _lsd_wholesig_raw_kernel: hop-aligned raw pairs, projection scale
-//      computed in the kernel (lsd_scores(..., denoised_scale="auto")),
+//      computed on the card (lsd_scores(..., denoised_scale="auto")),
 //   A2 _lsd_wholesig_kernel: pre-scaled pairs of any length, F + 1 <= 1024,
 //   A3 _lsd_framed_kernel: the same function, frame-blocked, F + 1 > 1024,
 //   A13 _lsd_wholesig_ct_kernel: A1's function with the chunk DFT factorized
 //      (lsd_scores(..., dft_impl="ct")); see lsd_ct_kernel below.
 // A2 and A3 compute one function and differ on the TPU only in how a row's
-// chunks fit VMEM; here both are the frame-tile kernel without its scale
-// stage (entry point fsem_lsd_wholesig), and A1 is it with the scale stage
-// (fsem_lsd_wholesig_raw).
+// chunks fit VMEM; here A1, A2 and A3 are one frame-tile kernel on the
+// tensor cores (lsd_tile_kernel), A1 with the scale applied in its split
+// pass (entry point fsem_lsd_wholesig_raw), A2/A3 without (fsem_lsd_wholesig).
 //
 // What it computes, per pair (c, d) of T samples (any T):
 //   A1 only: scale = sum(c*d) / (sum(d*d) + eps);  d <- scale * d
@@ -23,47 +23,34 @@
 // X_f[k] = A_{f-1}[k] + (-1)^k A_f[k] with A_j the 512-point DFT of raw
 // chunk j. Chunk -1 is the left zero padding; chunk F-1 = T / 256 holds the
 // signal's last T % 256 samples followed by zeros (all zeros when T is
-// hop-aligned), so each chunk is staged with a bound of T and transformed
-// once. The Hann window is the exact 3-tap convolution
-// Y[k] = 0.5 X[k] - 0.25 (X[k-1] + X[k+1]) in frequency, with
-// X[-1] = conj X[1] and X[257] = conj X[255]; the Nyquist bin X[256] is the
-// real alternating-sign sum of the frame's two chunks.
+// hop-aligned), so each chunk is transformed once. The Hann window is the
+// exact 3-tap convolution Y[k] = 0.5 X[k] - 0.25 (X[k-1] + X[k+1]) in
+// frequency, with X[-1] = conj X[1] and X[257] = conj X[255].
 //
 // What bounds it on this card: the function itself is bound by bytes. The
 // signals are read once (131 MB at 64 x 16 s, 0.04 ms at 3.35 TB/s); a
-// 512-point real FFT per frame and signal would need about 1.8 GFLOP in all
-// (0.03 ms of float32 FMA at 67 TFLOP/s). This design's direct chunk DFT
-// does 2 x 256 x 512 multiply-adds per chunk and signal (about 33.5 GFLOP,
-// 0.5 ms), so its operations set its own floor; an FFT-structured chunk
-// transform is the way below that.
-//
-// Design: up to three launches. (1) A1 only: sixteen blocks per row sum
-// c*d and d*d over a slice each (no float atomics). (2) One block per (row,
-// tile of TF frames) — the TPU's frame-block grid of A3, which on this card
-// serves every length — adds its row's sixteen partials in a fixed order
-// into the scale (A1), stages the tile's TF + 1 chunks of both signals in
-// shared memory (the denoised chunks already scaled), takes their chunk
-// DFTs with thread k owning bin k (the packed cos|sin table streams from
-// L2: it is 512 KB and does not fit in shared memory), combines chunk pairs
-// into frame spectra in shared memory, then one warp per frame applies the
-// Hann taps and the log ratio and sums the frame's 257 bins. The block
-// writes the sum of its frames' square roots. (3) One warp per row adds its
-// tiles' partials in a fixed order and divides by F.
+// 512-point real FFT per frame and signal would need about 1.8 GFLOP in all.
+// The frame-tile kernel's chunk DFT is a direct product on the bf16 tensor
+// cores: 2 x 256 x 512 multiply-adds per chunk and signal, six bf16
+// products each (below), 202 GFLOP at 64 x 16 s (0.20 ms at 989 TFLOP/s),
+// 258 GFLOP with the tiling's 640 columns and 128 chunk rows per 127
+// frames (0.26 ms): its operations set its own floor. The split pass moves
+// 20 bytes per sample pair (0.10 ms at 64 x 16 s). Measured (NVIDIA H100
+// 80GB HBM3, 700 W, tools/time_lsd.py): the tile kernel 0.54 ms at 64 x
+// 16 s, one CTA per SM over 20 waves whose prologue and epilogue overlap
+// no products; the split pass 0.11 ms.
+
 #include "common.cuh"
+#include "sdr_halves.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kHop = 256;              // n_fft / 2; one thread per DFT bin
-constexpr int kBins = kHop;            // packed table bins 0..kHop-1
-constexpr int kTileFrames = 16;        // frames per block
-constexpr int kTileChunks = kTileFrames + 1;
-constexpr int kThreads = kHop;
+constexpr int kHop = 256;              // n_fft / 2
+constexpr int kBins = kHop;            // bins 0..kHop-1 of a chunk DFT; kBins is the Nyquist bin
+constexpr int kThreads = kHop;         // A13: one thread per DFT bin
 constexpr int kWarps = kThreads / 32;
 constexpr int kRow = kBins + 1;        // frame spectrum row: bins 0..256
-// phase 1: chunks[2][kTileChunks][kHop]; phase 2: re/im[2][kTileFrames][kRow]
-constexpr int kChunkFloats = 2 * kTileChunks * kHop;
-constexpr int kSpecFloats = 2 * 2 * kTileFrames * kRow;
-constexpr int kSmemFloats = kChunkFloats > kSpecFloats ? kChunkFloats : kSpecFloats;
 constexpr int kScaleSplits = 16;       // blocks per row of the scale reduction
 
 __global__ void __launch_bounds__(256) lsd_scale_kernel(
@@ -125,141 +112,338 @@ __device__ __forceinline__ float hann_power(const float* re, const float* im, in
   return yr * yr + yi * yi;
 }
 
-// kScale: apply the projection scale from scale_partial (A1); without it
-// the denoised signal is used as given (A2/A3).
-template <bool kScale>
-__global__ void __launch_bounds__(kThreads) lsd_frames_kernel(
-    const float* __restrict__ c, const float* __restrict__ d,
-    const float* __restrict__ scale_partial, const float* __restrict__ table,
-    float* __restrict__ partial, long long t_len, int n_frames, int n_tiles,
-    float eps) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  __shared__ float nyq[2][kTileChunks];
-  __shared__ float red[kWarps];
-  __shared__ float s_scale;
+// -- A1, A2, A3: the frame-tile kernel on the tensor cores ---------------------
+//
+// The chunk DFT is bf16x6: x = x0 + x1 + x2 and w = w0 + w1 + w2 in three
+// bf16 pieces each (the signals split once by halves::split<3>, the table on
+// the host), X W ~ the six products of order <= 2^-16: x0w0, x0w1, x1w0,
+// x0w2, x1w1, x2w0, each exact in float32 and summed in float32. (bf16x3,
+// the JAX kernel's class, moves LSD by 2.3e-4 on a near-clean pair in a
+// CPU emulation.) The five cross products run first over all 256 samples,
+// the main product x0w0 last: wgmma's float32 accumulator loses low bits
+// on each addition at the accumulator's magnitude, so the 96 products
+// added at full magnitude in the order x0w0, x0w1, .. per 16 samples put
+// A1 1.1e-4 from a float64 LSD on a near-clean pair, the 16 of this order
+// 1.9e-5, beside the float32 plain version's 2.6e-5 (NVIDIA H100 80GB
+// HBM3, 700 W; same time).
+//
+// Design: one CTA per (tile of bins, group of 127 frames, row), the
+// skeleton of A10's corr_dft_kernel (sdr_corr_fused.cu). The per-frame
+// mean needs all 257 bins and the Hann taps couple neighbouring bins, so a
+// tile holds 62 output bins and one halo bin on each side: tile t is bins
+// k = 62 t - 1 .. 62 t + 62 (64 bins = A10's n128 of [re 64 | im 64]),
+// its table columns straight from the DFT formula, which gives X[-1] =
+// conj X[1], the Nyquist bin and X[257] = conj X[255] with no special case;
+// five tiles cover bins 0..256. A ring step holds 32 samples: the group's
+// 128 clean and 128 denoised chunks (g0 - 1 .. g0 + 126; chunk -1 and
+// chunks past the row from TMA's zero fill), three pieces each, and the
+// tile's three table pieces, in rows of 64 bytes with the 64-byte swizzle:
+// 6 x 8 + 3 x 8 KB = 72 KB, a ring of three stages (216 KB: the most that
+// fits); the main product's eight steps load the first pieces only (24
+// KB). A producer warpgroup (24 registers) loads the ring with TMA;
+// consumer warpgroup 0 owns the clean chunk rows, 1 the denoised ones, as
+// two m64n128 accumulators, and runs the wgmma m64n128k16 products. The
+// epilogue writes the 256 x 128 spectra to shared
+// memory over the ring (A10's swizzled layout); thread (bin column j,
+// slice of 32 frames) combines chunk pairs into frame spectra with the
+// sign of the absolute bin, (-1)^(62 t - 1 + j), applies the Hann taps over
+// its neighbouring columns and the log ratio, and writes lr^2 of each
+// output bin 62 t .. min(62 t + 61, 256) to a scratch row per frame; one
+// thread per frame then adds its row in order into partial (batch, F, 5).
+// lsd_tile_finalize_kernel adds each frame's five partials in tile order,
+// takes the root and adds the frames in a fixed order: no float atomics,
+// two launches give the same bits.
+namespace tiles {
 
-  const int b = blockIdx.y, tile = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int f0 = tile * kTileFrames;  // first frame of the tile
-  const int g0 = f0 - 1;              // chunk index of local chunk 0
-  if (kScale && tid == 0) {  // the row's projection scale, partials in order
-    float num = 0.f, den = 0.f;
-    for (int i = 0; i < kScaleSplits; ++i) {
-      num += scale_partial[((size_t)b * kScaleSplits + i) * 2];
-      den += scale_partial[((size_t)b * kScaleSplits + i) * 2 + 1];
-    }
-    s_scale = num / (den + eps);
-  }
-  __syncthreads();
-  const float sc = kScale ? s_scale : 1.f;
+using namespace sm90;
 
-  // stage chunks g0 .. g0 + kTileFrames of both signals; samples before 0
-  // and from T on are the zero padding of the centered STFT
-  float* chunks = smem;
-  for (int i = tid; i < kChunkFloats; i += kThreads) {
-    const int s = i / (kTileChunks * kHop);
-    const int r = (i / kHop) % kTileChunks;
-    const int n = i % kHop;
-    const long long idx = (long long)(g0 + r) * kHop + n;
-    float v = 0.f;
-    if (idx >= 0 && idx < t_len) {
-      const size_t off = (size_t)b * t_len + idx;
-      v = s == 0 ? c[off] : (kScale ? d[off] * sc : d[off]);
-    }
-    chunks[i] = v;
-  }
-  __syncthreads();
+constexpr int kOutBins = 62;              // output bins per tile
+constexpr int kNB = kOutBins + 2;         // bins per tile, with a halo bin on each side
+constexpr int kN = 2 * kNB;               // table columns: kNB re, then kNB im
+constexpr int kTiles = 5;                 // 5 x 62 >= 257
+constexpr int kFrames = 127;              // frames per group
+constexpr int kRows = kFrames + 1;        // chunk rows per signal
+constexpr int kPieces = 3;
+constexpr int kKB = 32;                   // samples per stage: one 64-byte row (64-byte swizzle)
+constexpr int kKRow = kKB * 2;            // bytes of a box row
+constexpr int kKBlocks = kHop / kKB;
+constexpr int kConsumers = 2;
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kStages = 3;
+constexpr int kBoxA = kRows * kKRow;      // 128 chunks x 32 samples, 8 KB
+constexpr int kBoxW = kN * kKRow;         // 128 table columns x 32 samples, 8 KB
+// a stage: [c0 | d0 | c1 | d1 | c2 | d2 | w0 | w1 | w2]
+constexpr int kStage = 2 * kPieces * kBoxA + kPieces * kBoxW;  // 72 KB
+constexpr int kMainStage = 2 * kBoxA + kBoxW;                  // [c0 | d0 | . | w0 | .]: 24 KB
+constexpr int kTableOff = 2 * kPieces * kBoxA;
+// the spectra's rows: kN floats, the 8-float groups of row r at group
+// g ^ (r % 8) (no bank conflicts for the accumulators' float2 stores nor
+// the columns' reads)
+__device__ __forceinline__ int swz(int row, int col) { return row * kN + (col ^ ((row & 7) << 3)); }
+constexpr int kSlices = 4;                                     // frame slices of the epilogue
+constexpr int kSliceFrames = (kFrames + kSlices - 1) / kSlices;  // 32
+constexpr int kRedStride = kNB + 1;                            // lr^2 rows, padded: no bank conflicts
+constexpr int kSpecBytes = 2 * kRows * kN * (int)sizeof(float);
+constexpr int kRedBytes = kFrames * kRedStride * (int)sizeof(float);
+constexpr int kBarOff = kStages * kStage;
+constexpr size_t kSmem = kBarOff + 16 * kStages + 1024;  // + slack to align the base to 1 KB
+static_assert(kSlices * kNB == kConsumers * 128, "one epilogue thread per (column, slice)");
+static_assert(kSpecBytes + kRedBytes <= kBarOff, "the epilogue fits over the ring");
+static_assert(kSmem <= 232448, "shared memory");
 
-  // chunk Nyquist bins: alternating-sign sums, one warp per chunk
-  for (int row = warp; row < 2 * kTileChunks; row += kWarps) {
-    const float* x = chunks + row * kHop;
-    float a = 0.f;
-    for (int n = lane; n < kHop; n += 32) a += (n & 1) ? -x[n] : x[n];
-    a = fsem::warp_sum(a);
-    if (lane == 0) nyq[row / kTileChunks][row % kTileChunks] = a;
-  }
+// grid (kTiles, n_groups, batch). tm_x: the pieces (halves::split<3>) as
+// (plane x row, chunk, 256 samples); tm_w: the tile table (3 x kTiles x
+// kN, 256), row (q kTiles + t) kN + n holding column n of tile t, piece q.
+__global__ void __launch_bounds__(kThreads, 1)
+    lsd_tile_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+                    float* __restrict__ partial, int batch, int n_frames, float eps) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + kBarOff;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kStages + s); };
+  auto stage = [&](int s) { return base + (uint32_t)s * kStage; };
 
-  // chunk DFTs: thread tid owns bin tid, both the cos and the sin column
-  float acc_re[2][kTileChunks], acc_im[2][kTileChunks];
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int r = 0; r < kTileChunks; ++r) {
-      acc_re[s][r] = 0.f;
-      acc_im[s][r] = 0.f;
-    }
-  for (int n = 0; n < kHop; n += 4) {
-    float wc[4], ws[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wc[j] = __ldg(table + (size_t)(n + j) * (2 * kBins) + tid);
-      ws[j] = __ldg(table + (size_t)(n + j) * (2 * kBins) + kBins + tid);
-    }
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int r = 0; r < kTileChunks; ++r) {
-        const float4 x = *reinterpret_cast<const float4*>(chunks + (s * kTileChunks + r) * kHop + n);
-        float ar = acc_re[s][r], ai = acc_im[s][r];
-        ar = fmaf(x.x, wc[0], ar);
-        ai = fmaf(x.x, ws[0], ai);
-        ar = fmaf(x.y, wc[1], ar);
-        ai = fmaf(x.y, ws[1], ai);
-        ar = fmaf(x.z, wc[2], ar);
-        ai = fmaf(x.z, ws[2], ai);
-        ar = fmaf(x.w, wc[3], ar);
-        ai = fmaf(x.w, ws[3], ai);
-        acc_re[s][r] = ar;
-        acc_im[s][r] = ai;
-      }
-  }
-  __syncthreads();  // every thread is done with the chunks: reuse the space
+  const int tid = threadIdx.x;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int tile = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int f0 = grp * kFrames;  // the group's first frame; chunk row r is chunk f0 - 1 + r
 
-  // frame spectra X_f[k] = A_{f-1}[k] + (-1)^k A_f[k] (local chunks f, f+1)
-  float* spec_re = smem;
-  float* spec_im = smem + 2 * kTileFrames * kRow;
-  const float sgn = (tid & 1) ? -1.f : 1.f;
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int f = 0; f < kTileFrames; ++f) {
-      spec_re[(s * kTileFrames + f) * kRow + tid] = acc_re[s][f] + sgn * acc_re[s][f + 1];
-      spec_im[(s * kTileFrames + f) * kRow + tid] = acc_im[s][f] + sgn * acc_im[s][f + 1];
-    }
-  if (tid < 2 * kTileFrames) {  // Nyquist bin: (-1)^256 = +1, imaginary part 0
-    const int s = tid / kTileFrames, f = tid % kTileFrames;
-    spec_re[(s * kTileFrames + f) * kRow + kBins] = nyq[s][f] + nyq[s][f + 1];
-    spec_im[(s * kTileFrames + f) * kRow + kBins] = 0.f;
-  }
-  __syncthreads();
-
-  // per frame: mean over bins of the squared log ratio, then its sqrt
-  float total = 0.f;
-  for (int f = warp; f < kTileFrames && f0 + f < n_frames; f += kWarps) {
-    const float* cre = spec_re + f * kRow;
-    const float* cim = spec_im + f * kRow;
-    const float* dre = spec_re + (kTileFrames + f) * kRow;
-    const float* dim = spec_im + (kTileFrames + f) * kRow;
-    float acc = 0.f;
-    for (int k = lane; k <= kBins; k += 32) {
-      const float pc = hann_power(cre, cim, k);
-      const float pd = hann_power(dre, dim, k);
-      const float dm = sqrtf(pd) + eps;
-      const float lr = logf(pc / (dm * dm) + eps);
-      acc = fmaf(lr, lr, acc);
-    }
-    acc = fsem::warp_sum(acc);
-    total += sqrtf(acc / (float)(kBins + 1));
-  }
-  if (lane == 0) red[warp] = total;
-  __syncthreads();
   if (tid == 0) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w];
-    partial[(size_t)b * n_tiles + tile] = s;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {  // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == kConsumers * 128) {
+      for (int it = 0; it < 2 * kKBlocks; ++it) {  // the cross products' stages, then the main product's
+        const int s = it % kStages;
+        if (it >= kStages) mbar_wait(empty(s), ((it / kStages) - 1) & 1);
+        const bool main_only = it >= kKBlocks;
+        mbar_expect_tx(full(s), main_only ? kMainStage : kStage);
+        const int k0 = (it % kKBlocks) * kKB;
+        for (int q = 0; q < (main_only ? 1 : kPieces); ++q) {
+#pragma unroll
+          for (int sig = 0; sig < 2; ++sig)  // chunk -1 and chunks past the row: TMA's zeros
+            tma_load_3d(stage(s) + (2 * q + sig) * kBoxA, &tm_x, full(s), k0, f0 - 1, (3 * sig + q) * batch + b);
+          tma_load_2d(stage(s) + kTableOff + q * kBoxW, &tm_w, full(s), k0, (q * kTiles + tile) * kN);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: wg 0 the clean chunk rows, 1 the denoised ones,
+  // as two m64 tiles
+  setmaxnreg_inc<kConsumerRegs>();
+  float acc[2][kN / 2];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) acc[t][i] = 0.f;  // the first product overwrites it (scale_d 0)
+  // ring step it = kb (the cross products), then kKBlocks + kb (the main
+  // product): wait for its loads, issue its products, then release the
+  // step before it (whose products are done)
+  for (int kb = 0; kb < kKBlocks; ++kb) {  // the five cross products over all 256 samples
+    const int s = kb % kStages;
+    mbar_wait(full(s), (kb / kStages) & 1);
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKB / 16; ++kk) {  // 16 samples (32 bytes) a product
+      const uint64_t w0 = desc_sw64(stage(s) + kTableOff + kk * 32);
+      const uint64_t w1 = desc_sw64(stage(s) + kTableOff + kBoxW + kk * 32);
+      const uint64_t w2 = desc_sw64(stage(s) + kTableOff + 2 * kBoxW + kk * 32);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const uint32_t rows = t * 64 * kKRow + kk * 32;
+        const uint64_t x0 = desc_sw64(stage(s) + wg * kBoxA + rows);
+        const uint64_t x1 = desc_sw64(stage(s) + (2 + wg) * kBoxA + rows);
+        const uint64_t x2 = desc_sw64(stage(s) + (4 + wg) * kBoxA + rows);
+        wgmma_ss_n128<0>(acc[t], x0, w1, kb > 0 || kk > 0);
+        wgmma_ss_n128<0>(acc[t], x1, w0, 1);
+        wgmma_ss_n128<0>(acc[t], x0, w2, 1);
+        wgmma_ss_n128<0>(acc[t], x1, w1, 1);
+        wgmma_ss_n128<0>(acc[t], x2, w0, 1);
+      }
+    }
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    if (kb > 0) mbar_arrive(empty((kb - 1) % kStages));
+  }
+  for (int kb = 0; kb < kKBlocks; ++kb) {  // then the main product x0 w0
+    const int it = kKBlocks + kb, s = it % kStages;
+    mbar_wait(full(s), (it / kStages) & 1);
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKB / 16; ++kk) {
+      const uint64_t w0 = desc_sw64(stage(s) + kTableOff + kk * 32);
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+        wgmma_ss_n128<0>(acc[t], desc_sw64(stage(s) + wg * kBoxA + t * 64 * kKRow + kk * 32), w0, 1);
+    }
+    wg_commit();
+    wg_wait<1>();
+    reg_fence(acc[0]);
+    reg_fence(acc[1]);
+    mbar_arrive(empty((it - 1) % kStages));
+  }
+  wg_wait<0>();
+  reg_fence(acc[0]);
+  reg_fence(acc[1]);
+
+  // the epilogue, over the ring (both warpgroups are done with it): spectra
+  // rows 0..127 the clean chunks f0 - 1 .., 128.. the denoised ones
+  named_sync(1, kConsumers * 128);
+  float* sp = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)));
+  float* red = sp + 2 * kRows * kN;  // (kFrames, kRedStride): lr^2 per frame and column
+  const int lane = tid % 32, warp = (tid / 32) % 4, gq = lane / 4, cq = lane % 4;
+  // accumulator register 4 j + e: row 16 warp + gq + 8 (e / 2) of the
+  // tile's 64, column 8 j + 2 cq + e % 2
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = wg * kRows + t * 64 + 16 * warp + gq + 8 * r;
+        *reinterpret_cast<float2*>(sp + swz(row, 8 * j + 2 * cq)) =
+            make_float2(acc[t][4 * j + 2 * r], acc[t][4 * j + 2 * r + 1]);
+      }
+  named_sync(1, kConsumers * 128);
+
+  // thread (column j, slice sl): frames sl * 32 .. (the last slice 31 of
+  // them); its columns j - 1, j, j + 1 (clamped at the halo columns, which
+  // output nothing), sign (-1)^k of the absolute bin k = 62 t - 1 + c:
+  // 62 t is even, so -1 on even columns
+  const int j = tid % kNB, sl = tid / kNB;
+  const int cols[3] = {j > 0 ? j - 1 : 0, j, j < kNB - 1 ? j + 1 : kNB - 1};
+  float sgn[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) sgn[i] = (cols[i] & 1) ? 1.f : -1.f;
+  const int bin = tile * kOutBins - 1 + j;
+  const bool out_bin = j >= 1 && j <= kOutBins && bin <= kHop;
+  // chunk row r's columns of both signals: [signal][re l, c, r, im l, c, r]
+  auto load = [&](int r, float (&v)[2][6]) {
+#pragma unroll
+    for (int sig = 0; sig < 2; ++sig)
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        v[sig][i] = sp[swz(sig * kRows + r, cols[i])];
+        v[sig][3 + i] = sp[swz(sig * kRows + r, kNB + cols[i])];
+      }
+  };
+  const int m_lo = sl * kSliceFrames, m_hi = min(kFrames, m_lo + kSliceFrames);
+  float prev[2][6], cur[2][6];
+  load(m_lo, prev);
+  for (int m = m_lo; m < m_hi; ++m) {  // frame f0 + m = [chunk row m | chunk row m + 1]
+    load(m + 1, cur);
+    float pw[2];
+#pragma unroll
+    for (int sig = 0; sig < 2; ++sig) {
+      float x[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) x[i] = prev[sig][i] + sgn[i % 3] * cur[sig][i];
+      const float yr = 0.5f * x[1] - 0.25f * (x[0] + x[2]);
+      const float yi = 0.5f * x[4] - 0.25f * (x[3] + x[5]);
+      pw[sig] = yr * yr + yi * yi;
+    }
+    const float dm = sqrtf(pw[1]) + eps;
+    const float lr = logf(pw[0] / (dm * dm) + eps);
+    red[m * kRedStride + j] = out_bin ? lr * lr : 0.f;
+#pragma unroll
+    for (int sig = 0; sig < 2; ++sig)
+#pragma unroll
+      for (int i = 0; i < 6; ++i) prev[sig][i] = cur[sig][i];
+  }
+  named_sync(1, kConsumers * 128);
+  if (tid < kFrames && f0 + tid < n_frames) {  // one thread per frame: its output bins in order
+    float sum = 0.f;
+    for (int c = 1; c <= kOutBins; ++c) sum += red[tid * kRedStride + c];
+    partial[((size_t)b * n_frames + f0 + tid) * kTiles + tile] = sum;
   }
 }
+
+// One block per row: each frame's five tile partials added in tile order,
+// sqrt(s / 257); the frames in a fixed order (thread i the frames i, i +
+// 256, .., then the warps' butterflies and the eight warp sums in order).
+__global__ void __launch_bounds__(256) lsd_tile_finalize_kernel(const float* __restrict__ partial,
+                                                                float* __restrict__ out, int n_frames) {
+  __shared__ float red[8];
+  const int b = blockIdx.x;
+  float s = 0.f;
+  for (int f = threadIdx.x; f < n_frames; f += 256) {
+    const float* p = partial + ((size_t)b * n_frames + f) * kTiles;
+    float bins = p[0];
+#pragma unroll
+    for (int t = 1; t < kTiles; ++t) bins += p[t];
+    s += sqrtf(bins / (float)(kHop + 1));
+  }
+  s = fsem::warp_sum(s);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+    for (int w = 0; w < 8; ++w) total += red[w];
+    out[b] = total / (float)n_frames;
+  }
+}
+
+// The split pass (A1: after the scale partials), the tile kernel and the
+// finalize. pieces (6, batch, ceil(t_len / 256) 256) bf16 scratch; table
+// (3, kTiles kN, 256) bf16; scale_partial (batch, 16, 2) scratch, used
+// when kScale; partial (batch, F, kTiles) scratch; out (batch,).
+template <bool kScale>
+int launch_tiles(const float* clean, const float* denoised, void* pieces, const void* table, float* scale_partial,
+                 float* partial, float* out, int batch, long long t_len, float eps, cudaStream_t stream) {
+  if (batch <= 0 || batch > 65535 || t_len <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_chunks = (t_len + kHop - 1) / kHop;
+  const long long row_len = n_chunks * kHop;
+  const long long n_frames = t_len / kHop + 1;
+  const long long n_groups = (n_frames + kFrames - 1) / kFrames;
+  if (n_groups > 65535 || n_frames > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (kScale) {
+    lsd_scale_kernel<<<dim3(kScaleSplits, batch), 256, 0, stream>>>(clean, denoised, scale_partial, t_len);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = halves::split<3, kScaleSplits>(clean, denoised, pieces, t_len, row_len, batch, true, stream, scale_partial,
+                                          eps);
+  } else {
+    err = halves::split<3>(clean, denoised, pieces, t_len, row_len, batch, true, stream);
+  }
+  if (err != cudaSuccess) return (int)err;
+
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)kHop, (cuuint64_t)n_chunks, (cuuint64_t)6 * batch};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)kHop * 2, (cuuint64_t)row_len * 2};
+  const cuuint64_t w_dims[2] = {(cuuint64_t)kHop, (cuuint64_t)kPieces * kTiles * kN};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)kHop * 2};
+  if (!tensor_map(&tm_x, pieces, 3, x_dims, x_strides, kRows, 2, kKRow) ||
+      !tensor_map(&tm_w, table, 2, w_dims, w_strides, kN, 2, kKRow))
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(lsd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+  if (err != cudaSuccess) return (int)err;
+  lsd_tile_kernel<<<dim3(kTiles, (unsigned)n_groups, batch), kThreads, kSmem, stream>>>(tm_x, tm_w, partial, batch,
+                                                                                      (int)n_frames, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  lsd_tile_finalize_kernel<<<batch, 256, 0, stream>>>(partial, out, (int)n_frames);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tiles
 
 // -- A13: the factorized chunk DFT ----------------------------------------------
 //
@@ -480,52 +664,45 @@ __global__ void lsd_finalize_kernel(const float* __restrict__ partial,
   if (threadIdx.x == 0) out[b] = s / (float)n_frames;
 }
 
-// Sets the frame kernel's shared-memory limit and launches it, then the
-// finalize kernel. scale_partial is read only when kScale.
-template <bool kScale>
-int launch_frames(const float* clean, const float* denoised, const float* table,
-                  const float* scale_partial, float* partial, float* out,
-                  int batch, long long t_len, float eps, cudaStream_t stream) {
-  const int n_frames = (int)(t_len / kHop) + 1;
-  const int n_tiles = (n_frames + kTileFrames - 1) / kTileFrames;
-  const size_t smem = kSmemFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      lsd_frames_kernel<kScale>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  lsd_frames_kernel<kScale><<<dim3(n_tiles, batch), kThreads, smem, stream>>>(
-      clean, denoised, scale_partial, table, partial, t_len, n_frames, n_tiles, eps);
-  lsd_finalize_kernel<<<batch, 32, 0, stream>>>(partial, out, n_tiles, n_frames);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace
 
-// A1. clean, denoised: (batch, nc * 256) float32; table: (256, 512) packed
-// cos|sin chunk-DFT matrix; scale_partial: (batch, 16, 2) scratch; partial:
-// (batch, ceil((nc + 1) / 16)) scratch; out: (batch,) LSD scores.
-extern "C" int fsem_lsd_wholesig_raw(const float* clean, const float* denoised,
-                                     const float* table, float* scale_partial,
-                                     float* partial, float* out, int batch,
-                                     int nc, float eps, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long t_len = (long long)nc * kHop;
-  lsd_scale_kernel<<<dim3(kScaleSplits, batch), 256, 0, stream>>>(
-      clean, denoised, scale_partial, t_len);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return launch_frames<true>(clean, denoised, table, scale_partial, partial, out,
-                             batch, t_len, eps, stream);
+// A1. clean, denoised: (batch, nc * 256) float32; pieces: (6, batch, nc *
+// 256) bf16 scratch; table: (3, 640, 256) bf16, the tile table's pieces
+// (ops/lsd_fused.py::_tile_table_pieces); scale_partial: (batch, 16, 2)
+// scratch; partial: (batch, nc + 1, 5) scratch; out: (batch,) LSD scores.
+extern "C" int fsem_lsd_wholesig_raw(const float* clean, const float* denoised, void* pieces, const void* table,
+                                     float* scale_partial, float* partial, float* out, int batch, int nc,
+                                     float eps, void* stream_ptr) {
+  if (nc <= 0) return (int)cudaErrorInvalidValue;
+  return tiles::launch_tiles<true>(clean, denoised, pieces, table, scale_partial, partial, out, batch,
+                                   (long long)nc * kHop, eps, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // A2/A3. clean, denoised (pre-scaled): (batch, t_len) float32, any t_len;
-// table as above; partial: (batch, ceil((t_len / 256 + 1) / 16)) scratch;
-// out: (batch,) LSD scores.
-extern "C" int fsem_lsd_wholesig(const float* clean, const float* denoised,
-                                 const float* table, float* partial, float* out,
-                                 int batch, long long t_len, float eps,
+// pieces: (6, batch, ceil(t_len / 256) 256) bf16 scratch; table as above;
+// partial: (batch, t_len / 256 + 1, 5) scratch; out: (batch,) LSD scores.
+extern "C" int fsem_lsd_wholesig(const float* clean, const float* denoised, void* pieces, const void* table,
+                                 float* partial, float* out, int batch, long long t_len, float eps,
                                  void* stream_ptr) {
-  return launch_frames<false>(clean, denoised, table, nullptr, partial, out, batch,
-                              t_len, eps, static_cast<cudaStream_t>(stream_ptr));
+  return tiles::launch_tiles<false>(clean, denoised, pieces, table, nullptr, partial, out, batch, t_len, eps,
+                                    static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The split pass alone, for the card tests: pieces (6, batch, row_len)
+// bf16; with scale_partial (batch, 16, 2) given, A1's scale partials are
+// computed into it first and d is scaled as in fsem_lsd_wholesig_raw.
+extern "C" int fsem_lsd_split(const float* clean, const float* denoised, float* scale_partial, void* pieces,
+                              int batch, long long t_len, long long row_len, float eps, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (batch <= 0 || batch > 65535 || t_len <= 0) return (int)cudaErrorInvalidValue;
+  if (scale_partial == nullptr)
+    return (int)halves::split<3>(clean, denoised, pieces, t_len, row_len, batch, true, stream);
+  lsd_scale_kernel<<<dim3(kScaleSplits, batch), 256, 0, stream>>>(clean, denoised, scale_partial, t_len);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)halves::split<3, kScaleSplits>(clean, denoised, pieces, t_len, row_len, batch, true, stream,
+                                             scale_partial, eps);
 }
 
 // A13. clean, denoised: (batch, nc * 256) float32; scale: (batch,) float32

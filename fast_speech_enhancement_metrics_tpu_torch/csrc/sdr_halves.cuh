@@ -1,16 +1,22 @@
-// The bf16 halves of SDR's signal pairs, split once, up front, for the two
-// tensor-core correlation kernels: A4 (sdr_corr_gram.cu) and A10
-// (sdr_corr_fused.cu).
+// The bf16 pieces of signal pairs, split once, up front, for the tensor-core
+// kernels that read them through TMA: the hi / lo halves of SDR's two
+// correlation kernels, A4 (sdr_corr_gram.cu) and A10 (sdr_corr_fused.cu),
+// and the three pieces of LSD's frame-tile kernel (lsd_fused.cu).
 //
-// out (4, batch, row_len) bf16, the planes [clean hi, clean lo, denoised
-// hi, denoised lo] with hi = bf16(x) and lo = bf16(x - hi), rounded to
-// nearest even (ops/sdr_corr_gram.py::_hi_lo, as the JAX kernels split);
-// samples at and past t_len are zeros, so each row is the zero-padded
-// signal that the kernels' TMA maps read in frames or chunks. x - hi is
-// exact in float32. With lo == 0 the lo planes are not written (split x1
-// reads the hi planes only). row_len % 8 == 0.
+// split<kPieces>: out (2 kPieces, batch, row_len) bf16, the planes [clean
+// x0 .. x(kPieces - 1), denoised x0 .. x(kPieces - 1)] with x0 = bf16(x),
+// x1 = bf16(x - x0), x2 = bf16(x - x0 - x1), rounded to nearest even; each
+// difference is exact in float32. Two pieces are SDR's hi / lo
+// (ops/sdr_corr_gram.py::_hi_lo, as the JAX kernels split), three LSD's
+// (ops/lsd_fused.py::_split_pieces_plain). Samples at and past t_len are
+// zeros, so each row is the zero-padded signal that the kernels' TMA maps
+// read in frames or chunks. With rest == false only the x0 planes are
+// written (split x1 reads the hi planes only). row_len % 8 == 0.
+// kScaleSplits > 0: d is first scaled by its row's projection scale (A1 of
+// lsd_fused.cu), formed from per-row (num, den) partials added in order.
 //
-// Bound by bytes: 8 read and 8 (hi only: 4) written per sample and pair.
+// Bound by bytes: 8 read and 4 kPieces (x0 only: 4) written per sample
+// and pair.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,13 +35,32 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
 
 // grid (row_len / (kThreads kPer), batch): neighbouring threads on
 // neighbouring samples, so that each warp's loads and stores are whole
-// 512- and 256-byte runs
+// 512- and 256-byte runs. written: the pieces stored per signal (1 or
+// kPieces). kScaleSplits > 0: d is multiplied by its row's scale sum(num) /
+// (sum(den) + eps), from scale_partial (batch, kScaleSplits, 2) added in
+// order; the product is rounded to float32 before the split, as the plain
+// version's d * scale.
+template <int kPieces, int kScaleSplits>
 __global__ void __launch_bounds__(kThreads) split_kernel(const float* __restrict__ c, const float* __restrict__ d,
+                                                         const float* __restrict__ scale_partial,
                                                          __nv_bfloat16* __restrict__ out, long long t_len,
-                                                         long long row_len, int batch, int lo, int vec) {
+                                                         long long row_len, int batch, int written, int vec,
+                                                         float eps) {
+  __shared__ float s_scale;
+  const int b = blockIdx.y;
+  if (kScaleSplits > 0) {
+    if (threadIdx.x == 0) {
+      float num = 0.f, den = 0.f;
+      for (int i = 0; i < kScaleSplits; ++i) {
+        num += scale_partial[((size_t)b * kScaleSplits + i) * 2];
+        den += scale_partial[((size_t)b * kScaleSplits + i) * 2 + 1];
+      }
+      s_scale = num / (den + eps);
+    }
+    __syncthreads();
+  }
   const long long t0 = ((long long)blockIdx.x * kThreads + threadIdx.x) * kPer;
   if (t0 >= row_len) return;
-  const int b = blockIdx.y;
   const size_t plane = (size_t)batch * row_len;
   float x[2][kPer];
 #pragma unroll
@@ -49,33 +74,49 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const float* __restrict
       for (int e = 0; e < kPer; ++e) x[sig][e] = t0 + e < t_len ? src[t0 + e] : 0.f;
     }
   }
+  if (kScaleSplits > 0) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) x[1][e] = __fmul_rn(x[1][e], s_scale);  // never contracted into a later FMA
+  }
 #pragma unroll
   for (int sig = 0; sig < 2; ++sig) {
-    uint32_t hw[kPer / 2], lw[kPer / 2];
+    uint32_t w[kPieces][kPer / 2];
 #pragma unroll
     for (int e = 0; e < kPer / 2; ++e) {
-      const float a = x[sig][2 * e], bb = x[sig][2 * e + 1];
-      const __nv_bfloat16 h0 = __float2bfloat16_rn(a), h1 = __float2bfloat16_rn(bb);
-      hw[e] = pack2(h0, h1);
-      lw[e] = pack2(__float2bfloat16_rn(a - __bfloat162float(h0)), __float2bfloat16_rn(bb - __bfloat162float(h1)));
+      __nv_bfloat16 p[kPieces][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float r = x[sig][2 * e + h];
+#pragma unroll
+        for (int q = 0; q < kPieces; ++q) {
+          p[q][h] = __float2bfloat16_rn(r);
+          r = __fsub_rn(r, __bfloat162float(p[q][h]));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kPieces; ++q) w[q][e] = pack2(p[q][0], p[q][1]);
     }
-    __nv_bfloat16* dst = out + (size_t)(2 * sig) * plane + (size_t)b * row_len + t0;
-    *reinterpret_cast<uint2*>(dst) = make_uint2(hw[0], hw[1]);
-    if (lo) *reinterpret_cast<uint2*>(dst + plane) = make_uint2(lw[0], lw[1]);
+    __nv_bfloat16* dst = out + (size_t)(kPieces * sig) * plane + (size_t)b * row_len + t0;
+#pragma unroll
+    for (int q = 0; q < kPieces; ++q)
+      if (q < written) *reinterpret_cast<uint2*>(dst + q * plane) = make_uint2(w[q][0], w[q][1]);
   }
 }
 
-// clean, denoised (batch, t_len) float32; out (4, batch, row_len) bf16,
-// 16-byte aligned; row_len >= t_len, row_len % 8 == 0
+// clean, denoised (batch, t_len) float32; out (2 kPieces, batch, row_len)
+// bf16, 16-byte aligned; row_len >= t_len, row_len % 8 == 0; rest false:
+// the x0 planes only; scale_partial (batch, kScaleSplits, 2), read only
+// when kScaleSplits > 0
+template <int kPieces = 2, int kScaleSplits = 0>
 inline cudaError_t split(const float* c, const float* d, void* out, long long t_len, long long row_len, int batch,
-                         bool lo, cudaStream_t stream) {
+                         bool rest, cudaStream_t stream, const float* scale_partial = nullptr, float eps = 0.f) {
   if (row_len % 8 || row_len < t_len || batch <= 0 || batch > 65535) return cudaErrorInvalidValue;
   const int vec = t_len % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(d) % 16 == 0;
   const long long per_block = (long long)kThreads * kPer;
   const dim3 grid((unsigned)((row_len + per_block - 1) / per_block), batch);
-  split_kernel<<<grid, kThreads, 0, stream>>>(c, d, static_cast<__nv_bfloat16*>(out), t_len, row_len, batch, lo,
-                                              vec);
+  split_kernel<kPieces, kScaleSplits><<<grid, kThreads, 0, stream>>>(
+      c, d, scale_partial, static_cast<__nv_bfloat16*>(out), t_len, row_len, batch, rest ? kPieces : 1, vec, eps);
   return cudaGetLastError();
 }
 

@@ -45,10 +45,15 @@ launch_counts: collections.Counter = collections.Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # (clean, denoised, table, scale partials, tile partials, out, batch, chunks, eps, stream)
-    "fsem_lsd_wholesig_raw": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
-    # (clean, denoised, table, tile partials, out, batch, samples, eps, stream)
-    "fsem_lsd_wholesig": (_P, _P, _P, _P, _P, _I, _L, _F, _P),
+    # (clean, denoised, bf16 pieces, bf16 tile table pieces, scale partials,
+    #  frame partials, out, batch, chunks, eps, stream)
+    "fsem_lsd_wholesig_raw": (_P,) * 7 + (_I, _I, _F, _P),
+    # (clean, denoised, bf16 pieces, bf16 tile table pieces, frame partials,
+    #  out, batch, samples, eps, stream)
+    "fsem_lsd_wholesig": (_P,) * 6 + (_I, _L, _F, _P),
+    # (clean, denoised, scale partials or null, bf16 pieces, batch, samples,
+    #  row length, eps, stream)
+    "fsem_lsd_split": (_P,) * 4 + (_I, _L, _L, _F, _P),
     # (clean, denoised, scale or null, fold twiddles, branch DFT table, scale
     #  partials, tile partials, out, batch, chunks, eps, stream)
     "fsem_lsd_wholesig_ct": (_P,) * 8 + (_I, _I, _F, _P),

@@ -12,10 +12,11 @@ Counterpart of the JAX package's ``ops/lsd_fused.py`` and of its
   the 512-point chunk DFT factorized into three radix-2 DIF folds and eight
   64-point branch DFTs (``_ct_constants``), at half the multiply-adds.
 
-On the card A1-A3 are one frame-tile kernel, ``csrc/lsd_fused.cu``: A1
-with its scale stage, A2 and A3 without (one C entry point, counted under
-each kernel's own name); A13 is a second frame-tile kernel in the same
-source. Two ideas carry them:
+On the card A1-A3 are one frame-tile kernel on the tensor cores,
+``csrc/lsd_fused.cu``: A1 with the projection scale applied in its split
+pass, A2 and A3 without (one C entry point, counted under each kernel's own
+name); A13 is a second, float32 frame-tile kernel in the same source. Three
+ideas carry them:
 
 * **Shared-chunk DFT.** With hop = n_fft/2, frame f = [chunk_{f-1} |
   chunk_f] of the centered signal, so the frame spectrum is X_f[k] =
@@ -24,6 +25,14 @@ source. Two ideas carry them:
 * **Frequency-domain Hann.** The periodic Hann window is the exact 3-tap
   convolution Y[k] = 0.5 X[k] - 0.25 (X[k-1] + X[k+1]), with
   X[-1] = conj X[1] and X[n_fft/2 + 1] = conj X[n_fft/2 - 1].
+* **Halo bin tiles** (A1-A3). The chunk DFT is a bf16x6 tensor-core
+  product: the signals and the table in three bf16 pieces each
+  (``split_pieces``, ``_tile_table_pieces``), the six products of order
+  <= 2^-16, the main product x0w0 added last. Its columns come in five
+  tiles of 64 bins k = 62 t - 1 .. 62 t + 62, straight from the DFT
+  formula: 62 output bins and a halo bin on each side for the Hann taps;
+  the per-frame sums of the five tiles are added in tile order
+  (``_lsd_tiles_reference`` spells out the dataflow).
 
 ``lsd_scores`` launches the kernels for CUDA tensors and runs the plain
 versions (``_lsd_wholesig_raw_plain``, ``_lsd_wholesig_plain``,
@@ -52,8 +61,15 @@ KERNEL_A13 = "lsd_wholesig_ct"
 #: only when ``nc % 8 == 0`` and F + 1 <= this); only A13's route follows
 #: the JAX package's chunk conditions (``_takes_ct``)
 MAX_WHOLESIG_CHUNKS = 1024
-#: frames per block of the CUDA kernel (csrc/lsd_fused.cu, kTileFrames)
-_TILE_FRAMES = 16
+#: the frame-tile kernel's bin tiles (csrc/lsd_fused.cu, tiles::): 5 tiles
+#: of 64 bins, 62 output bins and a halo bin on each side
+_TILES, _TILE_BINS, _OUT_BINS = 5, 64, 62
+#: frames per group of the frame-tile kernel (tiles::kFrames): its 128
+#: chunk rows per signal fill two m64 tiles
+_GROUP_FRAMES = 127
+#: launches of the three-piece split pass alone (``split_pieces`` on a
+#: CUDA tensor); A1-A3 run it inside their own launches
+KERNEL_SPLIT = "lsd_split"
 #: blocks per row of the kernel's scale reduction (kScaleSplits)
 _SCALE_SPLITS = 16
 #: frames per block of A13's kernel (kCtTileFrames)
@@ -257,6 +273,149 @@ def _lsd_wholesig_ct_plain(
     return torch.mean(_frame_lsd(_ct_frame_powers(c), _ct_frame_powers(d), eps), dim=-1)
 
 
+def _pieces(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Three bf16 pieces of a float32 tensor, rounded to nearest even: x0 =
+    bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) (both differences
+    exact in float32)."""
+    x0 = x.to(torch.bfloat16)
+    r = x - x0.float()
+    x1 = r.to(torch.bfloat16)
+    return x0, x1, (r - x1.float()).to(torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_table() -> np.ndarray:
+    """(5 x 128, 256) float32: the frame-tile kernel's chunk-DFT table, built
+    in float64. Rows t 128 + j and t 128 + 64 + j hold the cos and sin
+    columns of bin k = 62 t - 1 + j (j = 0..63), cos(-2 pi n k / 512) and
+    sin(-2 pi n k / 512) for n = 0..255: tile t's [re 64 | im 64], K-major."""
+    n_fft = 2 * 256
+    t = np.arange(256, dtype=np.float64)[None, :]
+    k = (np.arange(_TILES)[:, None] * _OUT_BINS - 1 + np.arange(_TILE_BINS)[None, :]).reshape(-1, 1)
+    ang = -2.0 * np.pi * t * k.astype(np.float64) / n_fft  # (5 x 64, 256)
+    rows = np.concatenate([np.cos(ang).reshape(_TILES, _TILE_BINS, 256),
+                           np.sin(ang).reshape(_TILES, _TILE_BINS, 256)], axis=1)
+    return rows.reshape(_TILES * 2 * _TILE_BINS, 256).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_table_pieces_bits() -> np.ndarray:
+    """(3, 640, 256) int16: the bits of ``_tile_table``'s three bf16 pieces."""
+    return torch.stack(_pieces(torch.from_numpy(_tile_table()))).contiguous().view(torch.int16).numpy()
+
+
+def _tile_table_pieces(device: torch.device | str = "cpu") -> torch.Tensor:
+    """``_tile_table_pieces_bits`` as a bf16 tensor on ``device`` (one copy per device)."""
+    return device_table(_tile_table_pieces_bits(), torch.device(device)).view(torch.bfloat16)
+
+
+def _scale_partials_plain(clean: torch.Tensor, denoised: torch.Tensor) -> torch.Tensor:
+    """(B, 16, 2) sums of c d and d d over the kernel's 16 slices of each row."""
+    t = clean.shape[1]
+    per = -(-t // _SCALE_SPLITS)
+    parts = []
+    for i in range(_SCALE_SPLITS):
+        c, d = clean[:, i * per:(i + 1) * per], denoised[:, i * per:(i + 1) * per]
+        parts.append(torch.stack([torch.sum(c * d, dim=1), torch.sum(d * d, dim=1)], dim=1))
+    return torch.stack(parts, dim=1)
+
+
+def _scale_from_partials(partial: torch.Tensor, eps: float) -> torch.Tensor:
+    """(B, 16, 2) partials -> (B, 1) projection scale, the sixteen added in
+    order in float32 as the split pass adds them."""
+    num, den = partial[:, 0, 0], partial[:, 0, 1]
+    for i in range(1, _SCALE_SPLITS):
+        num, den = num + partial[:, i, 0], den + partial[:, i, 1]
+    return (num / (den + eps))[:, None]
+
+
+def _split_pieces_plain(
+    clean: torch.Tensor, denoised: torch.Tensor, row_len: int, scale: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Plain version of the three-piece split: (6, B, row_len) bf16, the
+    planes [c0, c1, c2, d0, d1, d2], zeros past T; with ``scale`` (B, 1)
+    the denoised signal is scaled (in float32) before its split."""
+    if scale is not None:
+        denoised = denoised * scale
+    planes = []
+    for x in (clean, denoised):
+        planes += _pieces(F.pad(x.float(), (0, row_len - x.shape[-1])))
+    return torch.stack(planes)
+
+
+def split_pieces(
+    clean: torch.Tensor, denoised: torch.Tensor, row_len: int, eps: float | None = None
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The split pass that A1-A3 run first: (B, T) float32 pairs -> ((6, B,
+    row_len) bf16 pieces, zero-padded (row_len >= T, a multiple of 8); with
+    ``eps`` given, A1's (B, 16, 2) scale partials, the denoised signal
+    scaled by ``_scale_from_partials`` before its split, else None). CPU
+    tensors take the plain version; on a CUDA tensor the kernel
+    (``csrc/sdr_halves.cuh``, ``halves::split<3>``)."""
+    assert clean.ndim == 2 and clean.shape == denoised.shape and row_len >= clean.shape[1] and row_len % 8 == 0
+    if clean.device.type == "cpu":
+        partial = None if eps is None else _scale_partials_plain(clean, denoised)
+        scale = None if partial is None else _scale_from_partials(partial, eps)
+        return _split_pieces_plain(clean, denoised, row_len, scale), partial
+    if clean.device.type != "cuda":
+        raise ValueError(f"no split kernel for device {clean.device}")
+    dev = clean.device
+    cuda_lib.check_operand(clean, "clean", dev, torch.float32, 2)
+    cuda_lib.check_operand(denoised, "denoised", dev, torch.float32, 2)
+    batch = clean.shape[0]
+    out = torch.empty(6, batch, row_len, device=dev, dtype=torch.bfloat16)
+    partial = None if eps is None else torch.empty(batch, _SCALE_SPLITS, 2, device=dev, dtype=torch.float32)
+    cuda_lib.launch("lsd_split", dev, clean, denoised, partial, out, batch, clean.shape[1], row_len,
+                    0.0 if eps is None else eps)
+    cuda_lib.launch_counts[KERNEL_SPLIT] += 1
+    return out, partial
+
+
+def _lsd_tiles_reference(pieces: torch.Tensor, t_len: int, eps: float) -> torch.Tensor:
+    """The frame-tile kernel's dataflow in torch, in float32, for the tests:
+    from the pieces (6, B, chunks x 256) and ``_tile_table_pieces``, per
+    group of 127 frames the 128 chunk rows of each signal (chunk 127 g - 1
+    ..; zeros before chunk 0 and past the row) times each bin tile as the
+    five cross products x0w1 + x1w0 + x0w2 + x1w1 + x2w0, then + x0w0 (the
+    kernel's order), the frame combine
+    with the absolute bin's sign (-1)^(62 t - 1 + j), the Hann taps over the
+    halo columns, lr^2 summed over each tile's output bins 62 t ..
+    min(62 t + 61, 256) into (B, F, 5), then per frame the five partials
+    in tile order, sqrt(s / 257) and the mean over frames: (B,) scores."""
+    _, batch, row_len = pieces.shape
+    hop = 256
+    n_chunks, n_frames = row_len // hop, 1 + t_len // hop
+    n_groups = -(-n_frames // _GROUP_FRAMES)
+    x = pieces.float().reshape(2, 3, batch, n_chunks, hop)
+    # padded chunk row i is chunk i - 1: group g reads rows 127 g .. 127 g + 127
+    x = F.pad(x, (0, 0, 1, n_groups * _GROUP_FRAMES + 1 - n_chunks))
+    w = _tile_table_pieces(pieces.device).float()  # (3, 640, 256)
+    products = ((0, 1), (1, 0), (0, 2), (1, 1), (2, 0), (0, 0))
+    j = torch.arange(_TILE_BINS, device=pieces.device)
+    sign = torch.where(j % 2 == 1, 1.0, -1.0)  # (-1)^(62 t - 1 + j): 62 t is even
+    partial = torch.zeros(batch, n_groups * _GROUP_FRAMES, _TILES, device=pieces.device)
+    for g in range(n_groups):
+        rows = x[:, :, :, g * _GROUP_FRAMES:g * _GROUP_FRAMES + _GROUP_FRAMES + 1]  # (2, 3, B, 128, 256)
+        for t in range(_TILES):
+            wt = w[:, t * 2 * _TILE_BINS:(t + 1) * 2 * _TILE_BINS].transpose(1, 2)  # (3, 256, 128)
+            spec = rows[:, 0] @ wt[1]
+            for p, q in products[1:]:
+                spec = spec + rows[:, p] @ wt[q]
+            re, im = spec[..., :_TILE_BINS], spec[..., _TILE_BINS:]
+            xre, xim = re[..., :-1, :] + sign * re[..., 1:, :], im[..., :-1, :] + sign * im[..., 1:, :]
+            yre = 0.5 * xre[..., 1:-1] - 0.25 * (xre[..., :-2] + xre[..., 2:])
+            yim = 0.5 * xim[..., 1:-1] - 0.25 * (xim[..., :-2] + xim[..., 2:])
+            power = yre * yre + yim * yim  # (2, B, 127, 62): output bins 62 t ..
+            d_mag = torch.sqrt(power[1]) + eps
+            lr = torch.log(power[0] / (d_mag * d_mag) + eps)
+            keep = t * _OUT_BINS + torch.arange(_OUT_BINS, device=pieces.device) <= hop
+            partial[:, g * _GROUP_FRAMES:(g + 1) * _GROUP_FRAMES, t] = torch.sum(lr * lr * keep, dim=-1)
+    s = partial[:, :n_frames, 0]
+    for t in range(1, _TILES):
+        s = s + partial[:, :n_frames, t]
+    return torch.mean(torch.sqrt(s / (hop + 1)), dim=-1)
+
+
 def _lsd_wholesig_raw_cuda(
     clean: torch.Tensor, denoised: torch.Tensor, hop: int, eps: float
 ) -> torch.Tensor:
@@ -266,12 +425,12 @@ def _lsd_wholesig_raw_cuda(
     nc = t // hop
     if nc == 0 or t % hop:
         raise ValueError(f"need whole chunks of {hop} samples, got {tuple(clean.shape)}")
-    n_tiles = -(-(nc + 1) // _TILE_FRAMES)
-    table = device_table(_chunk_rdft_matrix_packed(2 * hop), dev)
+    pieces = torch.empty(6, batch, nc * hop, device=dev, dtype=torch.bfloat16)
     scale_partial = torch.empty(batch, _SCALE_SPLITS, 2, device=dev, dtype=torch.float32)
-    partial = torch.empty(batch, n_tiles, device=dev, dtype=torch.float32)
+    partial = torch.empty(batch, nc + 1, _TILES, device=dev, dtype=torch.float32)
     out = torch.empty(batch, device=dev, dtype=torch.float32)
-    cuda_lib.launch(KERNEL, dev, clean, denoised, table, scale_partial, partial, out, batch, nc, eps)
+    cuda_lib.launch(KERNEL, dev, clean, denoised, pieces, _tile_table_pieces(dev), scale_partial, partial, out,
+                    batch, nc, eps)
     cuda_lib.launch_counts[KERNEL] += 1
     return out
 
@@ -318,11 +477,13 @@ def _lsd_wholesig_cuda(
     _check_pair(clean, denoised, hop)
     dev = clean.device
     batch, t = clean.shape
-    n_tiles = -(-(1 + t // hop) // _TILE_FRAMES)
-    table = device_table(_chunk_rdft_matrix_packed(2 * hop), dev)
-    partial = torch.empty(batch, n_tiles, device=dev, dtype=torch.float32)
+    if t == 0:
+        raise ValueError(f"need at least one sample, got {tuple(clean.shape)}")
+    pieces = torch.empty(6, batch, -(-t // hop) * hop, device=dev, dtype=torch.bfloat16)
+    partial = torch.empty(batch, 1 + t // hop, _TILES, device=dev, dtype=torch.float32)
     out = torch.empty(batch, device=dev, dtype=torch.float32)
-    cuda_lib.launch("lsd_wholesig", dev, clean, denoised, table, partial, out, batch, t, eps)
+    cuda_lib.launch("lsd_wholesig", dev, clean, denoised, pieces, _tile_table_pieces(dev), partial, out, batch, t,
+                    eps)
     cuda_lib.launch_counts[kernel] += 1
     return out
 

@@ -179,6 +179,76 @@ def test_lsd_a2_a3_kernels_match_plain(dev, t):
         torch.testing.assert_close(got, plain(c, d, 256, 1e-8), rtol=2e-4, atol=2e-4)
 
 
+#: the frame-tile kernel's shapes: A1's main shape and its group boundaries
+#: (F = 127, 128 and 254 frames), A2's main shape, A3's (20 s + 100), and
+#: clips shorter than a hop
+LSD_TILE_LENGTHS = [16 * 16000, 256 * 126, 256 * 127, 256 * 253, 16 * 16000 + 100, 20 * 16000 + 100, 200]
+
+
+def _lsd_twice_equal(fn, *args):
+    """Two launches give the same bits; returns the first result."""
+    first = fn(*args).clone()
+    assert torch.equal(first, fn(*args)), "two launches differ"
+    return first
+
+
+@pytest.mark.parametrize("t", LSD_TILE_LENGTHS)
+@pytest.mark.parametrize("rows", [1, 64])
+def test_lsd_tile_kernel_main_shapes(dev, rows, t):
+    """A1 (hop-aligned raw pairs), A2 and A3 on the tensor-core frame-tile
+    kernel: one launch of each wrapper's counter per call, rtol/atol 2e-4
+    from its plain version and from the kernel's dataflow in torch
+    (``_lsd_tiles_reference``), bit-identical from launch to launch."""
+    c, d = _audio(dev, rows=rows, t=t, seed=rows + t)
+    cases = [(lsd_fused.lsd_wholesig, lsd_fused._lsd_wholesig_plain, lsd_fused.KERNEL_A2, None),
+             (lsd_fused.lsd_framed, lsd_fused._lsd_framed_plain, lsd_fused.KERNEL_A3, None)]
+    if t % 256 == 0:
+        cases.append((lsd_fused.lsd_wholesig_raw, lsd_fused._lsd_wholesig_raw_plain, lsd_fused.KERNEL, 1e-8))
+    row_len = -(-t // 256) * 256
+    for wrapper, plain, kname, split_eps in cases:
+        before = cuda_lib.launch_counts[kname]
+        got = _lsd_twice_equal(wrapper, c, d, 256, 1e-8)
+        assert cuda_lib.launch_counts[kname] == before + 2
+        torch.testing.assert_close(got, plain(c, d, 256, 1e-8), rtol=2e-4, atol=2e-4)
+        pieces, _ = lsd_fused.split_pieces(c, d, row_len, split_eps)
+        torch.testing.assert_close(got, lsd_fused._lsd_tiles_reference(pieces, t, 1e-8), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("t", [16 * 16000, 16 * 16000 + 100])
+def test_lsd_tile_kernel_near_clean_pair(dev, t):
+    """A near-clean pair (speech + 1e-3 max|speech| Gaussian noise,
+    torch.Generator seed 0), where the chunk DFT's precision class shows:
+    A1 (hop-aligned) or A2 and A3 within atol 2e-4 of their plain versions."""
+    clean, _, _ = load_audio_data(t / 16000 + 0.01, 4, 16000)
+    c = torch.from_numpy(np.ascontiguousarray(clean[:, :t]))
+    g = torch.Generator().manual_seed(0)
+    d = (c + 1e-3 * c.abs().max() * torch.randn(c.shape, generator=g)).to(dev)
+    c = c.to(dev)
+    if t % 256 == 0:
+        cases = [(lsd_fused.lsd_wholesig_raw, lsd_fused._lsd_wholesig_raw_plain)]
+    else:
+        cases = [(lsd_fused.lsd_wholesig, lsd_fused._lsd_wholesig_plain),
+                 (lsd_fused.lsd_framed, lsd_fused._lsd_framed_plain)]
+    for wrapper, plain in cases:
+        torch.testing.assert_close(wrapper(c, d, 256, 1e-8), plain(c, d, 256, 1e-8), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("t", [16 * 16000 + 37, 500])
+def test_lsd_split_kernel_is_plain(dev, t, scaled):
+    """The three-piece split pass of A1-A3 writes the plain version's bf16
+    pieces bit for bit, zeros past T; with A1's scale, d scaled by the
+    sixteen partials (returned by the kernel) added in order."""
+    c, d = _audio(dev, rows=3, t=t, seed=t)
+    row_len = -(-t // 256) * 256
+    before = cuda_lib.launch_counts[lsd_fused.KERNEL_SPLIT]
+    got, partial = lsd_fused.split_pieces(c, d, row_len, 1e-8 if scaled else None)
+    assert cuda_lib.launch_counts[lsd_fused.KERNEL_SPLIT] == before + 1
+    scale = lsd_fused._scale_from_partials(partial.cpu(), 1e-8) if scaled else None
+    want = lsd_fused._split_pieces_plain(c.cpu(), d.cpu(), row_len, scale)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.parametrize("t,scale", [(256 * 64, None), (256 * 64, "given"), (256 * 8, None), (256 * 1016, None)])
 def test_lsd_ct_kernel_matches_plain(dev, t, scale):
     """A13 against its plain version and against A1 (or A2 with a given

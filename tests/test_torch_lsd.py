@@ -2,7 +2,10 @@
 
 The JAX side runs on the CPU: its Pallas kernel in interpret mode, its
 metric through the XLA path that ``"auto"`` picks there. Tolerance: the
-LSD contract, rtol/atol 2e-4.
+LSD contract, rtol/atol 2e-4. The CUDA frame-tile kernel's tables, split
+and dataflow (``_lsd_tiles_reference``) are held against the plain
+versions here; the kernel itself on the card in
+``test_torch_kernels_cuda.py``.
 """
 
 import numpy as np
@@ -219,3 +222,112 @@ def test_lsd_ct_route_follows_jax_conditions(t, scale, want):
     assert routes == [want]
     with pytest.raises(ValueError, match="dft_impl"):
         lsd_fused.lsd_scores(c, c, 512, 256, 1e-8, dft_impl="fft")
+
+
+def _near_clean(clean, seed=0):
+    """clean + 1e-3 max|clean| Gaussian noise (torch.Generator ``seed``):
+    a pair whose log ratios sit near 0, where the chunk DFT's precision
+    class shows."""
+    c = torch.from_numpy(clean)
+    g = torch.Generator().manual_seed(seed)
+    return (c + 1e-3 * c.abs().max() * torch.randn(c.shape, generator=g)).numpy()
+
+
+def test_lsd_tile_table_is_float64_build():
+    """The frame-tile kernel's table: tile t's rows [re 64 | im 64] are the
+    cos / sin columns of bins 62 t - 1 .. 62 t + 62, straight from the DFT
+    formula in float64, bit for bit; its bins 0..255 are the plain
+    version's packed table."""
+    from fast_speech_enhancement_metrics_tpu_torch.ops.dft import _chunk_rdft_matrix_packed
+
+    table = lsd_fused._tile_table()
+    assert table.shape == (640, 256) and table.dtype == np.float32
+    n = np.arange(256, dtype=np.float64)
+    packed = _chunk_rdft_matrix_packed(512)
+    for t in range(5):
+        for j in range(64):
+            k = 62 * t - 1 + j
+            np.testing.assert_array_equal(table[128 * t + j], np.cos(-2.0 * np.pi * n * k / 512).astype(np.float32))
+            np.testing.assert_array_equal(table[128 * t + 64 + j], np.sin(-2.0 * np.pi * n * k / 512).astype(np.float32))
+            if 0 <= k < 256:
+                np.testing.assert_array_equal(table[128 * t + j], packed[:, k])
+                np.testing.assert_array_equal(table[128 * t + 64 + j], packed[:, 256 + k])
+
+
+def test_lsd_tile_table_pieces_add_back():
+    """Its three bf16 pieces add back to the float32 table within one ulp."""
+    table = lsd_fused._tile_table()
+    pieces = lsd_fused._tile_table_pieces()
+    assert pieces.shape == (3, 640, 256) and pieces.dtype == torch.bfloat16
+    back = pieces.double().sum(dim=0).numpy()
+    assert np.all(np.abs(back - table) <= np.spacing(np.abs(table)))
+    # each piece is what remains after the ones before it, rounded
+    p0, p1, p2 = (p.double().numpy() for p in pieces)
+    assert np.all(np.abs(p1) <= np.spacing(np.abs(p0).astype(np.float32)) * 2**16)
+    assert np.all(np.abs(p2) <= np.abs(p1) * 2.0**-7)
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+def test_lsd_split_pieces_plain(scaled):
+    """The split's plain version: six planes [c0, c1, c2, d0, d1, d2], zeros
+    past T, each signal's three pieces adding back to it exactly (for these
+    normal floats); with ``eps`` the denoised signal scaled by the sixteen
+    slice partials added in order."""
+    clean, noisy = _noise_pairs(1000, rows=2, seed=5)
+    c, d = torch.from_numpy(clean), torch.from_numpy(noisy)
+    pieces, partial = lsd_fused.split_pieces(c, d, 1024, 1e-8 if scaled else None)
+    assert pieces.shape == (6, 2, 1024) and pieces.dtype == torch.bfloat16
+    assert torch.all(pieces[:, :, 1000:] == 0)
+    want_d = d
+    if scaled:
+        assert partial.shape == (2, 16, 2)
+        torch.testing.assert_close(partial.sum(dim=1)[:, 0], torch.sum(c * d, dim=1), rtol=1e-5, atol=1e-4)
+        scale = lsd_fused._scale_from_partials(partial, 1e-8)
+        torch.testing.assert_close(scale[:, 0], torch.sum(c * d, dim=1) / torch.sum(d * d, dim=1), rtol=1e-5, atol=0)
+        want_d = d * scale
+    else:
+        assert partial is None
+    back = pieces.double().reshape(2, 3, 2, 1024).sum(dim=1)[..., :1000]
+    assert torch.equal(back[0], c.double()) and torch.equal(back[1], want_d.double())
+
+
+#: (samples, scaled before the kernel, near-clean pair): A1's main shape and
+#: its group boundaries (F = 127, 128 and 254 frames), A2's unaligned
+#: shapes down to a clip shorter than a hop, and the near-clean pairs
+TILE_CASES = [
+    (16 * 16000, False, False),
+    (256 * 126, False, False),
+    (256 * 127, False, False),
+    (256 * 253, False, False),
+    (16 * 16000 + 100, True, False),
+    (1000, True, False),
+    (100, True, False),
+    (16 * 16000, False, True),
+    (16 * 16000 + 100, True, True),
+]
+
+
+@pytest.mark.parametrize("t,scaled,near_clean", TILE_CASES)
+def test_lsd_tile_dataflow_matches_plain(t, scaled, near_clean):
+    """The CUDA frame-tile kernel's dataflow in torch (``_lsd_tiles_reference``,
+    from the wrapper's own split and table): bf16x6 chunk products, 62
+    output bins + 2 halo bins a tile, the absolute bin's sign, five
+    partials per frame added in tile order and the finalize, against A1's
+    (raw pairs, the scale from the split's partials) or A2's (pre-scaled
+    pairs) plain version, atol 2e-4 (about 1e-5 is expected)."""
+    clean, noisy = _pairs(t / 16000 + 0.01, rows=2)
+    clean = np.ascontiguousarray(clean[:, :t])
+    noisy = _near_clean(clean) if near_clean else np.ascontiguousarray(noisy[:, :t])
+    c, d = torch.from_numpy(clean), torch.from_numpy(noisy)
+    row_len = -(-t // 256) * 256
+    if scaled:
+        scale = torch.sum(c * d, dim=1, keepdim=True) / (torch.sum(d * d, dim=1, keepdim=True) + 1e-8)
+        d = d * scale
+        want = lsd_fused._lsd_wholesig_plain(c, d, 256, 1e-8)
+        pieces, _ = lsd_fused.split_pieces(c, d, row_len)
+    else:
+        want = lsd_fused._lsd_wholesig_raw_plain(c, d, 256, 1e-8)
+        pieces, _ = lsd_fused.split_pieces(c, d, row_len, 1e-8)
+    got = lsd_fused._lsd_tiles_reference(pieces, t, 1e-8)
+    assert got.shape == (2,) and bool(torch.all(torch.isfinite(got)))
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-4)
