@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``cuobjdump``), A12's int8 GEMM and int8 attention int8 wgmma (IGMMA)
    and TMA, SDR's correlation kernels (A4's Gram in splits x4, x3, x1 and
    A10's chunk DFT) and LSD's frame-tile kernel (A1-A3) bf16 wgmma and
-   TMA, and none may spill a register,
+   TMA, and none may spill a register, nor may A5's warp kernel (all 32
+   orders) or A6's segment kernel,
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
    generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
@@ -33,7 +34,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    4 x 16 heads x 1499 x 80; A15 at 2 x 12 x 40 999 x 64; A10 at 64 x 16 s
    and 64 x (16 s + 100); A13 at 64 x 16 s, also against A1; each A14
    Levinson variant on the 64 x 512 systems that SDR builds from the 16 s
-   batch; A11 and A12 on A7's mHuBERT-147 layer in every softmax mode, A11
+   batch; A5 also bit for bit its warp-order reference, at n = 1024 on 4
+   rows, and A5 and A6 twice bit-equal; A6 also on ragged segment counts
+   (0, mid-tile, full); A11 and A12 on A7's mHuBERT-147 layer in every softmax mode, A11
    also against A7 then A8 bit for bit, A12 also in the JAX package's int8
    screening class against A7; A12's int8 GEMM alone exactly against its
    plain version at the layer's QKV and W_o products),
@@ -55,7 +58,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    by the exact A9 path); fused SDR also against ``SDR()``,
 5. times: each kernel (CUDA events around one call; also its device time
    alone, the card kept busy while the host enqueues it), its plain
-   version, a PyTorch library call (or, for
+   version (A5 also beside its chain's floor, at an assumed latency, on its
+   log line only), a PyTorch library call (or, for
    A7, A8 and A11, a composite of library calls) for the same function where
    one exists (none computes int8 attention: A12's ``library_ms`` is null,
    and its ``library_partial_ms`` is ``torch._int_mm`` with the
@@ -158,6 +162,24 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[f
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+#: assumed dependent-issue latency of a float32 add, multiply or FMA, and
+#: the least for any instruction, in SM cycles (CUDA C++ Programming Guide,
+#: "Multiprocessor Level": 4 cycles for most arithmetic instructions since
+#: compute capability 7.x); not measured here
+FP32_LATENCY_CYCLES = 4
+
+
+def chain_floor_ms(n: int, sm_clock_hz: float) -> float:
+    """An estimate, not a measurement, of the least time A5's n - 1
+    dependent steps take on one SM at ``sm_clock_hz``: per step a product,
+    the ceil(log2 n)-level add tree of the dot product, 1 - ef^2 (one FMA),
+    a correctly rounded reciprocal (an approximation and two Newton FMAs)
+    and the update's two dependent products (v' = (g - ef u) r, then r1 v'
+    of the next step), each at the assumed ``FP32_LATENCY_CYCLES``."""
+    ops = 1 + (n - 1).bit_length() + 1 + 3 + 2
+    return (n - 1) * ops * FP32_LATENCY_CYCLES / sm_clock_hz * 1e3
+
+
 def rfft_flops(n: int) -> float:
     """Operations of one n-point real FFT (the usual 2.5 n log2 n)."""
     return 2.5 * n * math.log2(n)
@@ -196,6 +218,11 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    sm_clock_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0]) * 1e6
+    log(f"maximum SM clock {sm_clock_hz / 1e6:.0f} MHz")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(f"torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
@@ -249,6 +276,18 @@ def main() -> int:
             if "Compiling entry function" in line:
                 entry = line
             elif "spill stores" in line and kernel in entry and keep(entry):
+                spills.append(sum(int(k) for k in re.findall(r"(\d+) bytes spill", line)))
+        log(f"ptxas: {kernel} ({source}.cu) spill bytes (stores + loads) per instantiation: {spills}")
+        check(len(spills) == n and not any(spills), f"{kernel} ({source}.cu) spills registers")
+
+    # A5's warp kernel (one instantiation per order 32 .. 1024) and A6's
+    # segment kernel keep their state in registers: no spills either
+    for kernel, source, n in (("levinson_warp_kernel", "levinson", 32), ("stoi_segments_kernel", "stoi_fused", 1)):
+        spills, entry = [], ""
+        for line in (cuda_lib.BUILD_DIR / f"{source}.log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif "spill stores" in line and kernel in entry:
                 spills.append(sum(int(k) for k in re.findall(r"(\d+) bytes spill", line)))
         log(f"ptxas: {kernel} ({source}.cu) spill bytes (stores + loads) per instantiation: {spills}")
         check(len(spills) == n and not any(spills), f"{kernel} ({source}.cu) spills registers")
@@ -368,8 +407,24 @@ def main() -> int:
     rel_x = (torch.max(torch.abs(x_k - x_p)) / torch.max(torch.abs(x_p))).item()
     check(math.isfinite(rel_x) and rel_x <= 2e-3,
           f"A5 solution differs from its plain version by {rel_x:.2e} of max|x| (tolerance 2e-3)")
+    # ... two launches bit-equal, and bit for bit its warp-order reference
+    check(torch.equal(x_k, levinson_pallas.levinson_solve_fused(r0n, bn)), "A5: two launches differ")
+    check(torch.equal(x_k, levinson_pallas._levinson_warp_order_reference(r0n, bn)),
+          "A5 differs from its warp-order reference")
+    # ... and at the largest order it takes, 1024, on a few rows of decaying
+    # (cond ~60) systems, at 2e-3 of max|x|
+    rs_l = np.random.RandomState(17)
+    r_big = (0.9 ** np.arange(1024))[None] * rs_l.uniform(0.5, 20.0, (4, 1))
+    r_big[:, 0] += 1.0
+    r_big = torch.tensor(r_big, dtype=torch.float32, device=dev)
+    b_big = torch.tensor(rs_l.randn(4, 1024), dtype=torch.float32, device=dev)
+    x_big = levinson_pallas.levinson_solve_fused(r_big, b_big)
+    want_big = toeplitz.levinson_solve(r_big, b_big)
+    rel_big = (torch.max(torch.abs(x_big - want_big)) / torch.max(torch.abs(want_big))).item()
+    check(math.isfinite(rel_big) and rel_big <= 2e-3, f"A5 at n = 1024: {rel_big:.2e} of max|x| (tolerance 2e-3)")
     record("A5", levinson_pallas.KERNEL, "levinson.cu", "levinson_pallas.py:38", err, 1e-2,
-           f" dB of SDR; solution max diff {rel_x:.2e} of max|x| (tolerance 2e-3)")
+           f" dB of SDR; solution max diff {rel_x:.2e} of max|x| (tolerance 2e-3); two launches and its warp-order "
+           f"reference bit-equal; at n = 1024 on 4 rows {rel_big:.2e} of max|x| (tolerance 2e-3)")
 
     # A14: the other Levinson variants on the same systems, each against its
     # plain version at 2e-3 of max|x|, and the SDR each gives against A5's
@@ -397,7 +452,25 @@ def main() -> int:
     per = torch.clamp(nseg, min=1).float()
     err = max(torch.max(torch.abs(s_k - s_p) / 15 / per).item(),
               torch.max(torch.abs(e_k - e_p) / 30 / per).item())
-    record("A6", stoi_fused.KERNEL, "stoi_fused.cu", "stoi_fused.py:59", err, 5e-4)
+    s_k2, e_k2 = stoi_fused.stoi_segment_sums(tob_c, tob_d, nseg)
+    check(torch.equal(s_k, s_k2) and torch.equal(e_k, e_k2), "A6: two launches differ")
+    # ... and on the same envelopes with ragged segment counts: rows of 0,
+    # ending mid-tile (at most 469: tiles of 64 segments), their own full
+    # count, and 3 (past a row's count its envelopes are the silent-frame
+    # padding, whose segments no count reaches)
+    pick = torch.arange(BATCH, device=dev) % 4
+    ragged = torch.where(pick == 0, 0, torch.where(pick == 1, torch.clamp(nseg, max=64 * 7 + 21),
+                                                   torch.where(pick == 2, nseg, torch.clamp(nseg, max=3))))
+    ragged = ragged.to(torch.int32).contiguous()
+    s_r, e_r = stoi_fused.stoi_segment_sums(tob_c, tob_d, ragged)
+    ps_r, pe_r = stoi_fused._stoi_segment_sums_plain(tob_c, tob_d, ragged, 30, 15)
+    per_r = torch.clamp(ragged, min=1).float()
+    err_r = max(torch.max(torch.abs(s_r - ps_r) / 15 / per_r).item(),
+                torch.max(torch.abs(e_r - pe_r) / 30 / per_r).item())
+    check(s_r[0].item() == 0.0 and e_r[0].item() == 0.0, "A6: a row of no segments does not sum to 0")
+    record("A6", stoi_fused.KERNEL, "stoi_fused.cu", "stoi_fused.py:59", max(err, err_r), 5e-4,
+           f"; main path's segment counts {err:.3e}, ragged counts (0, mid-tile, full, 3) {err_r:.3e}; "
+           f"two launches bit-equal")
 
     # A2, A3: LSD of pre-scaled pairs that are not hop-aligned, atol 2e-4;
     # the 16 s + 100 batch is the first A2_SAMPLES of the 20 s + 100 one
@@ -1084,7 +1157,9 @@ def main() -> int:
         log(f"{kid} {r['name']}: {r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; {r['direct_bound_ms']:.4f} ms for the kernel's own algorithm), "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}"
-            + ("" if partial is None else f", library (partial) {r['library_partial_ms']:.4f} ms"))
+            + ("" if partial is None else f", library (partial) {r['library_partial_ms']:.4f} ms")
+            + ("" if kid != "A5" else f", chain floor {chain_floor_ms(LAGS, sm_clock_hz):.4f} ms (estimated: an "
+               f"assumed {FP32_LATENCY_CYCLES} cycles an operation at {sm_clock_hz / 1e9:.2f} GHz)"))
 
     # the GEMM of A7 and A8 alone at the layer's four products (M = 64 x 799),
     # against bf16 F.linear on the same operands (its bias in bf16; for W_1

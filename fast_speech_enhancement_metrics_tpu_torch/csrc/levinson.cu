@@ -2,10 +2,10 @@
 //
 // Replaces the Pallas TPU kernels of the JAX package's
 // ops/levinson_pallas.py behind levinson_solve_fused(..., variant=...):
-//   A5  _levinson_kernel (variant "vpu"),
+//   A5  _levinson_kernel (variant "vpu"): levinson_warp_kernel<P>,
 //   A14 _levinson_kernel_flat ("flat", "flat_u4", "flat_u8"),
 //       _levinson_kernel_double ("double"),
-//       _levinson_kernel_dotreduce ("dotreduce").
+//       _levinson_kernel_dotreduce ("dotreduce"): the block kernels below.
 // The variants are one recursion with its reductions reassociated; on the
 // TPU they trade lane work against reduction latency.
 //
@@ -20,28 +20,67 @@
 // every step is a fixed-width update.
 //
 // What bounds it on this card: latency. The n - 1 = 511 steps are a chain,
-// each waiting on block-wide reductions of the previous step's state; the
+// each waiting on the two reductions of the previous step's state; the
 // arithmetic (about 10 n flops a step) and the bytes (three (B, n) arrays,
-// 0.4 MB at batch 64) are tiny next to it.
+// 0.4 MB at batch 64) are tiny next to it. The chain's floor per step is
+// a product, a log2(n)-level add tree, 1 - ef^2, one correctly rounded
+// reciprocal and the update's two dependent products, 16 operations at
+// n = 512 (chip_smoke.py prints that floor beside the kernel's time, at an
+// assumed 4 cycles an operation). What a warp can reach is longer: on an
+// H100 (tools/chain_latency.py) a shuffle-and-add level takes 29 cycles,
+// so the five levels of a warp's sum 147, and __frcp_rn 80 cycles.
 //
-// Design: one block per row, one thread per coefficient (n threads, n a
-// multiple of 32 up to 1024); u, v, x, y live in registers for the whole
-// solve. A reduction is a warp shuffle butterfly, one shared-memory slot per
-// warp, one __syncthreads, and every thread adds the warp slots in the same
-// order. A right shift is a warp shuffle, with the low lanes taking the
-// previous warp's last lanes from shared memory. The slots are
-// double-buffered so one barrier per reduction round suffices.
-// * levinson_kernel<U> ("vpu", "flat", "flat_u4", "flat_u8"): one step per
-//   round, the step loop unrolled U times. The TPU's "vpu" runs its early
-//   steps on a prefix of the lanes; here every variant runs the full width
-//   from the start, so these four share one arithmetic order.
+// A5, levinson_warp_kernel<P>: one warp per system, so no step waits on a
+// block barrier or a shared-memory round trip of its partial sums. Element
+// 32 i + l of r1, u, v and y lives in register i of lane l (P = n / 32
+// registers each) for the whole solve; x is not carried: it is y reversed
+// after every step, bit for bit (the same operations on mirrored
+// elements), so the kernel writes the last y reversed. A step's chain is
+// the two interleaved five-level xor butterflies (16, 8, 4, 2, 1) of the
+// lanes' sums of r1 v and r1 y, 1 - ef^2 and its guard, the reciprocal,
+// and v' with the next step's r1 v' lane sums. The rest is issued in its
+// shadow (warp_step, software-pipelined by one step): the previous step's
+// u' = tu recip and y' = S(y) + mu u' (with their r1 y' sums) and the
+// right shifts (one __shfl_sync a register, lane 0 taking lane 31's
+// previous register) before and between the butterflies' shuffles, u - ef
+// g and g - ef u while the reciprocal runs. One warp issues every
+// instruction, so the work per step is cut as well: before step k, u, v,
+// y are zero past element k, so the steps run in phases, phase A touching
+// registers 0 .. A - 1 only (A = (k + 1) / 32 + 1: half of the full width
+// on average, as the TPU kernel's prefix widths). A lane's sum is a
+// halving tree over its registers (odd lengths carry their last element up
+// a level; r1 v over the k / 32 + 1 that hold elements 0 .. k, r1 y over
+// the A of the step); every lane ends the butterfly with the same bits.
+// The reciprocal is common.cuh's rcp_rn: __frcp_rn's value without its
+// branch ahead of the result (53 cycles in a chain). bn[k+1] comes from a
+// per-warp table in shared memory, read off the chain. Every operation is
+// an explicitly rounded __fmul_rn / __fadd_rn / __fsub_rn (no contraction
+// into FMAs), so the kernel computes exactly
+// ops/levinson_pallas.py::_levinson_warp_order_reference, and differs from
+// the plain recursion only in the order of the two sums. One row per
+// block: at SDR's batch of 64 every warp has an SM of its own (2 and 4
+// rows per block, and __frcp_rn or 1.f / d for rcp_rn, measured slower
+// with the same bits).
+//
+// The A14 block kernels: one block per row, one thread per coefficient (n
+// threads, n a multiple of 32 up to 1024); u, v, x, y live in registers
+// for the whole solve. A reduction is a warp shuffle butterfly, one
+// shared-memory slot per warp, one __syncthreads, and every thread adds
+// the warp slots in the same order. A right shift is a warp shuffle, with
+// the low lanes taking the previous warp's last lanes from shared memory.
+// The slots are double-buffered so one barrier per reduction round
+// suffices.
+// * levinson_kernel<U> ("flat", "flat_u4", "flat_u8"): one step per round,
+//   the step loop unrolled U times; the three share one arithmetic order.
+//   The TPU's "vpu" runs its early steps on a prefix of the lanes; these
+//   run the full width from the start.
 // * levinson_dotreduce_kernel: both dots of a step in one butterfly (lanes
 //   0-15 carry <r1, v>, lanes 16-31 <r1, y>: five shuffles where two
 //   reductions take ten), and bn[k+1] from a register that shifts left one
 //   lane a step, where the other kernels read a shared table. The butterfly
-//   adds the same pairs in the same tree as A5's, but the compiler fuses
-//   its first add with a product differently, so it agrees with A5 to
-//   round-off, not bit for bit.
+//   adds the same pairs in the same tree as "flat"'s, but the compiler
+//   fuses its first add with a product differently, so it agrees with
+//   "flat" to round-off, not bit for bit.
 // * levinson_double_kernel: two steps per round. Step k+1's reductions are
 //   expanded in terms of step k's state: with r2 the left-shifted r1,
 //   <r1, S(a)> = <r2, a>, so both steps need five reductions of the current
@@ -49,6 +88,8 @@
 //   round (one barrier per two steps), and the composed update shifts by one
 //   and two lanes: each warp publishes its last two lanes. Another
 //   reassociation: agrees with the others to about cond x 1e-7.
+#include <utility>
+
 #include "common.cuh"
 
 namespace {
@@ -56,6 +97,143 @@ namespace {
 constexpr int kMaxWarps = 32;
 
 __device__ __forceinline__ float guard(float d) { return fabsf(d) < 1e-30f ? 1e-30f : d; }
+
+// a[0] <- the halving-tree sum of a[0 .. M-1]: a[i] += a[i + M/2] for
+// i < M/2, an odd M's last element moved up to a[M/2], M -> ceil(M/2)
+template <int M, int P>
+__device__ __forceinline__ void tree_sum(float (&a)[P]) {
+  if constexpr (M > 1) {
+    constexpr int h = M / 2;
+#pragma unroll
+    for (int i = 0; i < h; ++i) a[i] = __fadd_rn(a[i], a[i + h]);
+    if constexpr (M % 2) a[h] = a[2 * h];
+    tree_sum<(M + 1) / 2, P>(a);
+  }
+}
+
+// One recursion step k of A5, writing registers 0 .. A - 1 of each lane
+// (A = (k + 1) / 32 + 1: elements up to k + 1; every later element of u,
+// v, y is still 0), software-pipelined by one step: on entry v holds v_k,
+// u holds u_k before its scaling (tu = u_{k-1} - ef g) and y holds
+// shift_right(y_{k-1}) (gy), with the scalars recip and mu of step k - 1
+// (1 and 0 before step 0), and se the lanes' sums of r1 v_k. The step
+// first finishes u_k = tu recip and y_k = gy + mu u_k and sums r1 y_k over
+// A registers, then runs the two butterflies and shifts v_k and y_k; while
+// the reciprocal runs it forms u_k - ef g and g - ef u_k; after it, v_{k+1}
+// and the next r1 v sums.
+template <int A, int P>
+__device__ __forceinline__ void warp_step(const float (&r1)[P], float (&u)[P], float (&v)[P], float (&y)[P],
+                                          float& se, float& recip, float& mu, float bn_next, int lane) {
+  float ry[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    u[i] = __fmul_rn(u[i], recip);
+    y[i] = __fadd_rn(y[i], __fmul_rn(mu, u[i]));
+    ry[i] = __fmul_rn(r1[i], y[i]);
+  }
+  tree_sum<A, A>(ry);
+  float ef = se, s = ry[0];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float te = __shfl_xor_sync(fsem::kFullMask, ef, o);
+    const float ts = __shfl_xor_sync(fsem::kFullMask, s, o);
+    ef = __fadd_rn(ef, te);
+    s = __fadd_rn(s, ts);
+  }
+  // shift_right: element 32 i + l takes element 32 i + l - 1, lane l - 1's
+  // register i, or for lane 0 lane 31's register i - 1 (0 for element 0)
+  const int src = (lane + 31) & 31;
+  float g[A], gy[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    const bool wrap = i > 0 && lane == 31;
+    const int prev = i > 0 ? i - 1 : 0;
+    g[i] = __shfl_sync(fsem::kFullMask, wrap ? v[prev] : v[i], src);
+    gy[i] = __shfl_sync(fsem::kFullMask, wrap ? y[prev] : y[i], src);
+  }
+  if (lane == 0) {
+    g[0] = 0.f;
+    gy[0] = 0.f;
+  }
+  recip = fsem::rcp_rn(guard(__fsub_rn(1.f, __fmul_rn(ef, ef))));
+  float tv[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    tv[i] = __fsub_rn(g[i], __fmul_rn(ef, u[i]));
+    u[i] = __fsub_rn(u[i], __fmul_rn(ef, g[i]));
+    y[i] = gy[i];
+  }
+  mu = __fsub_rn(bn_next, s);
+  float pe[A];
+#pragma unroll
+  for (int i = 0; i < A; ++i) {
+    v[i] = __fmul_rn(tv[i], recip);
+    pe[i] = __fmul_rn(r1[i], v[i]);
+  }
+  tree_sum<A, A>(pe);
+  se = pe[0];
+}
+
+// the steps k whose writes reach register A - 1 ((k + 1) / 32 == A - 1),
+// then the next phase
+template <int A, int P>
+__device__ __forceinline__ void warp_phases(const float (&r1)[P], float (&u)[P], float (&v)[P], float (&y)[P],
+                                            float& se, float& recip, float& mu, const float* bn, int lane) {
+#pragma unroll 1
+  for (int k = A == 1 ? 0 : 32 * (A - 1) - 1; k < 32 * A - 1; ++k)
+    warp_step<A, P>(r1, u, v, y, se, recip, mu, bn[k + 1], lane);
+  if constexpr (A < P) warp_phases<A + 1, P>(r1, u, v, y, se, recip, mu, bn, lane);
+}
+
+template <int P>
+__global__ void __launch_bounds__(32) levinson_warp_kernel(
+    const float* __restrict__ r0, const float* __restrict__ b,
+    float* __restrict__ x_out) {
+  constexpr int n = 32 * P;
+  __shared__ float bn_s[n];
+  const int lane = threadIdx.x, row = blockIdx.x;
+  const float* rr = r0 + (size_t)row * n;
+  const float* br = b + (size_t)row * n;
+
+  const float rf = rr[0];
+  const float safe0 = fabsf(rf) < 1e-30f ? 1.f : rf;
+  // element 32 i + lane in register i
+  float r1[P], u[P], v[P], y[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int j = 32 * i + lane;
+    r1[i] = j < n - 1 ? __fdiv_rn(rr[j + 1], safe0) : 0.f;
+    const float bnj = __fdiv_rn(br[j], safe0);
+    bn_s[j] = bnj;
+    u[i] = v[i] = j == 0 ? 1.f : 0.f;
+    y[i] = j == 0 ? bnj : 0.f;
+  }
+  __syncwarp();
+  // step 0's entry state: u_0 = 1 u_0, y_0 = y_0 + 0 u_0
+  float se = __fmul_rn(r1[0], v[0]), recip = 1.f, mu = 0.f;
+  warp_phases<1, P>(r1, u, v, y, se, recip, mu, bn_s, lane);
+  // the last step's y; x is its reversal, bit for bit: v is u reversed and
+  // y is x reversed after every step (the same operations on mirrored
+  // elements), so x itself is never carried. Element e = 32 i + l of x is
+  // element n - 1 - e of y, lane 31 - l's register P - 1 - i.
+#pragma unroll
+  for (int i = 0; i < P; ++i) y[i] = __fadd_rn(y[i], __fmul_rn(mu, __fmul_rn(u[i], recip)));
+  float* xo = x_out + (size_t)row * n + lane;
+#pragma unroll
+  for (int i = 0; i < P; ++i) xo[32 * i] = __shfl_sync(fsem::kFullMask, y[P - 1 - i], 31 - lane);
+}
+
+template <int P>
+void launch_warp(const float* r0, const float* b, float* x, int batch, cudaStream_t stream) {
+  levinson_warp_kernel<P><<<batch, 32, 0, stream>>>(r0, b, x);
+}
+
+// A5 at order n = 32 P, P = 1 .. 32
+template <int... Ps>
+bool dispatch_warp(std::integer_sequence<int, Ps...>, int n, const float* r0, const float* b, float* x,
+                   int batch, cudaStream_t stream) {
+  return ((n == 32 * (Ps + 1) ? (launch_warp<Ps + 1>(r0, b, x, batch, stream), true) : false) || ...);
+}
 
 template <int kUnroll>
 __global__ void __launch_bounds__(1024) levinson_kernel(
@@ -318,6 +496,9 @@ extern "C" int fsem_levinson_solve(const float* r0, const float* b, float* x,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (variant) {
     case 0:
+      if (n % 32 || !dispatch_warp(std::make_integer_sequence<int, 32>{}, n, r0, b, x, batch, stream))
+        return (int)cudaErrorInvalidValue;
+      break;
     case 2: levinson_kernel<1><<<batch, n, 0, stream>>>(r0, b, x, n); break;
     case 1: levinson_dotreduce_kernel<<<batch, n, 0, stream>>>(r0, b, x, n); break;
     case 3: levinson_kernel<4><<<batch, n, 0, stream>>>(r0, b, x, n); break;

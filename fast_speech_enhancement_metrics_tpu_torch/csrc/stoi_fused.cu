@@ -17,127 +17,191 @@
 // kernel: the expanded sum-of-squares form loses precision on
 // near-constant segments.
 //
-// What bounds it on this card: operations, and few of them (about 12 k flops
-// a segment, about 1 GFLOP at 64 x 16 s); the envelopes are 9.6 MB. The
-// kernel is small next to the STOI front end around it.
+// What bounds it on this card: the issue rate of its float32 operations
+// (about 12 k a segment, 1 GFLOP at 64 x 16 s; the envelopes are 9.6 MB).
+// ESTOI's band sums are the larger part, five sums over the 15 bands for
+// each of a segment's 30 frames: as half-warp shuffle butterflies (the
+// kernel before this one) they cost four times the arithmetic they add.
 //
-// Design: one block per (row, tile of 128 segments). The tile's 157
-// frames of both envelopes are staged in shared memory, bands padded to
-// 16. A warp scores two segments at a time, one per 16-lane half, one lane
-// per band; the three loops run over the segment's 30 frames in
-// registers, and the ESTOI band sums are half-warp shuffle reductions.
-// The block writes its (stoi, estoi) partial sums; a second launch adds
-// the tiles per row in a fixed order: deterministic, no atomics.
+// Design: one block of 128 threads per (row, tile of 64 segments); the
+// tile's 93 frames of both envelopes are staged in shared memory, bands
+// major (an odd frame stride: staging's writes spread over the banks, and
+// a warp's 32 consecutive segments read consecutive words). Two stages,
+// two threads per segment in each, no shuffles in either:
+// * stage 1, per (segment, band): loops A and B and var(Y') on the
+//   segment's 30 frames held in registers; mu_x, mu_y, rsx, rsy go to
+//   shared memory (one float4 per (band, segment)); each thread adds its
+//   bands' STOI terms in band order (bands 0-7, 8-14);
+// * stage 2, per (segment, frame): x1, y1 and the five band sums serially
+//   over the 15 bands in registers, from the staged envelopes and the
+//   segment's statistics (loaded once); each thread adds its 15 frames'
+//   ESTOI terms in order.
+// A segment's two halves are added in order, the tile's valid segments by
+// a warp butterfly and the warps in order; a tile whose first segment is
+// past the row's last valid one writes zeros and exits. The block writes
+// its (stoi, estoi) partial sums; a second launch adds the tiles per row
+// in a fixed order: deterministic, no atomics. (Folding that launch into
+// the first, the last block of a row found by an integer counter adding
+// the tiles in the same order, measured slower: a memset and atomics.)
 #include "common.cuh"
 
 namespace {
 
 constexpr int kN = 30;         // frames per segment
 constexpr int kBands = 15;
-constexpr int kLanes = 16;     // bands padded to a half warp
-constexpr int kThreads = 256;
+constexpr int kTileSegs = 64;
+constexpr int kThreads = 2 * kTileSegs;  // two threads per segment
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileSegs = 128;
 constexpr int kTileFrames = kTileSegs + kN - 1;
+constexpr int kStride = kTileFrames;  // odd: staging's writes spread over the banks
+constexpr int kHalfBands = 8;         // stage 1: bands 0-7 and 8-14
+constexpr int kHalfFrames = kN / 2;   // stage 2: frames 0-14 and 15-29
 constexpr float kClip = 6.6234132519034908f;  // 1 + 10^(15/20)
 
-static_assert(kTileSegs % (2 * kWarps) == 0, "a pass scores two segments per warp");
+static_assert(kStride % 2 == 1 && kTileSegs % 32 == 0, "layout");
 
 __global__ void __launch_bounds__(kThreads) stoi_segments_kernel(
     const float* __restrict__ tob_c, const float* __restrict__ tob_d,
     const int* __restrict__ num_segments, float* __restrict__ partial,
     int f_len, int n_tiles) {
-  __shared__ float xs[kTileFrames][kLanes];
-  __shared__ float ys[kTileFrames][kLanes];
+  __shared__ float xs[kBands * kStride];
+  __shared__ float ys[kBands * kStride];
+  __shared__ float4 stats[kBands][kTileSegs];  // (mu_x, mu_y, rsx, rsy)
+  __shared__ float seg_sum[2][2][kTileSegs];   // [stoi, estoi][half][segment]
   __shared__ float red[2][kWarps];
   const int b = blockIdx.y, tile = blockIdx.x, tid = threadIdx.x;
   const int m0 = tile * kTileSegs;
-  const float* cb = tob_c + (size_t)b * f_len * kBands;
-  const float* db = tob_d + (size_t)b * f_len * kBands;
-  for (int i = tid; i < kTileFrames * kLanes; i += kThreads) {
-    const int fr = i / kLanes, j = i % kLanes, g = m0 + fr;
-    const bool ok = j < kBands && g < f_len;
-    xs[fr][j] = ok ? cb[(size_t)g * kBands + j] : 0.f;
-    ys[fr][j] = ok ? db[(size_t)g * kBands + j] : 0.f;
+  const int n_valid = min(num_segments[b], f_len - kN + 1);
+  float* tile_out = partial + ((size_t)b * n_tiles + tile) * 2;
+  if (m0 >= n_valid) {  // no valid segment in this tile
+    if (tid == 0) {
+      tile_out[0] = 0.f;
+      tile_out[1] = 0.f;
+    }
+    return;
+  }
+
+  const float* cb = tob_c + ((size_t)b * f_len + m0) * kBands;
+  const float* db = tob_d + ((size_t)b * f_len + m0) * kBands;
+  const int staged = min(kTileFrames, f_len - m0) * kBands;
+  for (int i = tid; i < kTileFrames * kBands; i += kThreads) {
+    const int fr = i / kBands, j = i - fr * kBands;
+    const bool ok = i < staged;
+    xs[j * kStride + fr] = ok ? cb[i] : 0.f;
+    ys[j * kStride + fr] = ok ? db[i] : 0.f;
   }
   __syncthreads();
 
-  const int lane = tid & 31, warp = tid >> 5;
-  const int j = lane & 15, half = lane >> 4;
-  const int n_valid = min(num_segments[b], f_len - kN + 1);
-  float stoi_acc = 0.f, estoi_acc = 0.f;
-  for (int pass = 0; pass < kTileSegs / (2 * kWarps); ++pass) {
-    const int ml = (pass * kWarps + warp) * 2 + half;  // segment within the tile
-    const bool valid = m0 + ml < n_valid;
+  const int m = tid % kTileSegs, half = tid / kTileSegs;
+  const bool valid = m0 + m < n_valid;
 
-    float sc = 0.f, sc2 = 0.f, sd = 0.f, sd2 = 0.f;  // loop A
-    for (int n = 0; n < kN; ++n) {
-      const float xv = xs[ml + n][j], yv = ys[ml + n][j];
-      sc += xv;
-      sc2 += xv * xv;
-      sd += yv;
-      sd2 += yv * yv;
+  // stage 1: per (segment, band) statistics and STOI terms
+  float stoi_part = 0.f;
+  if (valid) {
+    const int j_end = min(half * kHalfBands + kHalfBands, kBands);
+    for (int j = half * kHalfBands; j < j_end; ++j) {
+      const float* xw = xs + j * kStride + m;
+      const float* yw = ys + j * kStride + m;
+      float xv[kN], yv[kN], yp[kN];
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        xv[n] = xw[n];
+        yv[n] = yw[n];
+      }
+      float sc = 0.f, sc2 = 0.f, sd = 0.f, sd2 = 0.f;  // loop A
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        sc += xv[n];
+        sc2 += xv[n] * xv[n];
+        sd += yv[n];
+        sd2 += yv[n] * yv[n];
+      }
+      const float mu_x = sc * (1.f / kN), mu_y = sd * (1.f / kN);
+      const float consts = sqrtf(sc2) / (sqrtf(sd2) + 1e-9f);
+      float vx = 0.f, vy = 0.f, syp = 0.f, num = 0.f;  // loop B
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float xc = xv[n] - mu_x, yc = yv[n] - mu_y;
+        vx += xc * xc;
+        vy += yc * yc;
+        yp[n] = fminf(consts * yv[n], kClip * xv[n]);
+        syp += yp[n];
+        num += xc * yp[n];
+      }
+      const float mu_yp = syp * (1.f / kN);
+      float vyp = 0.f;  // loop C's variance of Y'
+#pragma unroll
+      for (int n = 0; n < kN; ++n) {
+        const float ypc = yp[n] - mu_yp;
+        vyp += ypc * ypc;
+      }
+      const float rsx = rsqrtf(fmaxf(vx, 1e-30f));
+      const float rsy = rsqrtf(fmaxf(vy, 1e-30f));
+      const float rsyp = rsqrtf(fmaxf(vyp, 1e-30f));
+      stats[j][m] = make_float4(mu_x, mu_y, rsx, rsy);
+      stoi_part += num * rsx * rsyp;
     }
-    const float mu_x = sc * (1.f / kN), mu_y = sd * (1.f / kN);
-    const float consts = sqrtf(sc2) / (sqrtf(sd2) + 1e-9f);
+  }
+  seg_sum[0][half][m] = stoi_part;
+  __syncthreads();
 
-    float vx = 0.f, vy = 0.f, syp = 0.f, num = 0.f;  // loop B
-    for (int n = 0; n < kN; ++n) {
-      const float xv = xs[ml + n][j], yv = ys[ml + n][j];
-      const float xc = xv - mu_x, yc = yv - mu_y;
-      vx += xc * xc;
-      vy += yc * yc;
-      const float yp = fminf(consts * yv, kClip * xv);
-      syp += yp;
-      num += xc * yp;
-    }
-    const float mu_yp = syp * (1.f / kN);
-    const float rsx = rsqrtf(fmaxf(vx, 1e-30f));
-    const float rsy = rsqrtf(fmaxf(vy, 1e-30f));
-
-    float vyp = 0.f, estoi = 0.f;  // loop C
-    for (int n = 0; n < kN; ++n) {
-      const float xv = xs[ml + n][j], yv = ys[ml + n][j];
-      const float yp = fminf(consts * yv, kClip * xv);
-      const float ypc = yp - mu_yp;
-      vyp += ypc * ypc;
-      const float x1 = j < kBands ? (xv - mu_x) * rsx : 0.f;
-      const float y1 = j < kBands ? (yv - mu_y) * rsy : 0.f;
-      const float p = fsem::half_warp_sum(x1 * y1);
-      const float mx = fsem::half_warp_sum(x1);
-      const float my = fsem::half_warp_sum(y1);
-      const float qx = fsem::half_warp_sum(x1 * x1);
-      const float qy = fsem::half_warp_sum(y1 * y1);
+  // stage 2: per (segment, frame) ESTOI band sums, serially over the bands
+  float estoi_part = 0.f;
+  if (valid) {
+    float4 st[kBands];
+#pragma unroll
+    for (int j = 0; j < kBands; ++j) st[j] = stats[j][m];
+    const int f0 = m + half * kHalfFrames;
+    for (int f = 0; f < kHalfFrames; ++f) {
+      float p = 0.f, mx = 0.f, my = 0.f, qx = 0.f, qy = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBands; ++j) {
+        const float x1 = (xs[j * kStride + f0 + f] - st[j].x) * st[j].z;
+        const float y1 = (ys[j * kStride + f0 + f] - st[j].y) * st[j].w;
+        p += x1 * y1;
+        mx += x1;
+        my += y1;
+        qx += x1 * x1;
+        qy += y1 * y1;
+      }
       const float numer = p - mx * my * (1.f / kBands);
       const float s2x = rsqrtf(fmaxf(qx - mx * mx * (1.f / kBands), 1e-30f));
       const float s2y = rsqrtf(fmaxf(qy - my * my * (1.f / kBands), 1e-30f));
-      estoi += numer * s2x * s2y;
-    }
-    const float rsyp = rsqrtf(fmaxf(vyp, 1e-30f));
-    const float stoi = fsem::half_warp_sum(j < kBands ? num * rsx * rsyp : 0.f);
-    if (valid && j == 0) {
-      stoi_acc += stoi;
-      estoi_acc += estoi;
+      estoi_part += numer * s2x * s2y;
     }
   }
-  stoi_acc = fsem::warp_sum(stoi_acc);
-  estoi_acc = fsem::warp_sum(estoi_acc);
-  if (lane == 0) {
-    red[0][warp] = stoi_acc;
-    red[1][warp] = estoi_acc;
+  seg_sum[1][half][m] = estoi_part;
+  __syncthreads();
+
+  // the tile's valid segments: each segment's halves in order, a butterfly
+  // over each warp of the first kTileSegs threads, then the warps in order
+  if (tid < kTileSegs) {
+    float s = 0.f, e = 0.f;
+    if (valid) {
+      s = seg_sum[0][0][tid] + seg_sum[0][1][tid];
+      e = seg_sum[1][0][tid] + seg_sum[1][1][tid];
+    }
+    s = fsem::warp_sum(s);
+    e = fsem::warp_sum(e);
+    if ((tid & 31) == 0) {
+      red[0][tid >> 5] = s;
+      red[1][tid >> 5] = e;
+    }
   }
   __syncthreads();
   if (tid == 0) {
     float s = 0.f, e = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < kTileSegs / 32; ++w) {
       s += red[0][w];
       e += red[1][w];
     }
-    partial[((size_t)b * n_tiles + tile) * 2 + 0] = s;
-    partial[((size_t)b * n_tiles + tile) * 2 + 1] = e;
+    tile_out[0] = s;
+    tile_out[1] = e;
   }
 }
 
+// the per-row sums of the tiles' partials, in tile order: lane l adds
+// tiles l, l + 32, ..., then a butterfly (one warp per row)
 __global__ void stoi_finalize_kernel(const float* __restrict__ partial,
                                      float* __restrict__ out, int n_tiles) {
   const int b = blockIdx.x;
@@ -157,7 +221,7 @@ __global__ void stoi_finalize_kernel(const float* __restrict__ partial,
 }  // namespace
 
 // tob_c, tob_d: (batch, f_len, 15) float32; num_segments: (batch,) int32;
-// partial: (batch, ceil((f_len - 29) / 128), 2) scratch; out: (batch, 2)
+// partial: (batch, ceil((f_len - 29) / 64), 2) scratch; out: (batch, 2)
 // (stoi sum, estoi sum).
 extern "C" int fsem_stoi_segment_sums(const float* tob_c, const float* tob_d,
                                       const int* num_segments, float* partial,

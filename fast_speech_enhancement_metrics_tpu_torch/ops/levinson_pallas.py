@@ -5,9 +5,12 @@ Counterpart of the JAX package's ``ops/levinson_pallas.py``
 reductions reassociated: ``"vpu"`` (A5), and the A14 variants ``"flat"``,
 ``"flat_u4"``, ``"flat_u8"``, ``"dotreduce"`` and ``"double"``. The CUDA
 kernels (``csrc/levinson.cu``) run the whole n - 1 step recursion in one
-block per row with every carry in registers; the r0[0] normalization (with
-its zero guard) happens inside the kernel. Each variant counts its launches
-under its own name (``KERNELS``).
+launch with every carry in registers; the r0[0] normalization (with its
+zero guard) happens inside the kernel. A5 runs one warp per row, lane l
+holding coefficients l, l + 32, ... (``_levinson_warp_order_reference``
+spells out its order of summation, bit for bit); the A14 kernels one block
+of n threads per row. Each variant counts its launches under its own name
+(``KERNELS``).
 
 Plain versions: ``ops/toeplitz.py::levinson_solve`` for ``"vpu"``,
 ``"flat*"`` and ``"dotreduce"`` (the same recursion as tensor ops; those
@@ -33,6 +36,64 @@ KERNELS = {v: KERNEL if v == "vpu" else f"levinson_{v}" for v in VARIANTS}
 
 def _guard(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d.abs() < 1e-30, torch.full_like(d, 1e-30), d)
+
+
+def _lane_tree(a: torch.Tensor) -> torch.Tensor:
+    """(..., m) -> (..., 1): A5's halving tree, a[i] + a[i + m // 2], an odd
+    m's last element carried up a level."""
+    while a.shape[-1] > 1:
+        m = a.shape[-1]
+        h = m // 2
+        a = torch.cat([a[..., :h] + a[..., h:2 * h], a[..., 2 * h:]], dim=-1)
+    return a
+
+
+def _warp_dot(a: torch.Tensor, c: torch.Tensor, active: int) -> torch.Tensor:
+    """<a, c> over (B, n) in A5's order: element 32 i + l lies in register
+    i of lane l; each lane sums its first ``active`` registers' products
+    with ``_lane_tree`` (the later ones hold zeros), then the xor butterfly
+    adds lane l + o to lane l for o = 16, 8, 4, 2, 1 (float addition
+    commutes, so every lane holds these bits)."""
+    lanes = (a * c).reshape(a.shape[0], -1, 32)[:, :active].transpose(1, 2)
+    lanes = _lane_tree(lanes)[..., 0]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes[:, :o] + lanes[:, o:2 * o]
+    return lanes
+
+
+def _levinson_warp_order_reference(r0: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A5's kernel (``csrc/levinson.cu``, ``levinson_warp_kernel``) in torch
+    float32, for the tests: the recursion of ``toeplitz.levinson_solve``
+    with each product and sum rounded where the kernel rounds it (no fused
+    multiply-adds), the reciprocal of the guarded denominator multiplied in,
+    and both dot products in ``_warp_dot``'s order: <r1, v> over the
+    k // 32 + 1 registers that hold elements 0 .. k before step k, <r1, y>
+    over the (k + 1) // 32 + 1 that the step writes. r0, b: (B, n), n a
+    multiple of 32."""
+    batch, n = r0.shape
+    assert n % 32 == 0
+    r_first = r0[:, :1]
+    safe0 = torch.where(r_first.abs() < 1e-30, torch.ones_like(r_first), r_first)
+    r1 = F.pad(r0[:, 1:] / safe0, (0, 1))
+    bn = b / safe0
+    u = F.pad(torch.ones_like(r_first), (0, n - 1))
+    x = F.pad(bn[:, :1], (0, n - 1))
+    v, y = u, x
+
+    def shift(a):
+        return F.pad(a, (1, 0))[:, :-1]
+
+    for k in range(n - 1):
+        ef, ry = _warp_dot(r1, v, k // 32 + 1), _warp_dot(r1, y, (k + 1) // 32 + 1)
+        g, gy = shift(v), shift(y)
+        mu = bn[:, k + 1:k + 2] - ry
+        recip = 1.0 / _guard(1.0 - ef * ef)
+        u_new = (u - ef * g) * recip
+        v_new = (g - ef * u) * recip
+        x = x + mu * v_new
+        y = gy + mu * u_new
+        u, v = u_new, v_new
+    return x
 
 
 def _levinson_double_plain(r0: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

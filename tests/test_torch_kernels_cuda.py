@@ -150,8 +150,10 @@ def test_levinson_variant_kernels_match_plain(dev, variant, n):
     assert cuda_lib.launch_counts[kname] == before + 1
     want = levinson_pallas.levinson_solve_fused(r0.cpu(), bt.cpu(), variant=variant).to(dev)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3 * want.abs().max().item())
-    if variant in ("flat", "flat_u4", "flat_u8"):  # A5's recursion, only unrolled
-        assert torch.equal(got, levinson_pallas.levinson_solve_fused(r0, bt))
+    if variant in ("flat", "flat_u4", "flat_u8"):  # one recursion, only unrolled; A5 sums in another order
+        assert torch.equal(got, levinson_pallas.levinson_solve_fused(r0, bt, variant="flat"))
+        a5 = levinson_pallas.levinson_solve_fused(r0, bt)
+        assert (a5 - got).abs().max().item() <= 2e-3 * got.abs().max().item()
 
 
 def test_stoi_kernel_matches_plain(dev):
@@ -164,6 +166,58 @@ def test_stoi_kernel_matches_plain(dev):
     per = nseg.float()
     torch.testing.assert_close(s / 15 / per, ps / 15 / per, rtol=0, atol=5e-4)
     torch.testing.assert_close(e / 30 / per, pe / 30 / per, rtol=0, atol=5e-4)
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+@pytest.mark.parametrize("n", [96, 128, 512, 1024])
+def test_levinson_warp_kernel_main_shapes(dev, n, batch):
+    """A5 (one warp per system) at SDR's order and around it: one launch,
+    within 2e-3 of max|x| of the plain version, two launches bit-equal, and
+    bit for bit its warp-order reference run on the card."""
+    rs = np.random.RandomState(15)
+    r = (0.9 ** np.arange(n))[None] * rs.uniform(0.5, 20.0, (batch, 1))
+    r[:, 0] += 1.0
+    r0 = torch.tensor(r, dtype=torch.float32, device=dev)
+    bt = torch.tensor(rs.randn(batch, n), dtype=torch.float32, device=dev)
+    before = cuda_lib.launch_counts[levinson_pallas.KERNEL]
+    got = levinson_pallas.levinson_solve_fused(r0, bt)
+    assert cuda_lib.launch_counts[levinson_pallas.KERNEL] == before + 1
+    want = toeplitz.levinson_solve(r0, bt)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3 * want.abs().max().item())
+    assert torch.equal(got, levinson_pallas.levinson_solve_fused(r0, bt))
+    assert torch.equal(got, levinson_pallas._levinson_warp_order_reference(r0, bt))
+
+
+@pytest.mark.parametrize("frames", [300, 1247])
+def test_stoi_kernel_ragged_segments(dev, frames):
+    """A6 on rows whose segment counts are 0, end mid-tile, fill every
+    position and are 3: within 5e-4 per segment of the plain version and of
+    its two-stage dataflow, two launches bit-equal, and the same bits when
+    every frame past a row's last segment is NaN or inf (a tile past the
+    row's last segment exits early, a later segment of a live tile is
+    skipped)."""
+    rs = np.random.RandomState(6)
+    rows = 64 if frames > 1000 else 4
+    tob_c = torch.tensor(np.abs(rs.randn(rows, frames, 15)), dtype=torch.float32, device=dev)
+    tob_d = tob_c + torch.tensor(np.abs(rs.randn(rows, frames, 15)), dtype=torch.float32, device=dev)
+    full = frames - 29
+    nseg = torch.tensor(([0, 100, full, 3] * (rows // 4)), dtype=torch.int32, device=dev)
+    before = cuda_lib.launch_counts[stoi_fused.KERNEL]
+    s, e = stoi_fused.stoi_segment_sums(tob_c, tob_d, nseg)
+    assert cuda_lib.launch_counts[stoi_fused.KERNEL] == before + 1
+    s2, e2 = stoi_fused.stoi_segment_sums(tob_c, tob_d, nseg)
+    assert torch.equal(s, s2) and torch.equal(e, e2)
+    per = torch.clamp(nseg, min=1).float()
+    for ws, we in (stoi_fused._stoi_segment_sums_plain(tob_c, tob_d, nseg, 30, 15),
+                   stoi_fused._stoi_two_stage_reference(tob_c, tob_d, nseg)):
+        torch.testing.assert_close(s / 15 / per, ws / 15 / per, rtol=0, atol=5e-4)
+        torch.testing.assert_close(e / 30 / per, we / 30 / per, rtol=0, atol=5e-4)
+    assert s[0].item() == 0.0 and e[0].item() == 0.0
+    poisoned_c, poisoned_d = tob_c.clone(), tob_d.clone()
+    for row, count in enumerate(nseg.tolist()):
+        poisoned_c[row, count + 29:], poisoned_d[row, count + 29:] = float("nan"), float("inf")
+    s3, e3 = stoi_fused.stoi_segment_sums(poisoned_c, poisoned_d, nseg)
+    assert torch.equal(s3, s) and torch.equal(e3, e)
 
 
 @pytest.mark.parametrize("t", [32768 + 7, 16100, 300])
@@ -423,6 +477,17 @@ extern "C" int div_rn_pairs(const float* a, const float* b, int n, unsigned long
   pairs<<<(n + 255) / 256, 256>>>(a, b, n, bad);
   return cudaDeviceSynchronize();
 }
+// every 32-bit pattern d: fsem::rcp_rn(d) has __frcp_rn(d)'s bits (NaN for NaN)
+__global__ void rcp_sweep(uint32_t hi, unsigned long long* bad) {
+  const uint32_t bits = (hi << 24) | (blockIdx.x * blockDim.x + threadIdx.x);
+  const float d = __uint_as_float(bits), got = fsem::rcp_rn(d), want = __frcp_rn(d);
+  const bool same = __float_as_uint(got) == __float_as_uint(want) || (got != got && want != want);
+  if (!same) atomicAdd(bad, 1ull);
+}
+extern "C" int rcp_rn_sweep(unsigned long long* bad) {
+  for (uint32_t hi = 0; hi < 256; ++hi) rcp_sweep<<<(1 << 24) / 256, 256>>>(hi, bad);
+  return cudaDeviceSynchronize();
+}
 """
 
 
@@ -440,6 +505,7 @@ def div_rn_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(out / "check.so"))
     lib.div_rn_sweep.argtypes = (ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p)
     lib.div_rn_pairs.argtypes = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+    lib.rcp_rn_sweep.argtypes = (ctypes.c_void_p,)
     return lib
 
 
@@ -453,6 +519,14 @@ def test_div_rn_is_fdiv_rn_on_every_significand_pair(div_rn_lib):
     chunk = 1 << 16
     for a0 in range(0, 1 << 23, chunk):
         assert div_rn_lib.div_rn_sweep(a0, chunk, bad.data_ptr()) == 0
+    assert bad.item() == 0
+
+
+def test_rcp_rn_is_frcp_rn_on_every_input(div_rn_lib):
+    """A5's reciprocal (``common.cuh::rcp_rn``, __frcp_rn's fast path
+    without its branch) has __frcp_rn's bits on all 2^32 inputs."""
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    assert div_rn_lib.rcp_rn_sweep(bad.data_ptr()) == 0
     assert bad.item() == 0
 
 

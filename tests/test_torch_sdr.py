@@ -303,6 +303,37 @@ def test_levinson_kernel_plain_matches_scan_at_512():
     np.testing.assert_allclose(ours, theirs, rtol=2e-3, atol=2e-3 * np.abs(theirs).max())
 
 
+@pytest.mark.parametrize("n", [96, 128, 512])
+def test_levinson_warp_order_reference_matches_jax(n):
+    """A5's dataflow on the card (``_levinson_warp_order_reference``: lane
+    l holds elements l, l + 32, ..., each lane sums its registers as a
+    halving tree, then the xor butterfly; no fused multiply-adds) against
+    the JAX kernel in interpret mode and against the plain version, at
+    2e-3 of max|x| on systems of cond below 1e3. The JAX kernel takes
+    orders that are multiples of 128, so at n = 96 it is the JAX package's
+    XLA recursion (``ops/toeplitz.py::levinson_solve``)."""
+    r, b = _spd_rows(n, rows=4, seed=16)
+    ours = levinson_pallas._levinson_warp_order_reference(torch.from_numpy(r), torch.from_numpy(b)).numpy()
+    theirs = np.asarray(jax_levinson_fused(r, b, interpret=True) if n % 128 == 0 else jax_levinson(r, b))
+    plain = levinson_pallas.levinson_solve_fused(torch.from_numpy(r), torch.from_numpy(b)).numpy()
+    for want in (theirs, plain):
+        np.testing.assert_allclose(ours, want, rtol=2e-3, atol=2e-3 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 16, 17, 32])
+def test_levinson_lane_tree_order(m):
+    """A lane's sum (``_lane_tree``): a[i] + a[i + m // 2] level by level,
+    an odd length's last element carried up; at m = 5: ((a0 + a2) + (a1 +
+    a3)) + a4. Small integers make every partial sum exact, so the result
+    is the sum whatever the order; the m = 5 case pins the order with
+    values whose sum depends on it (added left to right they give 2^-24)."""
+    a = torch.arange(m, dtype=torch.float32)
+    assert levinson_pallas._lane_tree(a[None])[0, 0].item() == m * (m - 1) / 2
+    if m == 5:
+        v = torch.tensor([[1.0, 2.0 ** -24, -1.0, 2.0 ** -24, 0.0]])
+        assert levinson_pallas._lane_tree(v)[0, 0].item() == 2.0 ** -23
+
+
 def test_levinson_zero_system_is_guarded():
     """r0[0] == 0 (an all-zero signal) solves the identity system, finitely."""
     x = levinson_pallas.levinson_solve_fused(torch.zeros(2, 64), torch.ones(2, 64))

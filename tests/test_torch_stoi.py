@@ -37,6 +37,44 @@ def test_segment_kernel_plain_matches_pallas_kernel(frames, cap):
     np.testing.assert_allclose(e.numpy() / 30 / per, np.asarray(je) / 30 / per, atol=5e-4)
 
 
+@pytest.mark.parametrize("frames,counts", [(200, (0, 100, 171, 3)), (93, (64, 0, 30, 64)), (29, (0, 0, 0, 0))])
+def test_segment_two_stage_reference_matches_pallas_kernel(frames, counts):
+    """A6's dataflow on the card (``_stoi_two_stage_reference``: tiles of 64
+    segments, stage-1 statistics per (segment, band), stage-2 band sums per
+    (segment, frame), the tiles' early exit) against the JAX kernel in
+    interpret mode and the plain version, at 5e-4 per segment after the
+    metric's division; rows whose segment counts are 0, end mid-tile, fill
+    every position, or end on a tile's edge."""
+    rs = np.random.RandomState(7)
+    tob_c = np.abs(rs.randn(4, frames, 15)).astype(np.float32)
+    tob_d = (tob_c + 0.5 * np.abs(rs.randn(4, frames, 15))).astype(np.float32)
+    nseg = np.array(counts, np.int32)
+    s, e = stoi_fused._stoi_two_stage_reference(
+        torch.from_numpy(tob_c), torch.from_numpy(tob_d), torch.from_numpy(nseg)
+    )
+    js, je = jax_segment_sums(tob_c, tob_d, nseg, interpret=True)
+    ps, pe = stoi_fused.stoi_segment_sums(torch.from_numpy(tob_c), torch.from_numpy(tob_d), torch.from_numpy(nseg))
+    per = np.maximum(nseg, 1)
+    for ws, we in ((np.asarray(js), np.asarray(je)), (ps.numpy(), pe.numpy())):
+        np.testing.assert_allclose(s.numpy() / 15 / per, ws / 15 / per, rtol=0, atol=5e-4)
+        np.testing.assert_allclose(e.numpy() / 30 / per, we / 30 / per, rtol=0, atol=5e-4)
+    assert (s.numpy()[nseg == 0] == 0).all() and (e.numpy()[nseg == 0] == 0).all()
+
+
+def test_segment_two_stage_reference_skips_tiles_past_the_last_segment():
+    """The early exit: envelopes past a row's last valid segment (and its
+    29 frames) do not change the sums, not even when they are not finite."""
+    rs = np.random.RandomState(8)
+    tob_c = torch.from_numpy(np.abs(rs.randn(2, 300, 15)).astype(np.float32))
+    tob_d = tob_c + torch.from_numpy(np.abs(rs.randn(2, 300, 15)).astype(np.float32))
+    nseg = torch.tensor([70, 130], dtype=torch.int32)
+    s, e = stoi_fused._stoi_two_stage_reference(tob_c, tob_d, nseg)
+    poisoned_c, poisoned_d = tob_c.clone(), tob_d.clone()
+    poisoned_c[0, 128:], poisoned_d[0, 128:] = float("nan"), float("inf")  # row 0: tiles 2.. exit early
+    s2, e2 = stoi_fused._stoi_two_stage_reference(poisoned_c, poisoned_d, nseg)
+    assert torch.equal(s2, s) and torch.equal(e2, e)
+
+
 @pytest.mark.parametrize("impl", ["auto", "xla", "fused"])
 def test_stoi_16k_matches_jax(speech_data, impl):
     clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
