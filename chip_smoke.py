@@ -169,15 +169,27 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS) -> tuple[f
 FP32_LATENCY_CYCLES = 4
 
 
-def chain_floor_ms(n: int, sm_clock_hz: float) -> float:
-    """An estimate, not a measurement, of the least time A5's n - 1
-    dependent steps take on one SM at ``sm_clock_hz``: per step a product,
-    the ceil(log2 n)-level add tree of the dot product, 1 - ef^2 (one FMA),
-    a correctly rounded reciprocal (an approximation and two Newton FMAs)
-    and the update's two dependent products (v' = (g - ef u) r, then r1 v'
-    of the next step), each at the assumed ``FP32_LATENCY_CYCLES``."""
-    ops = 1 + (n - 1).bit_length() + 1 + 3 + 2
-    return (n - 1) * ops * FP32_LATENCY_CYCLES / sm_clock_hz * 1e3
+def chain_floor_ms(n: int, sm_clock_hz: float, variant: str = "vpu") -> float:
+    """An estimate, not a measurement, of the least time the n - 1
+    dependent steps of a Levinson kernel take on one SM at ``sm_clock_hz``,
+    each operation at the assumed ``FP32_LATENCY_CYCLES``. A5 ("vpu") and
+    the "flat" kernels, per step: a product, the ceil(log2 n)-level add
+    tree of the dot product, 1 - ef^2 (one FMA), a correctly rounded
+    reciprocal (an approximation and two Newton FMAs) and the update's two
+    dependent products (v' = (g - ef u) r, then r1 v' of the next step).
+    "dotreduce": one more, the broadcast after its split tree. "double",
+    per round of two steps: the product and the tree, 1 - ef1^2, the
+    reciprocal, ef2 = rho1 (...), 1 - ef2^2, the second reciprocal, then
+    u2 = (...) rho2 and y2 = (...) + mu2 u2; the last step alone as A5's."""
+    tree = (n - 1).bit_length()
+    step = 1 + tree + 1 + 3 + 2
+    if variant == "dotreduce":
+        step += 1
+    if variant != "double":
+        return (n - 1) * step * FP32_LATENCY_CYCLES / sm_clock_hz * 1e3
+    rounds = (n - 1) // 2
+    ops = rounds * (1 + tree + 1 + 3 + 1 + 1 + 3 + 2) + (n - 1) % 2 * step
+    return ops * FP32_LATENCY_CYCLES / sm_clock_hz * 1e3
 
 
 def rfft_flops(n: int) -> float:
@@ -280,9 +292,12 @@ def main() -> int:
         log(f"ptxas: {kernel} ({source}.cu) spill bytes (stores + loads) per instantiation: {spills}")
         check(len(spills) == n and not any(spills), f"{kernel} ({source}.cu) spills registers")
 
-    # A5's warp kernel (one instantiation per order 32 .. 1024) and A6's
+    # the Levinson warp kernels (A5, and A14's flat x 3 unrollings,
+    # dotreduce and double: one instantiation per order 32 .. 1024) and A6's
     # segment kernel keep their state in registers: no spills either
-    for kernel, source, n in (("levinson_warp_kernel", "levinson", 32), ("stoi_segments_kernel", "stoi_fused", 1)):
+    for kernel, source, n in (("levinson_warp_kernel", "levinson", 32), ("levinson_flat_warp_kernel", "levinson", 96),
+                              ("levinson_dotreduce_warp_kernel", "levinson", 32),
+                              ("levinson_double_warp_kernel", "levinson", 32), ("stoi_segments_kernel", "stoi_fused", 1)):
         spills, entry = [], ""
         for line in (cuda_lib.BUILD_DIR / f"{source}.log").read_text().splitlines():
             if "Compiling entry function" in line:
@@ -428,7 +443,8 @@ def main() -> int:
 
     # A14: the other Levinson variants on the same systems, each against its
     # plain version at 2e-3 of max|x|, and the SDR each gives against A5's
-    # at 1e-2 dB
+    # at 1e-2 dB; each bit for bit its torch twin (dotreduce: A5's order,
+    # so also A5's bits) and twice bit-equal
     a14_ids = {"double": "A14", "flat": "A14-flat", "flat_u4": "A14-flat_u4", "flat_u8": "A14-flat_u8",
                "dotreduce": "A14-dotreduce"}
     a14_lines = {"double": "levinson_pallas.py:157", "dotreduce": "levinson_pallas.py:251"}
@@ -439,8 +455,14 @@ def main() -> int:
         sdr_vs_a5 = torch.max(torch.abs(sdr_db(bn, xv_k) - sdr_db(bn, x_k))).item()
         check(math.isfinite(sdr_vs_a5) and sdr_vs_a5 <= 1e-2,
               f"{kid}: SDR {sdr_vs_a5:.2e} dB from A5's (tolerance 1e-2)")
+        check(torch.equal(xv_k, levinson_pallas.levinson_solve_fused(r0n, bn, variant=variant)),
+              f"{kid}: two launches differ")
+        check(torch.equal(xv_k, levinson_pallas._warp_twin(variant)(r0n, bn)), f"{kid} differs from its torch twin")
+        if variant == "dotreduce":
+            check(torch.equal(xv_k, x_k), f"{kid} is not A5 bit for bit")
         record(kid, levinson_pallas.KERNELS[variant], "levinson.cu", a14_lines.get(variant, "levinson_pallas.py:110"),
-               rel_v, 2e-3, f" of max|x| (variant {variant}); its SDR {sdr_vs_a5:.2e} dB from A5's (tolerance 1e-2)")
+               rel_v, 2e-3, f" of max|x| (variant {variant}); its SDR {sdr_vs_a5:.2e} dB from A5's (tolerance 1e-2); "
+               "two launches and its torch twin bit-equal")
 
     # A6: segment sums of the STOI front end's envelopes, atol 5e-4 per
     # segment after the metric's division
@@ -1142,6 +1164,7 @@ def main() -> int:
                     "A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
                     "A10": PEAK_BF16_TC_FLOPS, "A10r": PEAK_BF16_TC_FLOPS}
     slow = {"A15": 3}  # one A15 launch takes ~0.1 s or more: fewer repetitions
+    chain_variants = {"A5": "vpu", **{kid: variant for variant, kid in a14_ids.items()}}
     for kid, (kern, plain, library, ops, direct_ops, nbytes) in timing.items():
         r = results[kid]
         peak = peaks.get(kid, PEAK_FP32_FLOPS)
@@ -1158,8 +1181,10 @@ def main() -> int:
             f"{r['bound_by']}; {r['direct_bound_ms']:.4f} ms for the kernel's own algorithm), "
             f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']}"
             + ("" if partial is None else f", library (partial) {r['library_partial_ms']:.4f} ms")
-            + ("" if kid != "A5" else f", chain floor {chain_floor_ms(LAGS, sm_clock_hz):.4f} ms (estimated: an "
-               f"assumed {FP32_LATENCY_CYCLES} cycles an operation at {sm_clock_hz / 1e9:.2f} GHz)"))
+            + ("" if kid not in chain_variants else
+               f", chain floor {chain_floor_ms(LAGS, sm_clock_hz, chain_variants[kid]):.4f} ms (an estimate: an "
+               f"assumed {FP32_LATENCY_CYCLES} cycles an operation at {sm_clock_hz / 1e9:.2f} GHz; A5's "
+               f"{chain_floor_ms(LAGS, sm_clock_hz):.4f} ms)"))
 
     # the GEMM of A7 and A8 alone at the layer's four products (M = 64 x 799),
     # against bf16 F.linear on the same operands (its bias in bf16; for W_1

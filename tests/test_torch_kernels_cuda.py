@@ -188,6 +188,30 @@ def test_levinson_warp_kernel_main_shapes(dev, n, batch):
     assert torch.equal(got, levinson_pallas._levinson_warp_order_reference(r0, bt))
 
 
+@pytest.mark.parametrize("variant", [v for v in levinson_pallas.VARIANTS if v != "vpu"])
+@pytest.mark.parametrize("n", [96, 128, 512, 1024])
+def test_levinson_a14_kernels_are_their_twins(dev, n, variant):
+    """Each A14 kernel (one warp per system, as A5) at SDR's order and
+    around it: one launch of its own counter, bit for bit its torch twin
+    (``_warp_twin``) run on the card, two launches bit-equal, within 2e-3
+    of max|x| of its plain version; "dotreduce" also bit for bit A5."""
+    rs = np.random.RandomState(19)
+    r = (0.9 ** np.arange(n))[None] * rs.uniform(0.5, 20.0, (8, 1))
+    r[:, 0] += 1.0
+    r0 = torch.tensor(r, dtype=torch.float32, device=dev)
+    bt = torch.tensor(rs.randn(8, n), dtype=torch.float32, device=dev)
+    kname = levinson_pallas.KERNELS[variant]
+    before = cuda_lib.launch_counts[kname]
+    got = levinson_pallas.levinson_solve_fused(r0, bt, variant=variant)
+    assert cuda_lib.launch_counts[kname] == before + 1
+    assert torch.equal(got, levinson_pallas.levinson_solve_fused(r0, bt, variant=variant))
+    assert torch.equal(got, levinson_pallas._warp_twin(variant)(r0, bt))
+    want = levinson_pallas._plain(variant)(r0, bt)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3 * want.abs().max().item())
+    if variant == "dotreduce":
+        assert torch.equal(got, levinson_pallas.levinson_solve_fused(r0, bt))
+
+
 @pytest.mark.parametrize("frames", [300, 1247])
 def test_stoi_kernel_ragged_segments(dev, frames):
     """A6 on rows whose segment counts are 0, end mid-tile, fill every

@@ -303,21 +303,46 @@ def test_levinson_kernel_plain_matches_scan_at_512():
     np.testing.assert_allclose(ours, theirs, rtol=2e-3, atol=2e-3 * np.abs(theirs).max())
 
 
-@pytest.mark.parametrize("n", [96, 128, 512])
-def test_levinson_warp_order_reference_matches_jax(n):
-    """A5's dataflow on the card (``_levinson_warp_order_reference``: lane
-    l holds elements l, l + 32, ..., each lane sums its registers as a
-    halving tree, then the xor butterfly; no fused multiply-adds) against
-    the JAX kernel in interpret mode and against the plain version, at
-    2e-3 of max|x| on systems of cond below 1e3. The JAX kernel takes
-    orders that are multiples of 128, so at n = 96 it is the JAX package's
+@pytest.mark.parametrize("variant,n", [
+    pytest.param("vpu", 96, id="96"), pytest.param("vpu", 128, id="128"), pytest.param("vpu", 512, id="512"),
+    ("flat", 96), ("flat", 128), ("dotreduce", 96), ("dotreduce", 128), ("double", 96), ("double", 97),
+    ("double", 128),
+])
+def test_levinson_warp_order_reference_matches_jax(variant, n):
+    """The dataflow each Levinson kernel computes on the card, bit for bit
+    (``_warp_twin``: lane l holds elements l, l + 32, ..., each lane sums
+    its registers as a halving tree, then the xor butterfly; no fused
+    multiply-adds): A5's ``_levinson_warp_order_reference`` ("vpu", and
+    "dotreduce", whose split butterfly adds the same pairs), its unphased
+    order ("flat") and ``_levinson_double_warp_reference`` ("double"; 95,
+    96 and 127 steps: an odd count ends on A5's single step, an even one on
+    a round). Each against the JAX kernel of its variant in interpret mode,
+    its plain version and a float64 direct solve, at 2e-3 of max|x| on
+    systems of cond below 1e3. The JAX kernels take orders that are
+    multiples of 128, so at n = 96 and 97 the JAX side is the JAX package's
     XLA recursion (``ops/toeplitz.py::levinson_solve``)."""
     r, b = _spd_rows(n, rows=4, seed=16)
-    ours = levinson_pallas._levinson_warp_order_reference(torch.from_numpy(r), torch.from_numpy(b)).numpy()
-    theirs = np.asarray(jax_levinson_fused(r, b, interpret=True) if n % 128 == 0 else jax_levinson(r, b))
-    plain = levinson_pallas.levinson_solve_fused(torch.from_numpy(r), torch.from_numpy(b)).numpy()
-    for want in (theirs, plain):
+    ours = levinson_pallas._warp_twin(variant)(torch.from_numpy(r), torch.from_numpy(b)).numpy()
+    theirs = np.asarray(jax_levinson_fused(r, b, interpret=True, variant=variant) if n % 128 == 0
+                        else jax_levinson(r, b))
+    plain = levinson_pallas.levinson_solve_fused(torch.from_numpy(r), torch.from_numpy(b), variant=variant).numpy()
+    exact = np.stack([solve_toeplitz(r[i].astype(np.float64), b[i].astype(np.float64)) for i in range(len(r))])
+    for want in (theirs, plain, exact):
         np.testing.assert_allclose(ours, want, rtol=2e-3, atol=2e-3 * np.abs(want).max())
+
+
+def test_levinson_twins_are_distinct_orders():
+    """The three orders are the same recursion summed differently: the
+    unphased ("flat") and two-step ("double") twins agree with A5's to
+    round-off and are not its bits at SDR's order."""
+    r, b = _spd_rows(512, rows=2, seed=18)
+    r, b = torch.from_numpy(r), torch.from_numpy(b)
+    a5 = levinson_pallas._warp_twin("vpu")(r, b)
+    assert levinson_pallas._warp_twin("dotreduce") is levinson_pallas._levinson_warp_order_reference
+    for variant in ("flat", "double"):
+        other = levinson_pallas._warp_twin(variant)(r, b)
+        torch.testing.assert_close(other, a5, rtol=0, atol=1e-4 * a5.abs().max().item())
+        assert not torch.equal(other, a5)
 
 
 @pytest.mark.parametrize("m", [1, 2, 5, 16, 17, 32])
