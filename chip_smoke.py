@@ -17,8 +17,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    (``cuobjdump``), A12's int8 GEMM and int8 attention int8 wgmma (IGMMA)
    and TMA, SDR's correlation kernels (A4's Gram in splits x4, x3, x1 and
    A10's chunk DFT) and LSD's frame-tile kernel (A1-A3) bf16 wgmma and
-   TMA, and none may spill a register, nor may A5's warp kernel (all 32
-   orders) or A6's segment kernel,
+   TMA, and none may spill a register, nor may the Levinson warp kernels
+   (A5 and the A14 variants, all 32 orders each) or A6's segment kernel,
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
    generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
@@ -32,10 +32,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    at 8 x 799 with heads of 32, 80, 96 and 12; A9 at 16 x 12 heads x 2999 frames x
    64 in its three softmax modes in bf16 and "exact" in float32, and at
    4 x 16 heads x 1499 x 80; A15 at 2 x 12 x 40 999 x 64; A10 at 64 x 16 s
-   and 64 x (16 s + 100); A13 at 64 x 16 s, also against A1; each A14
-   Levinson variant on the 64 x 512 systems that SDR builds from the 16 s
-   batch; A5 also bit for bit its warp-order reference, at n = 1024 on 4
-   rows, and A5 and A6 twice bit-equal; A6 also on ragged segment counts
+   and 64 x (16 s + 100); A13 at 64 x 16 s, also against A1 and on A1's
+   three near-clean pairs, within 2e-4 of a float64 LSD, twice bit-equal;
+   each A14 Levinson variant on the 64 x 512 systems that SDR builds from
+   the 16 s batch, bit for bit its torch twin and twice bit-equal
+   ("dotreduce" also A5 bit for bit); A5 also bit for bit its warp-order
+   reference, at n = 1024 on 4 rows, and A5 and A6 twice bit-equal; A6 also on ragged segment counts
    (0, mid-tile, full); A11 and A12 on A7's mHuBERT-147 layer in every softmax mode, A11
    also against A7 then A8 bit for bit, A12 also in the JAX package's int8
    screening class against A7; A12's int8 GEMM alone exactly against its
@@ -47,7 +49,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    mHuBERT-147's full width with seeded random weights on the 16 s batch
    (A7, A8; ``attention_impl="layer_block"``: A11, its F1 equal to A7 +
    A8's; ``"block_int8"``: A12),
-   on 16 x 60 s (A9) and on one pair of 820 s clips (A15);
+   on 16 x 60 s (A9) and on one pair of 820 s clips (A15), and each at
+   ``precision="highest"`` (one 60 s pair: A9's float32 arm; the 820 s
+   pair: A15's, within 2e-3 of the bf16 path);
    ``SDR(corr_impl="fused")`` on the 16 s and 16 s + 100 batches (A10);
    ``SDR(corr_impl="gram")`` and ``"gram_x1"`` on the 16 s batch (A4 in
    split x3 and x1);
@@ -58,15 +62,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    by the exact A9 path); fused SDR also against ``SDR()``,
 5. times: each kernel (CUDA events around one call; also its device time
    alone, the card kept busy while the host enqueues it), its plain
-   version (A5 also beside its chain's floor, at an assumed latency, on its
-   log line only), a PyTorch library call (or, for
+   version (A5 and each A14 variant also beside its chain's floor, an
+   estimate at an assumed latency, on its log line only), a PyTorch
+   library call (or, for
    A7, A8 and A11, a composite of library calls) for the same function where
    one exists (none computes int8 attention: A12's ``library_ms`` is null,
    and its ``library_partial_ms`` is ``torch._int_mm`` with the
    dequantization for its QKV and W_o products only); the GEMM of A7 and A8
    alone at the layer's four products against bf16 ``F.linear``, A12's
    int8 GEMM alone at QKV and W_o against ``torch._int_mm`` and the
-   dequantization; and each metric end to end
+   dequantization; A9's and A15's float32 arms (``precision="highest"``)
+   on their float32 inputs, against scaled_dot_product_attention's
+   memory-efficient backend; and each metric end to end
    (SpeechBERTScore also on
    16 x 60 s and with ``attention_impl`` "layer_block" and "block_int8",
    SDR also with ``corr_impl`` "fused", "gram" and "gram_x1"),
@@ -295,9 +302,10 @@ def main() -> int:
     # the Levinson warp kernels (A5, and A14's flat x 3 unrollings,
     # dotreduce and double: one instantiation per order 32 .. 1024) and A6's
     # segment kernel keep their state in registers: no spills either
-    for kernel, source, n in (("levinson_warp_kernel", "levinson", 32), ("levinson_flat_warp_kernel", "levinson", 96),
-                              ("levinson_dotreduce_warp_kernel", "levinson", 32),
-                              ("levinson_double_warp_kernel", "levinson", 32), ("stoi_segments_kernel", "stoi_fused", 1)):
+    for kernel, source, n in (("levinson_warp_kernel", "levinson", 32), ("levinson_flat_warp_kernel", "levinson_flat", 96),
+                              ("levinson_dotreduce_warp_kernel", "levinson_dotreduce", 32),
+                              ("levinson_double_warp_kernel", "levinson_double", 32),
+                              ("stoi_segments_kernel", "stoi_fused", 1)):
         spills, entry = [], ""
         for line in (cuda_lib.BUILD_DIR / f"{source}.log").read_text().splitlines():
             if "Compiling entry function" in line:
@@ -350,17 +358,20 @@ def main() -> int:
         lr = torch.log(power(cx) / (dm * dm) + EPS)
         return torch.sqrt(torch.mean(lr * lr, dim=-1)).mean(dim=-1)
 
-    def lsd_check(kid, wrapper, plain, cx, dx, scaled_dx, what):
+    def lsd_check(kid, wrapper, plain, cx, dx, scaled_dx, what, kind="bf16x6", f64_tol=None):
         """wrapper vs plain at atol 2e-4, twice bit-equal; both against
-        float64 (on the pre-scaled pair); returns the kernel's error."""
+        float64 (on the pre-scaled pair), the kernel within ``f64_tol`` of
+        it where one is given; returns the kernel's error and scores."""
         got = wrapper(cx, dx, HOP, EPS)
         check(torch.equal(got, wrapper(cx, dx, HOP, EPS)), f"{kid}: two launches differ ({what})")
         err_ = torch.max(torch.abs(got - plain(cx, dx, HOP, EPS))).item()
         check(math.isfinite(err_) and err_ <= 2e-4, f"{kid}: {err_:.3e} from its plain version ({what}; atol 2e-4)")
         ref = lsd_f64(cx, scaled_dx)
-        log(f"{kid} {what}: vs plain {err_:.3e}; vs float64: kernel (bf16x6) "
-            f"{torch.max(torch.abs(got.double() - ref)).item():.3e}, plain (float32) "
+        f64 = torch.max(torch.abs(got.double() - ref)).item()
+        log(f"{kid} {what}: vs plain {err_:.3e}; vs float64: kernel ({kind}) {f64:.3e}, plain (float32) "
             f"{torch.max(torch.abs(plain(cx, dx, HOP, EPS).double() - ref)).item():.3e}; two launches bit-equal")
+        if f64_tol is not None:
+            check(f64 <= f64_tol, f"{kid}: {f64:.3e} from a float64 LSD ({what}; atol {f64_tol})")
         return err_, got
 
     def prescaled(cx, dx):
@@ -368,21 +379,31 @@ def main() -> int:
 
     raw_a1 = (lsd_fused.lsd_wholesig_raw, lsd_fused._lsd_wholesig_raw_plain)
     err, lsd_k = lsd_check("A1", *raw_a1, c, d, prescaled(c, d), "speech pairs")
-    err_near = 0.0
+    err_near, a1_near = 0.0, []
     for seed in range(3):  # A1's near-clean pairs from three noise seeds
         d_near = near_clean(c, seed)
-        err_near = max(err_near, lsd_check("A1", *raw_a1, c, d_near, prescaled(c, d_near),
-                                           f"near-clean pairs, seed {seed}")[0])
+        e_, got_ = lsd_check("A1", *raw_a1, c, d_near, prescaled(c, d_near), f"near-clean pairs, seed {seed}")
+        err_near = max(err_near, e_)
+        a1_near.append(got_)
     record("A1", lsd_fused.KERNEL, "lsd_fused.cu", "lsd_fused.py:208", max(err, err_near), 2e-4,
            f"; speech pairs {err:.3e}, near-clean pairs {err_near:.3e}")
 
-    # A13: the factorized chunk DFT, against its plain version and A1, atol 2e-4
-    ct_k = lsd_fused.lsd_wholesig_ct(c, d, HOP, EPS)
+    # A13: the factorized chunk DFT as a float32 FFT, against its plain
+    # version and A1, atol 2e-4, twice bit-equal; on A1's near-clean pairs
+    # also within 2e-4 of a float64 LSD, each distance printed
+    ct_a13 = (lsd_fused.lsd_wholesig_ct, lsd_fused._lsd_wholesig_ct_plain)
+    err, ct_k = lsd_check("A13", *ct_a13, c, d, prescaled(c, d), "speech pairs", "float32 FFT", 2e-4)
     err_a1 = torch.max(torch.abs(ct_k - lsd_k)).item()
+    err_near = 0.0
+    for seed in range(3):
+        d_near = near_clean(c, seed)
+        e_, got_ = lsd_check("A13", *ct_a13, c, d_near, prescaled(c, d_near), f"near-clean pairs, seed {seed}",
+                             "float32 FFT", 2e-4)
+        err_near = max(err_near, e_)
+        err_a1 = max(err_a1, torch.max(torch.abs(got_ - a1_near[seed])).item())
     check(err_a1 <= 2e-4, f"A13 differs from A1 by {err_a1:.3e} (tolerance 2e-4)")
-    err = torch.max(torch.abs(ct_k - lsd_fused._lsd_wholesig_ct_plain(c, d, HOP, EPS))).item()
-    record("A13", lsd_fused.KERNEL_A13, "lsd_fused.cu", "lsd_fused.py:537", err, 2e-4,
-           f"; against A1 {err_a1:.3e} (tolerance 2e-4)")
+    record("A13", lsd_fused.KERNEL_A13, "lsd_fused.cu", "lsd_fused.py:537", max(err, err_near), 2e-4,
+           f"; speech pairs {err:.3e}, near-clean pairs {err_near:.3e}; against A1 {err_a1:.3e} (tolerance 2e-4)")
 
     # A4: correlations of the raw signals, atol 2e-4 * max|r_auto|
     ra_k, rc_k = sdr_corr_gram.correlation_lags_gram(c, d, LAGS)
@@ -674,7 +695,7 @@ def main() -> int:
               f"{what}: beyond the per-row bf16 class")
         return max(worst, (rmax, mx, limit))
 
-    worst = (0.0, 0.0, 1.0)
+    worst, worst_f32 = (0.0, 0.0, 1.0), 0.0
     for b_, h_, t_, d_ in ((LONG_BATCH, heads, long_frames, 64), (4, 16, 1499, 80)):
         q9, k9, v9 = qkv((b_, h_, t_, d_), torch.bfloat16, gen_a9)
         for mode in sdpa_pallas.SOFTMAX_MODES:
@@ -682,11 +703,14 @@ def main() -> int:
                                 sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, mode),
                                 f"A9 {b_}x{h_}x{t_}x{d_} bf16 softmax={mode}", worst)
         q9, k9, v9 = (a.float() for a in (q9, k9, v9))
-        f32_err(sdpa_pallas.sdpa(q9, k9, v9, d_**-0.5, softmax="exact"),
-                sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, "exact"),
-                f"A9 {b_}x{h_}x{t_}x{d_} float32 softmax=exact")
+        worst_f32 = max(worst_f32, f32_err(sdpa_pallas.sdpa(q9, k9, v9, d_**-0.5, softmax="exact"),
+                                           sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, "exact"),
+                                           f"A9 {b_}x{h_}x{t_}x{d_} float32 softmax=exact"))
     record("A9", sdpa_pallas.KERNEL_A9, "flash_sm90.cuh", "sdpa_pallas.py:36", *worst[1:],
            " (the bf16 case nearest its limit)")
+    # A9's float32 arm (precision="highest"), on the same inputs in float32
+    record("A9-f32", sdpa_pallas.KERNEL_A9, "sdpa_f32.cu", "sdpa_pallas.py:36", worst_f32, f32_tol,
+           " (the float32 arm, softmax=exact)")
     a9_inputs = qkv((LONG_BATCH, heads, long_frames, 64), torch.bfloat16, gen_a9)
     del q9, k9, v9
 
@@ -700,6 +724,13 @@ def main() -> int:
                         f"A15 2x{heads}x{flash_frames}x64", (0.0, 0.0, 1.0))
     record("A15", sdpa_pallas.KERNEL_A15, "flash_sm90.cuh", "models/hubert.py:157", *worst[1:],
            " (the upstream flash_attention kernel that _flash_sdpa calls)")
+    # A15's float32 arm (precision="highest") on the same q, k, v in float32
+    a15_f32 = [a.float() for a in a15_inputs]
+    err = f32_err(sdpa_pallas.flash_sdpa(*a15_f32, 0.125), sdpa_pallas._flash_sdpa_plain(*a15_f32, 0.125),
+                  f"A15 2x{heads}x{flash_frames}x64 float32")
+    record("A15-f32", sdpa_pallas.KERNEL_A15, "sdpa_f32.cu", "models/hubert.py:157", err, f32_tol,
+           " (the float32 arm, online softmax)")
+    del a15_f32
 
     # A10 on the normalised signals, as SDR(corr_impl="fused") feeds it: the
     # raw variant at 64 x 16 s, the padded one at 64 x (16 s + 100); atol
@@ -879,7 +910,9 @@ def main() -> int:
     dev_cpu = float(np.max(np.abs(f1_60[:1] - cpu_f1)))
     check(dev_cpu <= 2e-4, f"SpeechBERTScore 60 s: card vs CPU plain path {dev_cpu:.3e} (atol 2e-4)")
     exact60 = pkg.SpeechBERTScore(params=sbs_params, precision="highest")
-    dev_fp32 = float(np.max(np.abs(f1_60[:1] - f1_of(exact60(c60_np[:1], d60_np[:1]), 1))))
+    dev_fp32 = float(np.max(np.abs(f1_60[:1] - f1_of(drive(lambda: exact60(c60_np[:1], d60_np[:1]),
+                                                           "SpeechBERTScore 1 x 60 s, precision='highest'",
+                                                           ("A9-f32",)), 1))))
     check(dev_fp32 <= 2e-3, f"SpeechBERTScore 60 s: bf16 A9 path vs the card's float32 A9 path {dev_fp32:.3e} "
                             "(atol 2e-3)")
     log(f"SpeechBERTScore {LONG_BATCH} x {LONG_SECONDS} s: batch mean {f1_60.mean()} (first call {first_s:.1f} s); "
@@ -907,6 +940,18 @@ def main() -> int:
     log(f"SpeechBERTScore 1 x {FLASH_SECONDS} s: F1 {f1_820[0]} in {flash_s:.2f} s (peak device memory "
         f"{peak_820:.2f} GiB); the exact sdpa path (A9) {f1_820_sdpa[0]} in {sdpa_s:.2f} s: diff {dev_820:.3e} "
         "(atol 2e-4)")
+    # the same pair at precision="highest": A15's float32 arm once per
+    # layer, within the bf16 paths' 2e-3 of it
+    exact820 = pkg.SpeechBERTScore(params=sbs_params, precision="highest")
+    t0 = time.perf_counter()
+    f1_820_f32 = f1_of(drive(lambda: exact820(c820_np, d820_np), f"SpeechBERTScore 1 x {FLASH_SECONDS} s, "
+                             "precision='highest'", ("A15-f32",)), 1)
+    f32_s = time.perf_counter() - t0
+    only(dict(zip(attn_kernels, (0, 0, 0, sbs.output_layer))), "SpeechBERTScore 820 s precision='highest'")
+    dev_820 = float(np.max(np.abs(f1_820 - f1_820_f32)))
+    check(dev_820 <= 2e-3, f"SpeechBERTScore 820 s: bf16 A15 path vs the float32 one {dev_820:.3e} (atol 2e-3)")
+    log(f"SpeechBERTScore 1 x {FLASH_SECONDS} s, precision='highest' (A15's float32 arm): F1 {f1_820_f32[0]} in "
+        f"{f32_s:.2f} s; vs the bf16 flash path {dev_820:.3e} (atol 2e-3)")
     del exact820
 
     # SDR(corr_impl="fused"): A10's raw variant on the 16 s batch, its padded
@@ -1099,11 +1144,13 @@ def main() -> int:
 
     library_partial = {"A12": lambda: [int_mm_dequant(*args) for args in gemm_i8_args.values()]}
     # A13: A1's function (the same least work), its own algorithm the
-    # factorized chunk DFT: 61 440 multiply-adds per chunk and signal
+    # float32 FFT of 64 chunks a tile of 63 frames (CT_FFT_OPS each) and
+    # the scale sums
+    a13_tiles = -(-(nc + 1) // lsd_fused._CT_TILE_FRAMES)
     timing["A13"] = (
         lambda: lsd_fused.lsd_wholesig_ct(c, d, HOP, EPS),
         lambda: lsd_fused._lsd_wholesig_ct_plain(c, d, HOP, EPS), None,
-        a1_ops, 2 * BATCH * nc * 61440 * 2 + 4 * BATCH * t_len, lsd_bytes(t_len),
+        a1_ops, 2 * BATCH * a13_tiles * 64 * lsd_fused.CT_FFT_OPS + 4 * BATCH * t_len, lsd_bytes(t_len),
     )
     # A14: A5's function and yardstick, each variant's kernel and plain version
     for variant, kid in a14_ids.items():
@@ -1157,13 +1204,32 @@ def main() -> int:
             2 * BATCH * n * 4 + 2 * BATCH * LAGS * 4,
         )
 
+    # A9's and A15's float32 arms on the same inputs in float32: the least
+    # work at the float32 peak; the yardstick scaled_dot_product_attention
+    # on its memory-efficient backend (float32, no (T, T) logits)
+    def efficient_sdpa(*a):
+        with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION):
+            return fn.scaled_dot_product_attention(*a, scale=0.125)
+
+    for kid, (q_, k_, v_), kern, plain in (
+        ("A9-f32", a9_inputs, lambda *a: sdpa_pallas.sdpa(*a, 0.125, softmax="exact"),
+         lambda *a: sdpa_pallas._sdpa_plain(*a, 0.125, "exact")),
+        ("A15-f32", a15_inputs, lambda *a: sdpa_pallas.flash_sdpa(*a, 0.125),
+         lambda *a: sdpa_pallas._flash_sdpa_plain(*a, 0.125)),
+    ):
+        b_, h_, t_, d_ = q_.shape
+        ops = 4 * b_ * h_ * t_ * t_ * d_
+        args = tuple(a.float() for a in (q_, k_, v_))
+        timing[kid] = (lambda kern=kern, a=args: kern(*a), lambda plain=plain, a=args: plain(*a),
+                       lambda a=args: efficient_sdpa(*a), ops, ops, 4 * b_ * h_ * t_ * d_ * 4)
+
     peaks = {"A7": PEAK_BF16_TC_FLOPS, "A8": PEAK_BF16_TC_FLOPS, "A9": PEAK_BF16_TC_FLOPS,
              "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS}
     # the kernels' own algorithms on the bf16 tensor cores
     direct_peaks = {"A1": PEAK_BF16_TC_FLOPS, "A2": PEAK_BF16_TC_FLOPS, "A3": PEAK_BF16_TC_FLOPS,
                     "A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
                     "A10": PEAK_BF16_TC_FLOPS, "A10r": PEAK_BF16_TC_FLOPS}
-    slow = {"A15": 3}  # one A15 launch takes ~0.1 s or more: fewer repetitions
+    slow = {"A15": 3, "A15-f32": 3}  # one A15 launch takes ~0.1 s or more: fewer repetitions
     chain_variants = {"A5": "vpu", **{kid: variant for variant, kid in a14_ids.items()}}
     for kid, (kern, plain, library, ops, direct_ops, nbytes) in timing.items():
         r = results[kid]

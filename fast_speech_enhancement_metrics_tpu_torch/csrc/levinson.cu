@@ -2,14 +2,19 @@
 //
 // Replaces the Pallas TPU kernels of the JAX package's
 // ops/levinson_pallas.py behind levinson_solve_fused(..., variant=...):
-//   A5  _levinson_kernel (variant "vpu"): levinson_warp_kernel<P>,
+//   A5  _levinson_kernel (variant "vpu"): levinson_warp_kernel<P>, here,
 //   A14 _levinson_kernel_flat ("flat", "flat_u4", "flat_u8"):
-//       levinson_flat_warp_kernel<P, U>,
-//       _levinson_kernel_dotreduce ("dotreduce"): levinson_dotreduce_warp_kernel<P>,
-//       _levinson_kernel_double ("double"): levinson_double_warp_kernel<P>.
+//       levinson_flat_warp_kernel<P, U> (levinson_flat.cu),
+//       _levinson_kernel_dotreduce ("dotreduce"):
+//       levinson_dotreduce_warp_kernel<P> (levinson_dotreduce.cu),
+//       _levinson_kernel_double ("double"): levinson_double_warp_kernel<P>
+//       (levinson_double.cu).
 // The variants are one recursion with its reductions reassociated; on the
 // TPU they trade lane work against reduction latency. Here all five run
-// A5's design below, one warp per system, and each keeps its own trait.
+// A5's design below, one warp per system, and each keeps its own trait;
+// their helpers are in levinson.cuh, and each kernel family is a TU of its
+// own so that nvcc builds them in parallel (in one TU their 192
+// instantiations set the build's length).
 //
 // What it computes, per row: with r1[j] = r0[j+1] / r0[0] (r1[n-1] = 0) and
 // bn = b / r0[0] (r0[0] replaced by 1 when |r0[0]| < 1e-30), starting from
@@ -70,7 +75,8 @@
 //   step without the phases. Every step touches all P registers from step
 //   0, as the TPU's flat kernel runs its full lane width, and both lane
 //   sums run over all P registers; the step loop is unrolled U = 1, 4, 8
-//   times. The three share one arithmetic order, the reference's
+//   times (U = 1 as A5's 32-step blocks: a single loop spilled at one
+//   order). The three share one arithmetic order, the reference's
 //   phased=False twin, whose sums differ from A5's in their trees.
 // * levinson_dotreduce_warp_kernel<P>: one butterfly carries both dot
 //   products, as the TPU kernel gets both from one MXU product. Its first
@@ -100,139 +106,9 @@
 //   mirrors as well); every operation explicitly rounded, so it is
 //   ops/levinson_pallas.py::_levinson_double_warp_reference bit for bit,
 //   a reassociation of the plain two-step version.
-#include <utility>
-
-#include "common.cuh"
+#include "levinson.cuh"
 
 namespace {
-
-__device__ __forceinline__ float guard(float d) { return fabsf(d) < 1e-30f ? 1e-30f : d; }
-
-// a[0] <- the halving-tree sum of a[0 .. M-1]: a[i] += a[i + M/2] for
-// i < M/2, an odd M's last element moved up to a[M/2], M -> ceil(M/2)
-template <int M, int P>
-__device__ __forceinline__ void tree_sum(float (&a)[P]) {
-  if constexpr (M > 1) {
-    constexpr int h = M / 2;
-#pragma unroll
-    for (int i = 0; i < h; ++i) a[i] = __fadd_rn(a[i], a[i + h]);
-    if constexpr (M % 2) a[h] = a[2 * h];
-    tree_sum<(M + 1) / 2, P>(a);
-  }
-}
-
-// Element 32 i + l of a shifted right by kBy (1 or 2) elements: lane
-// l - kBy's register i, or for the low lanes lane 32 - kBy + l's register
-// i - 1 (the zero fill for i = 0). cur, prev: the calling lane's registers
-// i and i - 1 (prev = cur for i = 0); every lane sends the one its
-// receiver needs.
-template <int kBy>
-__device__ __forceinline__ float shift_right(float cur, float prev, bool first, int lane) {
-  const float s = __shfl_sync(fsem::kFullMask, lane >= 32 - kBy ? prev : cur, (lane + 32 - kBy) & 31);
-  return first && lane < kBy ? 0.f : s;
-}
-
-// The sum over the warp of each lane's x[c]: C interleaved xor butterflies
-// (16, 8, 4, 2, 1); every lane ends with the same bits.
-template <int C>
-__device__ __forceinline__ void butterflies(float (&x)[C]) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float t[C];
-#pragma unroll
-    for (int c = 0; c < C; ++c) t[c] = __shfl_xor_sync(fsem::kFullMask, x[c], o);
-#pragma unroll
-    for (int c = 0; c < C; ++c) x[c] = __fadd_rn(x[c], t[c]);
-  }
-}
-
-// The row's normalised system, element 32 i + lane in register i: r1,
-// u = v = e0, y = bn[0] e0; bn to the per-warp table when one is given
-template <int P>
-__device__ __forceinline__ void load_system(const float* rr, const float* br, float safe0, int lane, float (&r1)[P],
-                                            float (&u)[P], float (&v)[P], float (&y)[P], float* bn_s) {
-  constexpr int n = 32 * P;
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int j = 32 * i + lane;
-    r1[i] = j < n - 1 ? __fdiv_rn(rr[j + 1], safe0) : 0.f;
-    const float bnj = __fdiv_rn(br[j], safe0);
-    if (bn_s != nullptr) bn_s[j] = bnj;
-    u[i] = v[i] = j == 0 ? 1.f : 0.f;
-    y[i] = j == 0 ? bnj : 0.f;
-  }
-}
-
-// x, element e = 32 i + l, is element n - 1 - e of the last y: lane
-// 31 - l's register P - 1 - i
-template <int P>
-__device__ __forceinline__ void store_reversed(const float (&y)[P], float* x_row, int lane) {
-#pragma unroll
-  for (int i = 0; i < P; ++i) x_row[32 * i + lane] = __shfl_sync(fsem::kFullMask, y[P - 1 - i], 31 - lane);
-}
-
-// One recursion step k of A5, writing registers 0 .. A - 1 of each lane
-// (A = (k + 1) / 32 + 1: elements up to k + 1; every later element of u,
-// v, y is still 0), software-pipelined by one step: on entry v holds v_k,
-// u holds u_k before its scaling (tu = u_{k-1} - ef g) and y holds
-// shift_right(y_{k-1}) (gy), with the scalars recip and mu of step k - 1
-// (1 and 0 before step 0), and se the lanes' sums of r1 v_k. The step
-// first finishes u_k = tu recip and y_k = gy + mu u_k and sums r1 y_k over
-// A registers, then runs the two butterflies and shifts v_k and y_k; while
-// the reciprocal runs it forms u_k - ef g and g - ef u_k; after it, v_{k+1}
-// and the next r1 v sums. kSplit (dotreduce): both sums in one butterfly,
-// and bn_next is the lane's rotating bn register (lane 16's is bn[k+1]).
-template <int A, int P, bool kSplit = false>
-__device__ __forceinline__ void warp_step(const float (&r1)[P], float (&u)[P], float (&v)[P], float (&y)[P],
-                                          float& se, float& recip, float& mu, float bn_next, int lane) {
-  float ry[A];
-#pragma unroll
-  for (int i = 0; i < A; ++i) {
-    u[i] = __fmul_rn(u[i], recip);
-    y[i] = __fadd_rn(y[i], __fmul_rn(mu, u[i]));
-    ry[i] = __fmul_rn(r1[i], y[i]);
-  }
-  tree_sum<A, A>(ry);
-  float ef, s;
-  if constexpr (kSplit) {
-    // level 16 exchanges one value: lanes 0-15 keep the r1 v partials,
-    // lanes 16-31 the r1 y partials; then one shuffle a level
-    const bool lo = lane < 16;
-    float h = __fadd_rn(lo ? se : ry[0], __shfl_xor_sync(fsem::kFullMask, lo ? ry[0] : se, 16));
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) h = __fadd_rn(h, __shfl_xor_sync(fsem::kFullMask, h, o));
-    ef = __shfl_sync(fsem::kFullMask, h, 0);
-    s = __shfl_sync(fsem::kFullMask, __fsub_rn(bn_next, h), 16);  // mu itself
-  } else {
-    float e2[2] = {se, ry[0]};
-    butterflies<2>(e2);
-    ef = e2[0];
-    s = e2[1];
-  }
-  float g[A], gy[A];
-#pragma unroll
-  for (int i = 0; i < A; ++i) {
-    g[i] = shift_right<1>(v[i], v[i > 0 ? i - 1 : 0], i == 0, lane);
-    gy[i] = shift_right<1>(y[i], y[i > 0 ? i - 1 : 0], i == 0, lane);
-  }
-  recip = fsem::rcp_rn(guard(__fsub_rn(1.f, __fmul_rn(ef, ef))));
-  float tv[A];
-#pragma unroll
-  for (int i = 0; i < A; ++i) {
-    tv[i] = __fsub_rn(g[i], __fmul_rn(ef, u[i]));
-    u[i] = __fsub_rn(u[i], __fmul_rn(ef, g[i]));
-    y[i] = gy[i];
-  }
-  mu = kSplit ? s : __fsub_rn(bn_next, s);
-  float pe[A];
-#pragma unroll
-  for (int i = 0; i < A; ++i) {
-    v[i] = __fmul_rn(tv[i], recip);
-    pe[i] = __fmul_rn(r1[i], v[i]);
-  }
-  tree_sum<A, A>(pe);
-  se = pe[0];
-}
 
 // the steps k whose writes reach register A - 1 ((k + 1) / 32 == A - 1),
 // then the next phase
@@ -243,15 +119,6 @@ __device__ __forceinline__ void warp_phases(const float (&r1)[P], float (&u)[P],
   for (int k = A == 1 ? 0 : 32 * (A - 1) - 1; k < 32 * A - 1; ++k)
     warp_step<A, P>(r1, u, v, y, se, recip, mu, bn[k + 1], lane);
   if constexpr (A < P) warp_phases<A + 1, P>(r1, u, v, y, se, recip, mu, bn, lane);
-}
-
-// the last step's y (finishing the pipelined u and y), written reversed
-template <int P>
-__device__ __forceinline__ void finish_pipelined(float (&y)[P], const float (&u)[P], float recip, float mu,
-                                                 float* x_row, int lane) {
-#pragma unroll
-  for (int i = 0; i < P; ++i) y[i] = __fadd_rn(y[i], __fmul_rn(mu, __fmul_rn(u[i], recip)));
-  store_reversed<P>(y, x_row, lane);
 }
 
 template <int P>
@@ -273,200 +140,12 @@ __global__ void __launch_bounds__(32) levinson_warp_kernel(
   finish_pipelined<P>(y, u, recip, mu, x_out + (size_t)row * n, lane);
 }
 
-// A14 "flat", "flat_u4", "flat_u8": A5's step at the full width P from
-// step 0 (both lane sums over all P registers), the loop unrolled U times
-template <int P, int U>
-__global__ void __launch_bounds__(32) levinson_flat_warp_kernel(
-    const float* __restrict__ r0, const float* __restrict__ b,
-    float* __restrict__ x_out) {
-  constexpr int n = 32 * P;
-  __shared__ float bn_s[n];
-  const int lane = threadIdx.x, row = blockIdx.x;
-  const float* rr = r0 + (size_t)row * n;
-  const float rf = rr[0];
-  const float safe0 = fabsf(rf) < 1e-30f ? 1.f : rf;
-  float r1[P], u[P], v[P], y[P];
-  load_system<P>(rr, b + (size_t)row * n, safe0, lane, r1, u, v, y, bn_s);
-  __syncwarp();
-  float pe[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) pe[i] = __fmul_rn(r1[i], v[i]);
-  tree_sum<P, P>(pe);
-  float se = pe[0], recip = 1.f, mu = 0.f;
-#pragma unroll (U)
-  for (int k = 0; k < n - 1; ++k) warp_step<P, P>(r1, u, v, y, se, recip, mu, bn_s[k + 1], lane);
-  finish_pipelined<P>(y, u, recip, mu, x_out + (size_t)row * n, lane);
-}
-
-// A14 "dotreduce", phase A: bn_raw is b at this phase's indices (loaded a
-// phase ahead), lane l's bn[base + ((l + 16) & 31)] with base = 1 for the
-// first phase (step 0 needs bn[1]) and 32 (A - 1) after; rotated left one
-// lane a step, lane 16 holds bn[k+1]
-template <int A, int P>
-__device__ __forceinline__ void dotreduce_phases(const float (&r1)[P], float (&u)[P], float (&v)[P], float (&y)[P],
-                                                 float& se, float& recip, float& mu, const float* br, float safe0,
-                                                 float bn_raw, int lane) {
-  float bnc = __fdiv_rn(bn_raw, safe0);
-  float bn_next_raw = 0.f;
-  if constexpr (A < P) bn_next_raw = br[32 * A + ((lane + 16) & 31)];
-  const int src = (lane + 1) & 31;
-#pragma unroll 1
-  for (int k = A == 1 ? 0 : 32 * (A - 1) - 1; k < 32 * A - 1; ++k) {
-    warp_step<A, P, true>(r1, u, v, y, se, recip, mu, bnc, lane);
-    bnc = __shfl_sync(fsem::kFullMask, bnc, src);
+struct WarpLaunch {
+  template <int P>
+  static void run(const float* r0, const float* b, float* x, int batch, cudaStream_t stream) {
+    levinson_warp_kernel<P><<<batch, 32, 0, stream>>>(r0, b, x);
   }
-  if constexpr (A < P) dotreduce_phases<A + 1, P>(r1, u, v, y, se, recip, mu, br, safe0, bn_next_raw, lane);
-}
-
-template <int P>
-__global__ void __launch_bounds__(32) levinson_dotreduce_warp_kernel(
-    const float* __restrict__ r0, const float* __restrict__ b,
-    float* __restrict__ x_out) {
-  constexpr int n = 32 * P;
-  const int lane = threadIdx.x, row = blockIdx.x;
-  const float* rr = r0 + (size_t)row * n;
-  const float* br = b + (size_t)row * n;
-  const float rf = rr[0];
-  const float safe0 = fabsf(rf) < 1e-30f ? 1.f : rf;
-  const int j1 = 1 + ((lane + 16) & 31);  // the first phase's bn indices
-  const float bn_raw = j1 < n ? br[j1] : 0.f;
-  float r1[P], u[P], v[P], y[P];
-  load_system<P>(rr, br, safe0, lane, r1, u, v, y, nullptr);
-  float se = __fmul_rn(r1[0], v[0]), recip = 1.f, mu = 0.f;
-  dotreduce_phases<1, P>(r1, u, v, y, se, recip, mu, br, safe0, bn_raw, lane);
-  finish_pipelined<P>(y, u, recip, mu, x_out + (size_t)row * n, lane);
-}
-
-// A14 "double": the round of steps k and k + 1 on registers 0 .. A - 1
-// (A = (k + 2) / 32 + 1), from the state u, v, y before step k; every
-// operation the reference's, in its order
-template <int A, int P>
-__device__ __forceinline__ void double_round(const float (&r1)[P], const float (&r2)[P], float (&u)[P],
-                                             float (&v)[P], float (&y)[P], float bn1, float bn2, int lane) {
-  float a0[A], a1[A], a2[A], a3[A], a4[A];
-#pragma unroll
-  for (int i = 0; i < A; ++i) {
-    a0[i] = __fmul_rn(r1[i], v[i]);
-    a1[i] = __fmul_rn(r2[i], v[i]);
-    a2[i] = __fmul_rn(r1[i], u[i]);
-    a3[i] = __fmul_rn(r1[i], y[i]);
-    a4[i] = __fmul_rn(r2[i], y[i]);
-  }
-  tree_sum<A, A>(a0);
-  tree_sum<A, A>(a1);
-  tree_sum<A, A>(a2);
-  tree_sum<A, A>(a3);
-  tree_sum<A, A>(a4);
-  float s[5] = {a0[0], a1[0], a2[0], a3[0], a4[0]};
-  butterflies<5>(s);
-  const float ef1 = s[0], p = s[1], uu = s[2];
-  const float mu1 = __fsub_rn(bn1, s[3]), q2 = __fsub_rn(bn2, s[4]);
-  const float rho1 = fsem::rcp_rn(guard(__fsub_rn(1.f, __fmul_rn(ef1, ef1))));
-  const float ef2 = __fmul_rn(rho1, __fsub_rn(p, __fmul_rn(ef1, uu)));
-  const float mu2 = __fsub_rn(q2, __fmul_rn(__fmul_rn(mu1, rho1), __fsub_rn(uu, __fmul_rn(ef1, p))));
-  // the shifts of the round's entry state and what rho2 does not touch, in
-  // place from the top register down (register i's shifts read the entry
-  // values of registers i and i - 1): u <- u1 - ef2 g2, v <- g2 - ef2 u1,
-  // y <- S^2(y) + mu1 S(u1), with u1 = (u - ef1 S(v)) rho1, g2 = S(v1) =
-  // rho1 (S^2(v) - ef1 S(u)), S(u1) = rho1 (S(u) - ef1 S^2(v))
-#pragma unroll
-  for (int i = A - 1; i >= 0; --i) {
-    const int prev = i > 0 ? i - 1 : 0;
-    const float sv = shift_right<1>(v[i], v[prev], i == 0, lane);
-    const float ssv = shift_right<2>(v[i], v[prev], i == 0, lane);
-    const float su = shift_right<1>(u[i], u[prev], i == 0, lane);
-    const float ssy = shift_right<2>(y[i], y[prev], i == 0, lane);
-    const float u1 = __fmul_rn(__fsub_rn(u[i], __fmul_rn(ef1, sv)), rho1);
-    const float g2 = __fmul_rn(rho1, __fsub_rn(ssv, __fmul_rn(ef1, su)));
-    const float su1 = __fmul_rn(rho1, __fsub_rn(su, __fmul_rn(ef1, ssv)));
-    y[i] = __fadd_rn(ssy, __fmul_rn(mu1, su1));
-    u[i] = __fsub_rn(u1, __fmul_rn(ef2, g2));
-    v[i] = __fsub_rn(g2, __fmul_rn(ef2, u1));
-  }
-  const float rho2 = fsem::rcp_rn(guard(__fsub_rn(1.f, __fmul_rn(ef2, ef2))));
-#pragma unroll
-  for (int i = 0; i < A; ++i) {
-    u[i] = __fmul_rn(u[i], rho2);
-    v[i] = __fmul_rn(v[i], rho2);
-    y[i] = __fadd_rn(y[i], __fmul_rn(mu2, u[i]));
-  }
-}
-
-// the rounds whose writes reach register A - 1 ((k + 2) / 32 == A - 1, k
-// even), then the next phase
-template <int A, int P>
-__device__ __forceinline__ void double_phases(const float (&r1)[P], const float (&r2)[P], float (&u)[P],
-                                              float (&v)[P], float (&y)[P], const float* bn, int lane) {
-#pragma unroll 1
-  for (int k = A == 1 ? 0 : 32 * (A - 1) - 2; k <= 32 * A - 4; k += 2)
-    double_round<A, P>(r1, r2, u, v, y, bn[k + 1], bn[k + 2], lane);
-  if constexpr (A < P) double_phases<A + 1, P>(r1, r2, u, v, y, bn, lane);
-}
-
-template <int P>
-__global__ void __launch_bounds__(32) levinson_double_warp_kernel(
-    const float* __restrict__ r0, const float* __restrict__ b,
-    float* __restrict__ x_out) {
-  constexpr int n = 32 * P;
-  __shared__ float bn_s[n];
-  const int lane = threadIdx.x, row = blockIdx.x;
-  const float* rr = r0 + (size_t)row * n;
-  const float rf = rr[0];
-  const float safe0 = fabsf(rf) < 1e-30f ? 1.f : rf;
-  float r1[P], r2[P], u[P], v[P], y[P];
-  load_system<P>(rr, b + (size_t)row * n, safe0, lane, r1, u, v, y, bn_s);
-#pragma unroll
-  for (int i = 0; i < P; ++i) {  // r2[j] = r1[j + 1], the same quotient
-    const int j = 32 * i + lane;
-    r2[i] = j < n - 2 ? __fdiv_rn(rr[j + 2], safe0) : 0.f;
-  }
-  __syncwarp();
-  double_phases<1, P>(r1, r2, u, v, y, bn_s, lane);
-  // n - 1 is odd: the last step, k = n - 2, alone (A5's step at width P)
-  float pe[P], ry[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    pe[i] = __fmul_rn(r1[i], v[i]);
-    ry[i] = __fmul_rn(r1[i], y[i]);
-  }
-  tree_sum<P, P>(pe);
-  tree_sum<P, P>(ry);
-  float s[2] = {pe[0], ry[0]};
-  butterflies<2>(s);
-  const float mu = __fsub_rn(bn_s[n - 1], s[1]);
-  const float recip = fsem::rcp_rn(guard(__fsub_rn(1.f, __fmul_rn(s[0], s[0]))));
-  float yn[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int prev = i > 0 ? i - 1 : 0;
-    const float g = shift_right<1>(v[i], v[prev], i == 0, lane);
-    const float gy = shift_right<1>(y[i], y[prev], i == 0, lane);
-    yn[i] = __fadd_rn(gy, __fmul_rn(mu, __fmul_rn(__fsub_rn(u[i], __fmul_rn(s[0], g)), recip)));
-  }
-  store_reversed<P>(yn, x_out + (size_t)row * n, lane);
-}
-
-// variant ids: 0 "vpu" (A5), 1 "dotreduce", 2 "flat", 3 "flat_u4",
-// 4 "flat_u8", 5 "double" (A14), the order of ops/levinson_pallas.py's
-// VARIANTS
-template <int P>
-void launch_order(int variant, const float* r0, const float* b, float* x, int batch, cudaStream_t stream) {
-  switch (variant) {
-    case 0: levinson_warp_kernel<P><<<batch, 32, 0, stream>>>(r0, b, x); break;
-    case 1: levinson_dotreduce_warp_kernel<P><<<batch, 32, 0, stream>>>(r0, b, x); break;
-    case 2: levinson_flat_warp_kernel<P, 1><<<batch, 32, 0, stream>>>(r0, b, x); break;
-    case 3: levinson_flat_warp_kernel<P, 4><<<batch, 32, 0, stream>>>(r0, b, x); break;
-    case 4: levinson_flat_warp_kernel<P, 8><<<batch, 32, 0, stream>>>(r0, b, x); break;
-    default: levinson_double_warp_kernel<P><<<batch, 32, 0, stream>>>(r0, b, x); break;
-  }
-}
-
-// one instantiation of each kernel per order n = 32 P, P = 1 .. 32
-template <int... Ps>
-bool dispatch(std::integer_sequence<int, Ps...>, int n, int variant, const float* r0, const float* b, float* x,
-              int batch, cudaStream_t stream) {
-  return ((n == 32 * (Ps + 1) ? (launch_order<Ps + 1>(variant, r0, b, x, batch, stream), true) : false) || ...);
-}
+};
 
 }  // namespace
 
@@ -476,8 +155,16 @@ bool dispatch(std::integer_sequence<int, Ps...>, int n, int variant, const float
 extern "C" int fsem_levinson_solve(const float* r0, const float* b, float* x,
                                    int batch, int n, int variant, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (variant < 0 || variant > 5 || n % 32 ||
-      !dispatch(std::make_integer_sequence<int, 32>{}, n, variant, r0, b, x, batch, stream))
-    return (int)cudaErrorInvalidValue;
+  bool ok = false;
+  switch (variant) {
+    case 0: ok = at_order<WarpLaunch>(n, r0, b, x, batch, stream); break;
+    case 1: ok = fsem::levinson_dotreduce(n, r0, b, x, batch, stream); break;
+    case 2: ok = fsem::levinson_flat(1, n, r0, b, x, batch, stream); break;
+    case 3: ok = fsem::levinson_flat(4, n, r0, b, x, batch, stream); break;
+    case 4: ok = fsem::levinson_flat(8, n, r0, b, x, batch, stream); break;
+    case 5: ok = fsem::levinson_double(n, r0, b, x, batch, stream); break;
+    default: break;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,7 @@
 //   A2 _lsd_wholesig_kernel: pre-scaled pairs of any length, F + 1 <= 1024,
 //   A3 _lsd_framed_kernel: the same function, frame-blocked, F + 1 > 1024,
 //   A13 _lsd_wholesig_ct_kernel: A1's function with the chunk DFT factorized
-//      (lsd_scores(..., dft_impl="ct")); see lsd_ct_kernel below.
+//      (lsd_scores(..., dft_impl="ct")); see fft::lsd_fft_kernel below.
 // A2 and A3 compute one function and differ on the TPU only in how a row's
 // chunks fit VMEM; here A1, A2 and A3 are one frame-tile kernel on the
 // tensor cores (lsd_tile_kernel), A1 with the scale applied in its split
@@ -40,6 +40,8 @@
 // 16 s, one CTA per SM over 20 waves whose prologue and epilogue overlap
 // no products; the split pass 0.11 ms.
 
+#include <cstdint>
+
 #include "common.cuh"
 #include "sdr_halves.cuh"
 #include "sm90.cuh"
@@ -47,10 +49,6 @@
 namespace {
 
 constexpr int kHop = 256;              // n_fft / 2
-constexpr int kBins = kHop;            // bins 0..kHop-1 of a chunk DFT; kBins is the Nyquist bin
-constexpr int kThreads = kHop;         // A13: one thread per DFT bin
-constexpr int kWarps = kThreads / 32;
-constexpr int kRow = kBins + 1;        // frame spectrum row: bins 0..256
 constexpr int kScaleSplits = 16;       // blocks per row of the scale reduction
 
 __global__ void __launch_bounds__(256) lsd_scale_kernel(
@@ -88,28 +86,6 @@ __global__ void __launch_bounds__(256) lsd_scale_kernel(
     out[0] = sn;
     out[1] = sd;
   }
-}
-
-// Windowed power at bin k of one frame spectrum (re/im rows of kRow).
-__device__ __forceinline__ float hann_power(const float* re, const float* im, int k) {
-  float lr, li, rr, ri;
-  if (k == 0) {  // X[-1] = conj X[1]
-    lr = re[1];
-    li = -im[1];
-  } else {
-    lr = re[k - 1];
-    li = im[k - 1];
-  }
-  if (k == kBins) {  // X[257] = conj X[255]
-    rr = re[kBins - 1];
-    ri = -im[kBins - 1];
-  } else {
-    rr = re[k + 1];
-    ri = im[k + 1];
-  }
-  const float yr = 0.5f * re[k] - 0.25f * (lr + rr);
-  const float yi = 0.5f * im[k] - 0.25f * (li + ri);
-  return yr * yr + yi * yi;
 }
 
 // -- A1, A2, A3: the frame-tile kernel on the tensor cores ---------------------
@@ -445,214 +421,342 @@ int launch_tiles(const float* clean, const float* denoised, void* pieces, const 
 
 }  // namespace tiles
 
-// -- A13: the factorized chunk DFT ----------------------------------------------
+// -- A13: the factorized chunk DFT as a float32 FFT ----------------------------
 //
 // The same function as A1 (hop-aligned pairs, the projection scale computed
 // here from lsd_scale_kernel's partials or given per row), with the
 // 512-point DFT of each zero-padded 256-sample chunk factorized as on the
 // TPU: three radix-2 DIF folds (level 1 absorbs the zero padding), then
 // eight 64-point DFTs of the branches br = j1 + 2 j2 + 4 j3, with
-// DFT512(x)[8 m + br] = DFT64(b_br)[m], m = 0..31 for bins 0..255; branch 0
-// stays real. That is 61 440 multiply-adds per chunk against A1's 131 072.
+// DFT512(x)[8 m + br] = DFT64(b_br)[m], m = 0..31 for bins 0..255, and the
+// chunk Nyquist bin as the alternating sum. The TPU kernel stops there and
+// runs the branch DFTs as bf16x3 matrix products; here each DFT64 is
+// carried on to a float32 FFT in registers: t = 8 n1 + n2, m = k1 + 8 k2,
+//   DFT64(b)[m] = sum_n2 W8^(n2 k2) W64^(n2 k1) sum_n1 W8^(n1 k1) b[8 n1 + n2],
+// a radix-8 stage over n1, the 64-point twiddles, and a radix-8 stage over
+// n2 of which only k2 = 0..3 (m < 32) is computed. Each DFT8 is a DIF
+// radix-2 level (twiddles W8^n) and two DFT4s. About 15 k float32
+// operations per chunk and signal (ops/lsd_fused.py's CT_FFT_OPS), against
+// the dense branch products' 123 k (61 440 multiply-adds). Every twiddle comes from the host's tables
+// (float64 rounded to float32, ops/lsd_fused.py::_ct_constants): the folds'
+// from tw, the 64-point ones from w0's column m = 1 (cos | sin of
+// -2 pi t / 64), the DFT8's W8^1 and W8^3 among them. The frame combine
+// X_f = Z_{f-1} + (-1)^br Z_f ((-1)^k = (-1)^br for k = 8 m + br) and A1's
+// Hann, the 3-tap filter over natural bins, follow in the scrambled layout
+// of _ct_hann_power: X[k -+ 1] is branch br -+ 1 at the same m, except the
+// carries (br 0, m) - 1 = (br 7, m - 1), whose bin 0 takes conj X[1], and
+// (br 7, m) + 1 = (br 0, m + 1), whose bin 255 takes the real X[256].
+// ops/lsd_fused.py::_ct_fft_reference spells out the dataflow in torch.
 //
-// Design: one block of 256 threads per (row, tile of kCtTileFrames frames),
-// the kCtTileFrames + 1 chunks of both signals. (1) Folds, straight from
-// device memory: one thread per (chunk, t < 64) reads x[t + 64 i], i = 0..3,
-// and writes the fifteen branch values at t (the real branch 0, seven
-// complex branches) to shared memory; the chunk Nyquist bins (alternating
-// sums) go through shared memory too. (2) Branch DFTs: warp w is branch w,
-// lane m is bin 8 m + w; every lane reads the branch's value at t as a
-// broadcast and its own column of the 64 x 32 cos | sin table (the JAX
-// package's w0, in shared memory), and keeps one accumulator pair per
-// chunk. (3) Frame combine X_f = Z_{f-1} + (-1)^br Z_f ((-1)^k = (-1)^br for
-// k = 8 m + br), written at its natural bin k: the TPU kernel's Hann in the
-// scrambled layout, with its two carries between branch 0 and branch 7, is
-// then A1's Hann over neighbouring bins in shared memory. (4) As A1: one
-// warp per frame, the log ratio over 257 bins, the tile's sum of roots.
-// Bound on this card: bytes, as A1 (0.04 ms at 64 x 16 s); its own
-// operations are half of A1's, about 15.7 GFLOP at 64 x 16 s (0.24 ms).
-constexpr int kCtTileFrames = 8;
-constexpr int kCtChunks = kCtTileFrames + 1;  // per signal
-constexpr int kCtBranch = 128;                // floats per branch: re[64] | im[64]
-constexpr int kCtFoldFloats = 2 * kCtChunks * 8 * kCtBranch;
-constexpr int kCtSpecFloats = 2 * 2 * kCtTileFrames * kRow;
-constexpr int kCtTableFloats = 64 * 64;
-constexpr int kCtSmemFloats =
-    (kCtFoldFloats > kCtSpecFloats ? kCtFoldFloats : kCtSpecFloats) + kCtTableFloats;
+// Design: a persistent grid, two blocks of 256 threads per SM (88 KB of
+// shared memory each), each walking tiles of 63 frames (chunks f0 - 1 ..
+// f0 + 62: one halo chunk in 64, 1.6 % read twice), in steps of 4 chunks
+// of each signal (8 items). A step's chunks are staged by cp.async,
+// issued a step ahead (across tiles too), so the loads run under the
+// previous step's FFTs, and the two blocks of an SM overlap one another's
+// phases. Per step: (1) thread (j1, j2, item, n2) folds the 32 samples
+// x[8 n1 + n2 + 64 i] into its two branches br = j1 + 2 j2 + 4 j3 at
+// t = 8 n1 + n2, runs their DFT8s over n1 and writes them to shared memory
+// (rows padded against bank conflicts); thread (0, 0, item, n2) also the
+// chunk's Nyquist bin; (2) thread (item, br, k1) reads the 8 values over
+// n2 (float4), applies the twiddles W64^(n2 k1) and writes Z[br][k1 +
+// 8 k2], k2 = 0..3, into a ring of 5 chunk spectra per signal (this
+// step's 4 and the one before); (3) warps w and w + 4 take frame 4 s + w - 1 of the
+// tile, branches 0-3 and 4-7: lane m combines the two chunks' branches at
+// its m (and the neighbour branch on each side), takes the carry
+// neighbour by shuffle, and sums the log ratio over its 4 bins (lane 31 of
+// the second also bin 256; the quotient by common.cuh's div_rn, the
+// correctly rounded one without __fdiv_rn's branch, which is faster:
+// tools/probe_lsd_fft.py); each warp's sum in a fixed butterfly, the
+// frame's root of the two halves at the tile's end, the tile's 63 roots in
+// a fixed order, and a second launch adds a row's tiles in order: no
+// atomics, two launches give the same bits. Bound on this card: bytes, as
+// A1 (0.04 ms at 64 x 16 s); the kernel's own float32 operations about 2
+// GFLOP at 64 x 16 s (0.03 ms), its 257 logs, roots and divisions a frame,
+// and the shared-memory traffic of its three passes.
+namespace fft {
 
-__global__ void __launch_bounds__(kThreads) lsd_ct_kernel(
-    const float* __restrict__ c, const float* __restrict__ d,
-    const float* __restrict__ scale_partial, const float* __restrict__ scale_given,
-    const float* __restrict__ tw, const float* __restrict__ w0, float* __restrict__ partial,
-    int nc, int n_frames, int n_tiles, float eps) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* fold = smem;                                  // [2][kCtChunks][8][kCtBranch]
-  float* table = smem + (kCtSmemFloats - kCtTableFloats);  // [64][64]: cos | sin
-  __shared__ float nyq_part[2][kCtChunks][2];
-  __shared__ float red[kWarps];
-  __shared__ float s_scale;
+constexpr int kTileFrames = 63;           // frames per tile
+constexpr int kStepChunks = 4;            // chunks of each signal per step
+constexpr int kSteps = (kTileFrames + 1) / kStepChunks;  // 16: the tile's 64 chunks
+constexpr int kItems = 2 * kStepChunks;   // (signal, chunk) items of a step
+constexpr int kThreads = 32 * kItems;     // phase (1): 4 threads x 8 n2 an item
+constexpr int kBlocksPerSm = 2;
+constexpr int kXStride = kHop + 8;        // floats per staged chunk
+constexpr int kYRow = 10;                 // complex per (item, branch, k1) row: n2 = 0..7, padded
+constexpr int kYItem = 8 * 8 * kYRow + 8;  // complex per item, padded
+constexpr int kZRow = 40;                 // complex per (slot, signal, branch) row: m = 0..31, padded
+constexpr int kSlots = kStepChunks + 1;   // chunk spectra ring: a step's chunks and the one before
 
-  const int b = blockIdx.y, tile = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int f0 = tile * kCtTileFrames;
-  const int g0 = f0 - 1;  // chunk index of local chunk 0
-  const long long t_len = (long long)nc * kHop;
-  if (tid == 0) {
-    if (scale_given != nullptr) {
-      s_scale = scale_given[b];
-    } else {
-      float num = 0.f, den = 0.f;
-      for (int i = 0; i < kScaleSplits; ++i) {
-        num += scale_partial[((size_t)b * kScaleSplits + i) * 2];
-        den += scale_partial[((size_t)b * kScaleSplits + i) * 2 + 1];
-      }
-      s_scale = num / (den + eps);
-    }
-  }
-  for (int i = tid; i < kCtTableFloats; i += kThreads) table[i] = w0[i];
-  __syncthreads();
-  const float sc = s_scale;
+struct Smem {
+  float x[2][kItems][kXStride];        // staged chunks, two steps
+  float2 y[kItems][kYItem];            // after the first radix-8 stage: [br][k1][n2]
+  float2 z[kSlots][2][8][kZRow];       // chunk spectra Z[br][m] of each signal, bin 8 m + br
+  float nyq[kSlots][2];                // chunk Nyquist bins
+  float2 w1[256], w2[128], w3[64], w64[64];
+  float part[2][kTileFrames + 1];       // per frame: the log-ratio sums of the two branch halves
+};
 
-  // (1) folds: item = (signal, chunk, t); branch values at t to shared memory
-  for (int item = tid; item < 2 * kCtChunks * 64; item += kThreads) {
-    const int t = item & 63, sr = item >> 6;  // sr = signal * kCtChunks + chunk
-    const int s = sr / kCtChunks, r = sr % kCtChunks;
-    const int g = g0 + r;
-    float xv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v = 0.f;
-      if (g >= 0 && g < nc) {
-        const size_t off = (size_t)b * t_len + (size_t)g * kHop + t + 64 * i;
-        v = s == 0 ? c[off] : d[off] * sc;
-      }
-      xv[i] = v;
-    }
-    // L1: b1 = x w1 (b0 = x); L2 pairs (t, t+128) and (t+64, t+192)
-    float b1re[4], b1im[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      b1re[i] = xv[i] * __ldg(tw + t + 64 * i);
-      b1im[i] = xv[i] * __ldg(tw + 256 + t + 64 * i);
-    }
-    float e00[2], o01re[2], o01im[2], e10re[2], e10im[2], o11re[2], o11im[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // L2 position t + 64 h
-      const float w2re = __ldg(tw + 2 * 256 + t + 64 * h), w2im = __ldg(tw + 3 * 256 + t + 64 * h);
-      e00[h] = xv[h] + xv[h + 2];
-      const float d0 = xv[h] - xv[h + 2];
-      o01re[h] = d0 * w2re;
-      o01im[h] = d0 * w2im;
-      e10re[h] = b1re[h] + b1re[h + 2];
-      e10im[h] = b1im[h] + b1im[h + 2];
-      const float dre = b1re[h] - b1re[h + 2], dim = b1im[h] - b1im[h + 2];
-      o11re[h] = dre * w2re - dim * w2im;
-      o11im[h] = dre * w2im + dim * w2re;
-    }
-    // L3 pairs (t, t+64) of each 128-long half-result, twiddle w3[t]
-    const float w3re = __ldg(tw + 4 * 256 + t), w3im = __ldg(tw + 5 * 256 + t);
-    float* dst = fold + (size_t)sr * 8 * kCtBranch;
-    dst[0 * kCtBranch + t] = e00[0] + e00[1];  // br 0, real
-    const float d00 = e00[0] - e00[1];
-    dst[4 * kCtBranch + t] = d00 * w3re;  // br 4
-    dst[4 * kCtBranch + 64 + t] = d00 * w3im;
-    auto l3c = [&](const float* vre, const float* vim, int lo_br) {  // complex: br lo_br, lo_br + 4
-      dst[lo_br * kCtBranch + t] = vre[0] + vre[1];
-      dst[lo_br * kCtBranch + 64 + t] = vim[0] + vim[1];
-      const float dre = vre[0] - vre[1], dim = vim[0] - vim[1];
-      dst[(lo_br + 4) * kCtBranch + t] = dre * w3re - dim * w3im;
-      dst[(lo_br + 4) * kCtBranch + 64 + t] = dre * w3im + dim * w3re;
-    };
-    l3c(e10re, e10im, 1);
-    l3c(o01re, o01im, 2);
-    l3c(o11re, o11im, 3);
-    // chunk Nyquist bin: sum over n of (-1)^n x[n], (-1)^(t + 64 i) = (-1)^t
-    float alt = (xv[0] + xv[1]) + (xv[2] + xv[3]);
-    alt = (t & 1) ? -alt : alt;
-    alt = fsem::warp_sum(alt);  // 32 consecutive t of one (signal, chunk)
-    if (lane == 0) nyq_part[s][r][t >> 5] = alt;
-  }
-  __syncthreads();
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+__device__ __forceinline__ float2 rmul(float a, float2 w) { return make_float2(a * w.x, a * w.y); }
+__device__ __forceinline__ float2 mul_mi(float2 a) { return make_float2(a.y, -a.x); }  // a (-i)
 
-  // (2) branch DFTs: warp = branch br, lane = m; bin k = 8 m + br
-  const int br = warp, m = lane;
-  float acc_re[2][kCtChunks], acc_im[2][kCtChunks];
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int r = 0; r < kCtChunks; ++r) {
-      acc_re[s][r] = 0.f;
-      acc_im[s][r] = 0.f;
-    }
-  const float* fb = fold + br * kCtBranch;
-  for (int t = 0; t < 64; ++t) {
-    const float cw = table[t * 64 + m], sw = table[t * 64 + 32 + m];
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int r = 0; r < kCtChunks; ++r) {
-        const float* v = fb + (size_t)(s * kCtChunks + r) * 8 * kCtBranch;
-        const float vre = v[t];
-        if (br == 0) {  // real branch
-          acc_re[s][r] = fmaf(vre, cw, acc_re[s][r]);
-          acc_im[s][r] = fmaf(vre, sw, acc_im[s][r]);
-        } else {  // Re += re c - im s, Im += re s + im c
-          const float vim = v[64 + t];
-          acc_re[s][r] = fmaf(vre, cw, fmaf(-vim, sw, acc_re[s][r]));
-          acc_im[s][r] = fmaf(vre, sw, fmaf(vim, cw, acc_im[s][r]));
-        }
-      }
-  }
-  __syncthreads();  // every warp is done with the folds: reuse the space
-
-  // (3) frame spectra at their natural bins, k = 8 m + br
-  float* spec_re = smem;
-  float* spec_im = smem + 2 * kCtTileFrames * kRow;
-  const int k = 8 * m + br;
-  const float sgn = (br & 1) ? -1.f : 1.f;
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int f = 0; f < kCtTileFrames; ++f) {
-      spec_re[(s * kCtTileFrames + f) * kRow + k] = acc_re[s][f] + sgn * acc_re[s][f + 1];
-      spec_im[(s * kCtTileFrames + f) * kRow + k] = acc_im[s][f] + sgn * acc_im[s][f + 1];
-    }
-  if (tid < 2 * kCtTileFrames) {  // Nyquist bin: (-1)^256 = +1, imaginary part 0
-    const int s = tid / kCtTileFrames, f = tid % kCtTileFrames;
-    const float q0 = nyq_part[s][f][0] + nyq_part[s][f][1];
-    const float q1 = nyq_part[s][f + 1][0] + nyq_part[s][f + 1][1];
-    spec_re[(s * kCtTileFrames + f) * kRow + kBins] = q0 + q1;
-    spec_im[(s * kCtTileFrames + f) * kRow + kBins] = 0.f;
-  }
-  __syncthreads();
-
-  // (4) per frame: mean over bins of the squared log ratio, then its sqrt
-  float total = 0.f;
-  for (int f = warp; f < kCtTileFrames && f0 + f < n_frames; f += kWarps) {
-    const float* cre = spec_re + f * kRow;
-    const float* cim = spec_im + f * kRow;
-    const float* dre = spec_re + (kCtTileFrames + f) * kRow;
-    const float* dim = spec_im + (kCtTileFrames + f) * kRow;
-    float acc = 0.f;
-    for (int kk = lane; kk <= kBins; kk += 32) {
-      const float pc = hann_power(cre, cim, kk);
-      const float pd = hann_power(dre, dim, kk);
-      const float dm = sqrtf(pd) + eps;
-      const float lr = logf(pc / (dm * dm) + eps);
-      acc = fmaf(lr, lr, acc);
-    }
-    acc = fsem::warp_sum(acc);
-    total += sqrtf(acc / (float)(kBins + 1));
-  }
-  if (lane == 0) red[warp] = total;
-  __syncthreads();
-  if (tid == 0) {
-    float sum = 0.f;
-    for (int w = 0; w < kWarps; ++w) sum += red[w];
-    partial[(size_t)b * n_tiles + tile] = sum;
+// DFT8 of v in place, natural order: a DIF radix-2 level (pairs n, n + 4,
+// twiddles W8^n), then a DFT4 of the sums (even outputs) and of the
+// differences (odd outputs); DFT4(p) = [q0 + q1, q2 + q3, q0 - q1, q2 - q3]
+// with q0 = p0 + p2, q1 = p1 + p3, q2 = p0 - p2, q3 = (p1 - p3)(-i).
+// kHalf: outputs 0..3 only.
+template <bool kHalf>
+__device__ __forceinline__ void dft8(float2 (&v)[8], float2 w8_1, float2 w8_3) {
+  const float2 a0 = cadd(v[0], v[4]), a1 = cadd(v[1], v[5]), a2 = cadd(v[2], v[6]), a3 = cadd(v[3], v[7]);
+  const float2 b0 = csub(v[0], v[4]), b1 = cmul(csub(v[1], v[5]), w8_1);
+  const float2 b2 = mul_mi(csub(v[2], v[6])), b3 = cmul(csub(v[3], v[7]), w8_3);
+  const float2 qa0 = cadd(a0, a2), qa1 = cadd(a1, a3), qa2 = csub(a0, a2), qa3 = mul_mi(csub(a1, a3));
+  const float2 qb0 = cadd(b0, b2), qb1 = cadd(b1, b3), qb2 = csub(b0, b2), qb3 = mul_mi(csub(b1, b3));
+  v[0] = cadd(qa0, qa1);
+  v[1] = cadd(qb0, qb1);
+  v[2] = cadd(qa2, qa3);
+  v[3] = cadd(qb2, qb3);
+  if constexpr (!kHalf) {
+    v[4] = csub(qa0, qa1);
+    v[5] = csub(qb0, qb1);
+    v[6] = csub(qa2, qa3);
+    v[7] = csub(qb2, qb3);
   }
 }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  const int n = valid ? 16 : 0;  // 0: zero fill
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n) : "memory");
+}
+
+// the 16 chunks of step s of tile `tile` of row `row` into stage buf,
+// zeros for chunks before 0 or past the row
+__device__ __forceinline__ void load_step(Smem& sm, int buf, const float* c, const float* d, int row, int tile,
+                                          int s, int nc, int tid) {
+  const size_t row_off = (size_t)row * nc * kHop;
+#pragma unroll
+  for (int r = 0; r < kItems * kHop / 4 / kThreads; ++r) {
+    const int idx = tid + r * kThreads;  // (item, 16-byte piece)
+    const int item = idx >> 6, piece = idx & 63;
+    const int g = tile * kTileFrames - 1 + kStepChunks * s + item % kStepChunks;
+    const bool valid = g >= 0 && g < nc;
+    const float* src = (item >= kStepChunks ? d : c) + row_off + (valid ? (size_t)g * kHop + piece * 4 : 0);
+    cp_async16(&sm.x[buf][item][piece * 4], src, valid);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) lsd_fft_kernel(
+    const float* __restrict__ c, const float* __restrict__ d, const float* __restrict__ scale_partial,
+    const float* __restrict__ scale_given, const float* __restrict__ tw, const float* __restrict__ w0,
+    float* __restrict__ partial, int nc, int n_frames, int n_tiles, int total_tiles, float eps) {
+  extern __shared__ float4 smem4[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < 256; i += kThreads) {
+    sm.w1[i] = make_float2(tw[i], tw[256 + i]);
+    if (i < 128) sm.w2[i] = make_float2(tw[2 * 256 + i], tw[3 * 256 + i]);
+    if (i < 64) {
+      sm.w3[i] = make_float2(tw[4 * 256 + i], tw[5 * 256 + i]);
+      sm.w64[i] = make_float2(w0[i * 64 + 1], w0[i * 64 + 33]);  // exp(-2 pi i t / 64)
+    }
+  }
+  const int my_tiles = (total_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int n_items = my_tiles * kSteps;
+  auto tile_of = [&](int it) { return (int)blockIdx.x + it / kSteps * (int)gridDim.x; };
+  load_step(sm, 0, c, d, tile_of(0) / n_tiles, tile_of(0) % n_tiles, 0, nc, tid);
+  float sc = 1.f;
+  for (int it = 0; it < n_items; ++it) {
+    const int t_id = tile_of(it), s = it % kSteps, row = t_id / n_tiles, tile = t_id % n_tiles;
+    if (it + 1 < n_items) {
+      const int t_next = tile_of(it + 1);
+      load_step(sm, (it + 1) & 1, c, d, t_next / n_tiles, t_next % n_tiles, (it + 1) % kSteps, nc, tid);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+    if (s == 0) {  // the row's scale, the same bits in every thread
+      if (scale_given != nullptr) {
+        sc = scale_given[row];
+      } else {
+        float num = 0.f, den = 0.f;
+        for (int i = 0; i < kScaleSplits; ++i) {
+          num += scale_partial[((size_t)row * kScaleSplits + i) * 2];
+          den += scale_partial[((size_t)row * kScaleSplits + i) * 2 + 1];
+        }
+        sc = num / (den + eps);
+      }
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const float2 w8_1 = sm.w64[8], w8_3 = sm.w64[24];
+
+    // (1) folds and the radix-8 stage over n1: thread (j1, j2, item, n2)
+    // takes the branches br = j1 + 2 j2 + 4 j3, j3 = 0, 1
+    {
+      const int j1 = tid / (8 * kItems) & 1, j2 = tid / (16 * kItems), item = tid / 8 % kItems, n2 = tid & 7;
+      const float* xs = sm.x[it & 1][item];
+      const float xscale = item >= kStepChunks ? sc : 1.f;
+      float x[4][8];  // x[i][n1] = x[8 n1 + n2 + 64 i]
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n1 = 0; n1 < 8; ++n1) x[i][n1] = xs[8 * n1 + n2 + 64 * i] * xscale;
+      float2 bv[2][8];  // branches j1 + 2 j2 (L3 sums) and j1 + 2 j2 + 4 (L3 differences) at t = 8 n1 + n2
+#pragma unroll
+      for (int n1 = 0; n1 < 8; ++n1) {
+        const int t = 8 * n1 + n2;
+        const float2 w3 = sm.w3[t];
+        float2 h0, h1;  // the L2 halves at t and t + 64
+        if (j1 == 0) {  // b0 = x: even stays real (branch 0 real)
+          if (j2 == 0) {
+            h0 = make_float2(x[0][n1] + x[2][n1], 0.f);
+            h1 = make_float2(x[1][n1] + x[3][n1], 0.f);
+          } else {
+            h0 = rmul(x[0][n1] - x[2][n1], sm.w2[t]);
+            h1 = rmul(x[1][n1] - x[3][n1], sm.w2[t + 64]);
+          }
+        } else {  // L1: b1 = x w1, complex
+          float2 b1[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) b1[i] = rmul(x[i][n1], sm.w1[t + 64 * i]);
+          if (j2 == 0) {
+            h0 = cadd(b1[0], b1[2]);
+            h1 = cadd(b1[1], b1[3]);
+          } else {
+            h0 = cmul(csub(b1[0], b1[2]), sm.w2[t]);
+            h1 = cmul(csub(b1[1], b1[3]), sm.w2[t + 64]);
+          }
+        }
+        bv[0][n1] = cadd(h0, h1);
+        bv[1][n1] = (j1 | j2) ? cmul(csub(h0, h1), w3) : rmul(h0.x - h1.x, w3);
+      }
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        dft8<false>(bv[b], w8_1, w8_3);
+        float2* yr = &sm.y[item][(j1 + 2 * j2 + 4 * b) * 8 * kYRow + n2];
+#pragma unroll
+        for (int k1 = 0; k1 < 8; ++k1) yr[k1 * kYRow] = bv[b][k1];
+      }
+      if (j1 == 0 && j2 == 0) {  // the chunk's Nyquist bin: sum of (-1)^n x[n], (-1)^n = (-1)^n2 here
+        float alt = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int n1 = 0; n1 < 8; ++n1) alt += x[i][n1];
+        alt = (n2 & 1) ? -alt : alt;
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) alt += __shfl_xor_sync(fsem::kFullMask, alt, o);
+        if (n2 == 0) sm.nyq[(kStepChunks * s + item % kStepChunks) % kSlots][item >= kStepChunks] = alt;
+      }
+    }
+    __syncthreads();
+
+    // (2) the twiddles W64^(n2 k1) and the radix-8 stage over n2, outputs
+    // k2 = 0..3: thread (item, br, k1)
+#pragma unroll
+    for (int r = 0; r < kItems * 64 / kThreads; ++r) {
+      const int item = r * (kThreads / 64) + (tid >> 6), br = (tid >> 3) & 7, k1 = tid & 7;
+      const float4* yr = reinterpret_cast<const float4*>(&sm.y[item][(br * 8 + k1) * kYRow]);
+      float2 v[8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 a = yr[q];
+        v[2 * q] = make_float2(a.x, a.y);
+        v[2 * q + 1] = make_float2(a.z, a.w);
+      }
+#pragma unroll
+      for (int n2 = 1; n2 < 8; ++n2) v[n2] = cmul(v[n2], sm.w64[n2 * k1]);  // W64^(n2 k1)
+      dft8<true>(v, w8_1, w8_3);
+      float2* zr = sm.z[(kStepChunks * s + item % kStepChunks) % kSlots][item >= kStepChunks][br];
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) zr[k1 + 8 * k2] = v[k2];
+    }
+    __syncthreads();
+
+    // (3) frame q - 1 of the tile (chunks q - 1 and q), q = 4 s + warp % 4,
+    // branches 4 h .. 4 h + 3 of it, h = warp / 4: lane m holds bins
+    // 8 m + br; it also forms the neighbour branches 4 h - 1 and 4 h + 4
+    const int q = kStepChunks * s + warp % kStepChunks, h = warp / kStepChunks;
+    if (q >= 1) {
+      const int f = tile * kTileFrames + q - 1;
+      float acc = 0.f;
+      if (f < n_frames) {
+        const int sa = (q - 1) % kSlots, sb = q % kSlots;
+        const int m = lane;
+        float2 xs[2][6];  // branches (4 h - 1 + j) & 7, j = 0..5
+        float xn[2];
+#pragma unroll
+        for (int sig = 0; sig < 2; ++sig) {
+#pragma unroll
+          for (int j = 0; j < 6; ++j) {
+            const int br = (4 * h - 1 + j) & 7;
+            const float2 za = sm.z[sa][sig][br][m], zb = sm.z[sb][sig][br][m];
+            xs[sig][j] = (br & 1) ? csub(za, zb) : cadd(za, zb);
+          }
+          xn[sig] = sm.nyq[sa][sig] + sm.nyq[sb][sig];  // (-1)^256 = +1
+        }
+        float2 left[2], right[2];
+#pragma unroll
+        for (int sig = 0; sig < 2; ++sig) {
+          // h = 0: bin 8 m - 1 is lane m - 1's branch 7 (bin 0: conj X[1]);
+          // h = 1: bin 8 m + 8 is lane m + 1's branch 0 (bin 256: the real
+          // Nyquist)
+          const float2 up = make_float2(__shfl_up_sync(fsem::kFullMask, xs[sig][0].x, 1),
+                                        __shfl_up_sync(fsem::kFullMask, xs[sig][0].y, 1));
+          const float2 down = make_float2(__shfl_down_sync(fsem::kFullMask, xs[sig][5].x, 1),
+                                          __shfl_down_sync(fsem::kFullMask, xs[sig][5].y, 1));
+          left[sig] = h == 1 ? xs[sig][0] : (m == 0 ? make_float2(xs[sig][2].x, -xs[sig][2].y) : up);
+          right[sig] = h == 0 ? xs[sig][5] : (m == 31 ? make_float2(xn[sig], 0.f) : down);
+        }
+#pragma unroll
+        for (int j = 1; j <= 4; ++j) {
+          float p[2];
+#pragma unroll
+          for (int sig = 0; sig < 2; ++sig) {
+            const float2 l = j > 1 ? xs[sig][j - 1] : left[sig];
+            const float2 rt = j < 4 ? xs[sig][j + 1] : right[sig];
+            const float yr = 0.5f * xs[sig][j].x - 0.25f * (l.x + rt.x);
+            const float yi = 0.5f * xs[sig][j].y - 0.25f * (l.y + rt.y);
+            p[sig] = yr * yr + yi * yi;
+          }
+          const float dm = sqrtf(p[1]) + eps;
+          const float dd = dm * dm;
+          const float lr = logf(fsem::div_rn(p[0], dd, fsem::rcp_rn(dd)) + eps);
+          acc = fmaf(lr, lr, acc);
+        }
+        if (h == 1 && m == 31) {  // bin 256: X[257] = conj X[255], imaginary part 0
+          const float yc = 0.5f * xn[0] - 0.25f * (xs[0][4].x + xs[0][4].x);
+          const float yd = 0.5f * xn[1] - 0.25f * (xs[1][4].x + xs[1][4].x);
+          const float dm = sqrtf(yd * yd) + eps;
+          const float dd = dm * dm;
+          const float lr = logf(fsem::div_rn(yc * yc, dd, fsem::rcp_rn(dd)) + eps);
+          acc = fmaf(lr, lr, acc);
+        }
+        acc = fsem::warp_sum(acc);
+      }
+      if (lane == 0) sm.part[h][q - 1] = acc;
+    }
+    if (s == kSteps - 1) {  // the tile's frame roots, added in a fixed order
+      __syncthreads();
+      if (warp == 0) {
+        const int f2 = lane + 32 < kTileFrames ? lane + 32 : lane;
+        const float r0 = sqrtf((sm.part[0][lane] + sm.part[1][lane]) / (float)(kHop + 1));
+        const float r1 = sqrtf((sm.part[0][f2] + sm.part[1][f2]) / (float)(kHop + 1));
+        float v = r0 + (lane + 32 < kTileFrames ? r1 : 0.f);
+        v = fsem::warp_sum(v);
+        if (lane == 0) partial[(size_t)row * n_tiles + tile] = v;
+      }
+    }
+  }
+}
+
+}  // namespace fft
 
 __global__ void lsd_finalize_kernel(const float* __restrict__ partial,
                                     float* __restrict__ out, int n_tiles,
@@ -708,12 +812,14 @@ extern "C" int fsem_lsd_split(const float* clean, const float* denoised, float* 
 // A13. clean, denoised: (batch, nc * 256) float32; scale: (batch,) float32
 // or null (then computed here, as A1); tw: (8, 256) fold twiddles; w0:
 // (64, 64) branch DFT cos | sin table; scale_partial: (batch, 16, 2)
-// scratch; partial: (batch, ceil((nc + 1) / 8)) scratch; out: (batch,).
+// scratch; partial: (batch, ceil((nc + 1) / 63)) scratch; out: (batch,).
+// clean and denoised 16-byte aligned (cp.async).
 extern "C" int fsem_lsd_wholesig_ct(const float* clean, const float* denoised,
                                     const float* scale, const float* tw, const float* w0,
                                     float* scale_partial, float* partial, float* out,
                                     int batch, int nc, float eps, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (batch <= 0 || nc <= 0 || ((uintptr_t)clean | (uintptr_t)denoised) % 16) return (int)cudaErrorInvalidValue;
   const long long t_len = (long long)nc * kHop;
   if (scale == nullptr) {
     lsd_scale_kernel<<<dim3(kScaleSplits, batch), 256, 0, stream>>>(
@@ -722,13 +828,22 @@ extern "C" int fsem_lsd_wholesig_ct(const float* clean, const float* denoised,
     if (err != cudaSuccess) return (int)err;
   }
   const int n_frames = nc + 1;
-  const int n_tiles = (n_frames + kCtTileFrames - 1) / kCtTileFrames;
-  const size_t smem = kCtSmemFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(lsd_ct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  const int n_tiles = (n_frames + fft::kTileFrames - 1) / fft::kTileFrames;
+  const long long total_tiles = (long long)batch * n_tiles;
+  if (total_tiles > (1ll << 30)) return (int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fft::lsd_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)sizeof(fft::Smem));
   if (err != cudaSuccess) return (int)err;
-  lsd_ct_kernel<<<dim3(n_tiles, batch), kThreads, smem, stream>>>(
-      clean, denoised, scale_partial, scale, tw, w0, partial, nc, n_frames, n_tiles, eps);
+  const long long slots = (long long)sms * fft::kBlocksPerSm;
+  const int grid = (int)(total_tiles < slots ? total_tiles : slots);
+  fft::lsd_fft_kernel<<<grid, fft::kThreads, sizeof(fft::Smem), stream>>>(
+      clean, denoised, scale_partial, scale, tw, w0, partial, nc, n_frames, n_tiles, (int)total_tiles, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
   lsd_finalize_kernel<<<batch, 32, 0, stream>>>(partial, out, n_tiles, n_frames);
   return (int)cudaGetLastError();
 }

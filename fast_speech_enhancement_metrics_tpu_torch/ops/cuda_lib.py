@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -30,12 +31,12 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 HEADERS = (
     "common.cuh", "attention_core.cuh", "block_tiles.cuh", "block_stages.cuh", "sm90.cuh", "flash_sm90.cuh",
-    "gemm_sm90.cuh", "sdr_halves.cuh",
+    "gemm_sm90.cuh", "sdr_halves.cuh", "levinson.cuh",
 )
 SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
     "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu", "layer_block.cu",
-    "attn_block_int8.cu",
+    "attn_block_int8.cu", "levinson_flat.cu", "levinson_dotreduce.cu", "levinson_double.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -122,7 +123,8 @@ def build() -> Path:
 
     Raises ``RuntimeError`` with the compiler's output if a source fails.
     Each source's compiler output (``-Xptxas -v``: registers, shared
-    memory, spills) is kept beside the library as ``<source>.log``.
+    memory, spills), then its wall time from the start of the build, is
+    kept beside the library as ``<source>.log``.
     """
     so = library_path()
     if so.exists():
@@ -141,9 +143,16 @@ def build() -> Path:
                 stdout=log, stderr=subprocess.STDOUT,
             )
         jobs.append((name, obj, log_path, proc))
+    t0, pending = time.perf_counter(), list(jobs)
+    while pending:  # each source's wall time, appended to its log
+        for job in [j for j in pending if j[3].poll() is not None]:
+            pending.remove(job)
+            with open(job[2], "a") as log:
+                log.write(f"nvcc wall seconds: {time.perf_counter() - t0:.1f}\n")
+        time.sleep(0.05)
     failed = []
     for name, _, log_path, proc in jobs:
-        if proc.wait() != 0:
+        if proc.returncode != 0:
             failed.append(f"--- {name}\n{log_path.read_text()}")
     objs = [str(obj) for _, obj, _, _ in jobs]
     try:

@@ -10,13 +10,14 @@ Counterpart of the JAX package's ``ops/lsd_fused.py`` and of its
 * A3 (``_lsd_framed_kernel``): the same function past that, frame-blocked;
 * A13 (``_lsd_wholesig_ct_kernel``, ``dft_impl="ct"``): A1's function with
   the 512-point chunk DFT factorized into three radix-2 DIF folds and eight
-  64-point branch DFTs (``_ct_constants``), at half the multiply-adds.
+  64-point branch DFTs (``_ct_constants``); on the card each branch DFT is
+  a float32 FFT (``_ct_fft_reference`` spells out its dataflow).
 
 On the card A1-A3 are one frame-tile kernel on the tensor cores,
 ``csrc/lsd_fused.cu``: A1 with the projection scale applied in its split
 pass, A2 and A3 without (one C entry point, counted under each kernel's own
-name); A13 is a second, float32 frame-tile kernel in the same source. Three
-ideas carry them:
+name); A13 is a second kernel in the same source, a float32 FFT over
+tiles of 63 frames. Three ideas carry them:
 
 * **Shared-chunk DFT.** With hop = n_fft/2, frame f = [chunk_{f-1} |
   chunk_f] of the centered signal, so the frame spectrum is X_f[k] =
@@ -72,8 +73,13 @@ _GROUP_FRAMES = 127
 KERNEL_SPLIT = "lsd_split"
 #: blocks per row of the kernel's scale reduction (kScaleSplits)
 _SCALE_SPLITS = 16
-#: frames per block of A13's kernel (kCtTileFrames)
-_CT_TILE_FRAMES = 8
+#: frames per tile of A13's kernel (fft::kTileFrames); a tile transforms
+#: 64 chunks of each signal
+_CT_TILE_FRAMES = 63
+#: float32 operations of A13's FFT per chunk and signal (``fft::``): the
+#: folds 4 480, 64 DFT8s 3 840, the W64 twiddles 3 072, 64 half DFT8s
+#: 3 328, the Nyquist bin 256
+CT_FFT_OPS = 14976
 
 
 def _hann_power(xre: torch.Tensor, xim: torch.Tensor, xnyq: torch.Tensor) -> torch.Tensor:
@@ -256,6 +262,103 @@ def _ct_frame_powers(chunks: torch.Tensor) -> torch.Tensor:
     q = F.pad(q, (0, 0, 1, 1))
     sign = torch.tensor([1.0, -1.0] * 4, device=z.device, dtype=z.dtype)[:, None]
     return _ct_hann_power(z[:, :-1] + sign * z[:, 1:], q[:, :-1] + q[:, 1:])
+
+
+def _ct_fft_reference(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A13's chunk FFT on the card (``csrc/lsd_fused.cu``, ``fft::``) as a
+    torch dataflow: (..., NC, 256) real chunks -> the one-sided spectrum of
+    each zero-padded chunk, (re, im) (..., NC, 256) in natural bin order,
+    and the chunk Nyquist bins (..., NC, 1).
+
+    ``_ct_branch_spectra``'s three folds, then each branch's 64-point DFT
+    as an FFT: with t = 8 n1 + n2 and m = k1 + 8 k2, a DFT8 over n1 (a DIF
+    radix-2 level with the twiddles W8^n, then two DFT4s), the twiddles
+    W64^(n2 k1), and a DFT8 over n2 of which k2 = 0..3 is kept; bin
+    8 m + br. The twiddles are ``_ct_constants``' (W64^j from ``w0``'s
+    column m = 1). The kernel runs the same operations in float32 (its
+    compiler may fuse a product and a sum into one rounding)."""
+    tw, w0, _ = (device_table(a, x.device).to(x.dtype) for a in _ct_constants())
+    w1re, w1im = tw[0], tw[1]
+    w2re, w2im = tw[2, :128], tw[3, :128]
+    w3re, w3im = tw[4, :64], tw[5, :64]
+    w64re, w64im = w0[:, 1], w0[:, 33]  # exp(-2 pi i j / 64), j = 0..63
+
+    def cmul(are, aim, wre, wim):
+        return are * wre - aim * wim, are * wim + aim * wre
+
+    def fold(vre, vim, half, wre, wim):
+        are, bre = vre[..., :half], vre[..., half:]
+        if vim is None:
+            d = are - bre
+            return (are + bre, torch.zeros_like(are)), (d * wre, d * wim)
+        aim, bim = vim[..., :half], vim[..., half:]
+        return (are + bre, aim + bim), cmul(are - bre, aim - bim, wre, wim)
+
+    e00, o01 = fold(x, None, 128, w2re, w2im)
+    e10, o11 = fold(x * w1re, x * w1im, 128, w2re, w2im)
+    (br0, _), br4 = fold(e00[0], None, 64, w3re, w3im)
+    br1, br5 = fold(*e10, 64, w3re, w3im)
+    br2, br6 = fold(*o01, 64, w3re, w3im)
+    br3, br7 = fold(*o11, 64, w3re, w3im)
+    branches = (br0, torch.zeros_like(br0)), br1, br2, br3, br4, br5, br6, br7
+    bre = torch.stack([b[0] for b in branches], dim=-2)  # (..., NC, 8 br, 64 t)
+    bim = torch.stack([b[1] for b in branches], dim=-2)
+
+    def dft8(vre, vim, half):
+        """DFT8 over the last axis (n) -> the outputs k = 0..7 (0..3 with half)."""
+        w8 = (w64re[8], w64im[8]), (w64re[24], w64im[24])  # W8^1, W8^3
+        v = [(vre[..., n], vim[..., n]) for n in range(8)]
+        a = [(v[n][0] + v[n + 4][0], v[n][1] + v[n + 4][1]) for n in range(4)]
+        b = [(v[n][0] - v[n + 4][0], v[n][1] - v[n + 4][1]) for n in range(4)]
+        b[1] = cmul(*b[1], *w8[0])
+        b[2] = (b[2][1], -b[2][0])  # (-i)
+        b[3] = cmul(*b[3], *w8[1])
+        out = [None] * 8
+        for p, first in ((a, 0), (b, 1)):
+            q0 = (p[0][0] + p[2][0], p[0][1] + p[2][1])
+            q1 = (p[1][0] + p[3][0], p[1][1] + p[3][1])
+            q2 = (p[0][0] - p[2][0], p[0][1] - p[2][1])
+            q3 = (p[1][1] - p[3][1], -(p[1][0] - p[3][0]))
+            out[first] = (q0[0] + q1[0], q0[1] + q1[1])
+            out[first + 2] = (q2[0] + q3[0], q2[1] + q3[1])
+            out[first + 4] = (q0[0] - q1[0], q0[1] - q1[1])
+            out[first + 6] = (q2[0] - q3[0], q2[1] - q3[1])
+        out = out[:4] if half else out
+        return torch.stack([o[0] for o in out], dim=-1), torch.stack([o[1] for o in out], dim=-1)
+
+    # stage 1 over n1: (..., br, n2, n1) -> (..., br, n2, k1), twiddle W64^(n2 k1)
+    yre, yim = dft8(bre.unflatten(-1, (8, 8)).transpose(-1, -2), bim.unflatten(-1, (8, 8)).transpose(-1, -2), False)
+    j = torch.arange(8, device=x.device)
+    idx = j[:, None] * j[None, :]  # (n2, k1)
+    yre, yim = cmul(yre, yim, w64re[idx], w64im[idx])
+    # stage 2 over n2: (..., br, k1, n2) -> (..., br, k1, k2), m = k1 + 8 k2
+    zre, zim = dft8(yre.transpose(-1, -2), yim.transpose(-1, -2), True)
+    zre, zim = zre.transpose(-1, -2).flatten(-2), zim.transpose(-1, -2).flatten(-2)  # (..., br, m)
+    # bin k = 8 m + br
+    return zre.transpose(-1, -2).flatten(-2), zim.transpose(-1, -2).flatten(-2), _chunk_nyquist(x)
+
+
+def _lsd_ct_fft_reference(
+    clean: torch.Tensor, denoised: torch.Tensor, hop: int, eps: float, scale: torch.Tensor | None = None
+) -> torch.Tensor:
+    """A13's scores from ``_ct_fft_reference``'s spectra: as
+    ``_lsd_wholesig_ct_plain``, the frame combine X_f = Z_{f-1} +
+    (-1)^k Z_f over the zero chunks on both sides, then A1's Hann, log
+    ratio and per-frame root."""
+    batch, t = clean.shape
+    if scale is None:
+        scale = torch.sum(clean * denoised, dim=1, keepdim=True) / (
+            torch.sum(denoised * denoised, dim=1, keepdim=True) + eps
+        )
+
+    def powers(chunks):
+        zre, zim, q = (F.pad(a, (0, 0, 1, 1)) for a in _ct_fft_reference(chunks))
+        sign = 1.0 - 2.0 * (torch.arange(hop, device=chunks.device) % 2).to(chunks.dtype)
+        return _hann_power(zre[:, :-1] + sign * zre[:, 1:], zim[:, :-1] + sign * zim[:, 1:], q[:, :-1] + q[:, 1:])
+
+    c = clean.reshape(batch, t // hop, hop)
+    d = denoised.reshape(batch, t // hop, hop) * scale.reshape(batch, 1, 1)
+    return torch.mean(_frame_lsd(powers(c), powers(d), eps), dim=-1)
 
 
 def _lsd_wholesig_ct_plain(
@@ -448,6 +551,8 @@ def _lsd_wholesig_ct_cuda(
         scale = scale.reshape(batch)
         cuda_lib.check_operand(scale, "scale", dev, torch.float32, 1)
     tw, w0, _ = (device_table(a, dev) for a in _ct_constants())
+    # the kernel stages chunks with 16-byte copies
+    clean, denoised = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (clean, denoised))
     n_tiles = -(-(nc + 1) // _CT_TILE_FRAMES)
     scale_partial = torch.empty(batch, _SCALE_SPLITS, 2, device=dev, dtype=torch.float32)
     partial = torch.empty(batch, n_tiles, device=dev, dtype=torch.float32)

@@ -327,20 +327,50 @@ def test_lsd_split_kernel_is_plain(dev, t, scaled):
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
 
 
+def _lsd_f64(c, d_scaled, hop=256, eps=1e-8):
+    """LSD of pre-scaled pairs in float64: framed rfft of the centered,
+    periodic-Hann-windowed frames."""
+    c, d_scaled = c.double(), d_scaled.double()
+    t = c.shape[1]
+    frames = 1 + t // hop
+    win = torch.hann_window(2 * hop, periodic=True, dtype=torch.float64, device=c.device)
+
+    def power(x):
+        xp = torch.nn.functional.pad(x, (hop, (frames + 1) * hop - t - hop))
+        return torch.fft.rfft(xp.unfold(-1, 2 * hop, hop)[:, :frames] * win, dim=-1).abs() ** 2
+
+    dm = torch.sqrt(power(d_scaled)) + eps
+    lr = torch.log(power(c) / (dm * dm) + eps)
+    return torch.sqrt(torch.mean(lr * lr, dim=-1)).mean(dim=-1)
+
+
 @pytest.mark.parametrize("t,scale", [(256 * 64, None), (256 * 64, "given"), (256 * 8, None), (256 * 1016, None)])
 def test_lsd_ct_kernel_matches_plain(dev, t, scale):
-    """A13 against its plain version and against A1 (or A2 with a given
-    scale), rtol/atol 2e-4."""
+    """A13 (the float32 FFT kernel) against its plain version and against
+    A1 (or A2 with a given scale), rtol/atol 2e-4, two launches bit-equal;
+    on near-clean pairs of three noise seeds (c + 1e-3 max|c| noise) also
+    within 2e-4 of a float64 LSD."""
     c, d = _audio(dev, t=t)
     given = None if scale is None else torch.tensor([0.7, 1.0, 1.3], device=dev)
     before = cuda_lib.launch_counts[lsd_fused.KERNEL_A13]
     got = lsd_fused.lsd_wholesig_ct(c, d, 256, 1e-8, given)
     assert cuda_lib.launch_counts[lsd_fused.KERNEL_A13] == before + 1
+    assert torch.equal(got, lsd_fused.lsd_wholesig_ct(c, d, 256, 1e-8, given))
     want = lsd_fused._lsd_wholesig_ct_plain(c, d, 256, 1e-8, None if given is None else given[:, None])
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     dense = (lsd_fused.lsd_wholesig_raw(c, d, 256, 1e-8) if given is None
              else lsd_fused.lsd_wholesig(c, d * given[:, None], 256, 1e-8))
     torch.testing.assert_close(got, dense, rtol=2e-4, atol=2e-4)
+    for seed in range(3):
+        g = torch.Generator().manual_seed(seed)
+        near = (c + 1e-3 * c.abs().max() * torch.randn(c.shape, generator=g).to(dev)).contiguous()
+        got = lsd_fused.lsd_wholesig_ct(c, near, 256, 1e-8, given)
+        assert torch.equal(got, lsd_fused.lsd_wholesig_ct(c, near, 256, 1e-8, given))
+        s_ = (given[:, None] if given is not None else
+              torch.sum(c * near, dim=1, keepdim=True) / (torch.sum(near * near, dim=1, keepdim=True) + 1e-8))
+        want = lsd_fused._lsd_wholesig_ct_plain(c, near, 256, 1e-8, s_)
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(got.double(), _lsd_f64(c, near * s_), rtol=0, atol=2e-4)
 
 
 def _block_params(d, ffn, seed, qk_scale=0.12):

@@ -189,6 +189,38 @@ def test_lsd_ct_plain_matches_dense_on_speech(scale):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lsd_ct_fft_reference_matches_rfft(seed):
+    """A13's chunk FFT on the card as a torch dataflow
+    (``_ct_fft_reference``: the three folds, a DFT8 over n1, the W64
+    twiddles, the first half of a DFT8 over n2), run in float32 on speech
+    chunks and on noise, against ``torch.fft.rfft`` of the zero-padded
+    chunks in float64: within 1e-5 of max|X| (float32 round-off is about
+    1e-7), the Nyquist bin included."""
+    clean, noisy = _pairs(256 * 16 / 16000, rows=2, seed=seed)
+    rs = np.random.RandomState(seed)
+    chunks = torch.from_numpy(np.concatenate([clean, noisy, rs.randn(2, 256 * 16).astype(np.float32)]))
+    chunks = chunks.reshape(6, 16, 256)
+    zre, zim, nyq = lsd_fused._ct_fft_reference(chunks)
+    want = torch.fft.rfft(torch.nn.functional.pad(chunks.double(), (0, 256)), dim=-1)
+    scale = want.abs().max().item()
+    for got, exact in ((zre, want.real[..., :256]), (zim, want.imag[..., :256]), (nyq[..., 0], want.real[..., 256])):
+        assert (got.double() - exact).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("t,scale", [(256 * 16, None), (256 * 40, None), (256 * 16, (0.8, 1.3, 1.0))])
+def test_lsd_ct_fft_reference_matches_pallas_kernel(t, scale):
+    """The scores of A13's FFT dataflow (``_lsd_ct_fft_reference``) against
+    the JAX factorized kernel in interpret mode, with the scale computed or
+    given, rtol/atol 2e-4."""
+    clean, noisy = _noise_pairs(t, seed=6)
+    given = None if scale is None else torch.tensor(scale)[:, None]
+    ours = lsd_fused._lsd_ct_fft_reference(torch.from_numpy(clean), torch.from_numpy(noisy), 256, 1e-8, given)
+    theirs = jax_lsd_scores(clean, noisy, 512, 256, 1e-8, interpret=True,
+                            denoised_scale="auto" if scale is None else np.asarray(scale, np.float32), dft_impl="ct")
+    np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=2e-4, atol=2e-4)
+
+
 def test_lsd_ct_tables_are_jax_tables():
     from fast_speech_enhancement_metrics_tpu.ops.lsd_fused import _ct_constants as jax_ct_constants
 

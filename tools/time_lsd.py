@@ -1,20 +1,22 @@
-"""Time LSD's frame-tile kernel (A1, A2, A3) on one CUDA card, alone or against another checkout.
+"""Time LSD's kernels (A1, A2, A3 and A13) on one CUDA card, alone or against another checkout.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
     python3 tools/time_lsd.py [--against DIR] [--rounds N]
 
-At LSD's main shapes (A1: 64 x 16 s at 16 kHz, raw pairs; A2: 64 x (16 s
-+ 100) and A3: 64 x (20 s + 100), pre-scaled pairs) builds this
+At LSD's main shapes (A1 and A13: 64 x 16 s at 16 kHz, raw pairs; A2:
+64 x (16 s + 100) and A3: 64 x (20 s + 100), pre-scaled pairs) builds this
 checkout's kernel library and, with ``--against``, that of the checkout at
 DIR (for instance a parent commit unpacked into a directory that git
 ignores), loads both into this one process and launches their
-``fsem_lsd_wholesig_raw`` / ``fsem_lsd_wholesig`` entry points on the same
-inputs in turns: N rounds of this, other, other, this, so that clocks and
-heat weigh on both alike. The other checkout may have either interface of
-these entry points: the float32 SIMT frame kernel (a (256, 512) float32
-table, 16-frame tile partials) or the tensor-core one (bf16 pieces, the
-(3, 640, 256) tile table, (B, F, 5) frame partials).
+``fsem_lsd_wholesig_raw`` / ``fsem_lsd_wholesig`` / ``fsem_lsd_wholesig_ct``
+entry points on the same inputs in turns: N rounds of this, other, other,
+this, so that clocks and heat weigh on both alike. The other checkout may
+have either interface of A1-A3's entry points: the float32 SIMT frame
+kernel (a (256, 512) float32 table, 16-frame tile partials) or the
+tensor-core one (bf16 pieces, the (3, 640, 256) tile table, (B, F, 5)
+frame partials); A13's is the same in both (its tile partials sized here
+for the smaller tiles of either, 8 frames).
 
 Prints the card's name and power limit, then one JSON line per case: the
 median time of one launch of each library (CUDA events around each launch,
@@ -28,7 +30,10 @@ and A1's scale partials), and the least time of the bf16x6 tensor-core
 products at 989 TFLOP/s (``tensor_ms``: 2 x 6 x 256 x 640 per chunk row,
 128 chunk rows per group of 127 frames, both signals) and of the split
 pass's bytes at 3.35 TB/s (``split_bytes_ms``: 8 read and 12 written per
-sample pair). Needs a CUDA card.
+sample pair); for A13 the least time of the signals' bytes
+(``bytes_ms``) and of its FFT's float32 operations at 67 TFLOP/s
+(``fft_ops_ms``: ``ops/lsd_fused.py::CT_FFT_OPS`` per chunk and signal,
+64 chunks a tile of 63 frames). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_dat
 from time_corr import PEAK_BF16_TC_FLOPS, busy_event_ms, event_ms, kernel_library, profile  # noqa: E402
 
 PEAK_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 BATCH, RATE, HOP, EPS = 64, 16000, 256, 1e-8
 
 
@@ -76,6 +82,19 @@ def lsd_call(lib, c, d, raw: bool):
     else:
         args = (*head, partial, out, batch, t, EPS)
     return (lambda: lib.launch(name[len("fsem_"):], dev, *args)), out
+
+
+def ct_call(lib, c, d):
+    """A launch of A13's entry point in ``lib``, the projection scale
+    computed by the kernel; returns (call, scores)."""
+    dev, (batch, t) = c.device, c.shape
+    nc = t // HOP
+    tw, w0, _ = (torch.from_numpy(a).to(dev) for a in lsd_fused._ct_constants())
+    scale_partial = torch.empty(batch, 16, 2, device=dev)
+    partial = torch.empty(batch, -(-(nc + 1) // 8), device=dev)
+    out = torch.empty(batch, device=dev)
+    return (lambda: lib.launch("lsd_wholesig_ct", dev, c, d, None, tw, w0, scale_partial, partial, out, batch, nc,
+                               EPS)), out
 
 
 def main() -> None:
@@ -112,11 +131,18 @@ def main() -> None:
         rows = -(-frames // 127) * 128
         tensor_ms = 2 * BATCH * rows * 2 * 6 * HOP * 640 / PEAK_BF16_TC_FLOPS * 1e3
         split_ms = BATCH * -(-n // HOP) * HOP * 20 / PEAK_BYTES * 1e3
-        cases.append((kid, n, {name: lsd_call(lib, c, d, raw) for name, lib in libs.items()}, want, tensor_ms,
-                      split_ms))
+        cases.append((kid, n, {name: lsd_call(lib, c, d, raw) for name, lib in libs.items()}, want,
+                      {"tensor_ms": tensor_ms, "split_bytes_ms": split_ms}))
+    n = 16 * RATE
+    c, d = long_c[:, :n].contiguous(), long_d[:, :n].contiguous()
+    tiles = -(-(n // HOP + 1) // lsd_fused._CT_TILE_FRAMES)
+    cases.append(("A13", n, {name: ct_call(lib, c, d) for name, lib in libs.items()},
+                  lsd_fused._lsd_wholesig_ct_plain(c, d, HOP, EPS),
+                  {"bytes_ms": (2 * BATCH * n * 4 + BATCH * 4) / PEAK_BYTES * 1e3,
+                   "fft_ops_ms": 2 * BATCH * tiles * 64 * lsd_fused.CT_FFT_OPS / PEAK_FP32_FLOPS * 1e3}))
 
-    for kid, n, calls, want, tensor_ms, split_ms in cases:
-        row = {"id": kid, "rows": BATCH, "samples": n, "tensor_ms": tensor_ms, "split_bytes_ms": split_ms}
+    for kid, n, calls, want, bounds in cases:
+        row = {"id": kid, "rows": BATCH, "samples": n, **bounds}
         for name, (call, out) in calls.items():
             call()
             first = out.clone()
