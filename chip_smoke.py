@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    serialization warning; the attention kernel of A9, A15 and A7 (A11) and
    the GEMM of A7 and A8 (A11) must hold bf16 wgmma (HGMMA) and TMA
    (UTMALDG) instructions in the SASS of every instantiation
-   (``cuobjdump``), A12's int8 GEMM and int8 attention int8 wgmma (IGMMA)
+   (``cuobjdump``), so must the float32 arm of A9 and A15 (bf16x6 on the
+   same tensor cores), A12's int8 GEMM and int8 attention int8 wgmma (IGMMA)
    and TMA, SDR's correlation kernels (A4's Gram in splits x4, x3, x1 and
    A10's chunk DFT) and LSD's frame-tile kernel (A1-A3) bf16 wgmma and
    TMA, and none may spill a register, nor may the Levinson warp kernels
@@ -31,7 +32,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    799 frames for A7 and A8, and A7
    at 8 x 799 with heads of 32, 80, 96 and 12; A9 at 16 x 12 heads x 2999 frames x
    64 in its three softmax modes in bf16 and "exact" in float32, and at
-   4 x 16 heads x 1499 x 80; A15 at 2 x 12 x 40 999 x 64; A10 at 64 x 16 s
+   4 x 16 heads x 1499 x 80; A15 at 2 x 12 x 40 999 x 64, also in float32;
+   the float32 arms also on 128 queries against a float64 softmax, and
+   their split pass bit for bit; A10 at 64 x 16 s
    and 64 x (16 s + 100); A13 at 64 x 16 s, also against A1 and on A1's
    three near-clean pairs, within 2e-4 of a float64 LSD, twice bit-equal;
    each A14 Levinson variant on the 64 x 512 systems that SDR builds from
@@ -73,9 +76,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    int8 GEMM alone at QKV and W_o against ``torch._int_mm`` and the
    dequantization; A9's and A15's float32 arms (``precision="highest"``)
    on their float32 inputs, against scaled_dot_product_attention's
-   memory-efficient backend; and each metric end to end
-   (SpeechBERTScore also on
-   16 x 60 s and with ``attention_impl`` "layer_block" and "block_int8",
+   memory-efficient backend, and their split pass; and each metric end to
+   end (SpeechBERTScore also on
+   16 x 60 s, one 820 s pair at ``precision="highest"``, and with
+   ``attention_impl`` "layer_block" and "block_int8",
    SDR also with ``corr_impl`` "fused", "gram" and "gram_x1"),
 6. the result: a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -266,7 +270,8 @@ def main() -> int:
     # products (HGMMA in bf16, IGMMA in int8) and tensor loads (UTMALDG) in
     # the SASS of every instantiation, and the spills ptxas reports for each:
     # the attention kernel (A9, A15, A7: 2 head-width classes x 4 softmax
-    # modes, all in sdpa.cu), the GEMM (A7, A8: 3 bf16 epilogues in
+    # modes, all in sdpa.cu) and its float32 arm (sdpa_f32.cu, the same
+    # classes and modes), the GEMM (A7, A8: 3 bf16 epilogues in
     # attn_block.cu; A12: its int8 arm, gemm_kernel<3>, in attn_block_int8.cu)
     # and A12's int8 attention (4 head-width classes x 3 modes); SDR's
     # correlations: A4's Gram (splits x4, x3, x1) and A10's chunk DFT;
@@ -276,6 +281,7 @@ def main() -> int:
     int8_gemm = "gemm_kernelILi3E"
     for kernel, source, n, product, keep in (
         ("flash_kernel", "sdpa", 8, "HGMMA", lambda name: True),
+        ("flash_f32_kernel", "sdpa_f32", 8, "HGMMA", lambda name: True),
         ("gemm_kernel", "attn_block", 3, "HGMMA", lambda name: int8_gemm not in name),
         ("gemm_kernel", "attn_block_int8", 1, "IGMMA", lambda name: int8_gemm in name),
         ("i8_attention_kernel", "attn_block_int8", 12, "IGMMA", lambda name: True),
@@ -678,6 +684,23 @@ def main() -> int:
         check(math.isfinite(mx) and mx <= f32_tol, f"{what}: max abs error {mx:.3e} over {f32_tol}")
         return mx
 
+    # the float32 arms (bf16x6) and their plain versions (float32) on the
+    # first 128 queries against a float64 softmax of the same inputs: the
+    # kernel within 1e-5 of it
+    f64_tol = 1e-5
+
+    def f64_err(got, want, q_, k_, v_, scaling, what):
+        sl = slice(0, 128)
+        s64 = torch.matmul(q_[:, :, sl].double(), k_.double().transpose(-1, -2)) * scaling
+        ref = torch.matmul(torch.softmax(s64, dim=-1), v_.double())
+        del s64
+        mx = torch.max(torch.abs(got[:, :, sl].double() - ref)).item()
+        plain_mx = torch.max(torch.abs(want[:, :, sl].double() - ref)).item()
+        log(f"  {what}, queries 0-127 against float64: kernel {mx:.3e} (tolerance {f64_tol}), plain version "
+            f"{plain_mx:.3e}")
+        check(math.isfinite(mx) and mx <= f64_tol, f"{what}: {mx:.3e} from a float64 softmax (tolerance {f64_tol})")
+        return mx
+
     def context_err(got, want, what, worst):
         """Check one bf16 context against the per-row class; return the
         worse of ``worst`` and this case as (error / row max|want|, max abs
@@ -695,7 +718,7 @@ def main() -> int:
               f"{what}: beyond the per-row bf16 class")
         return max(worst, (rmax, mx, limit))
 
-    worst, worst_f32 = (0.0, 0.0, 1.0), 0.0
+    worst, worst_f32, worst_f64 = (0.0, 0.0, 1.0), 0.0, 0.0
     for b_, h_, t_, d_ in ((LONG_BATCH, heads, long_frames, 64), (4, 16, 1499, 80)):
         q9, k9, v9 = qkv((b_, h_, t_, d_), torch.bfloat16, gen_a9)
         for mode in sdpa_pallas.SOFTMAX_MODES:
@@ -703,14 +726,17 @@ def main() -> int:
                                 sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, mode),
                                 f"A9 {b_}x{h_}x{t_}x{d_} bf16 softmax={mode}", worst)
         q9, k9, v9 = (a.float() for a in (q9, k9, v9))
-        worst_f32 = max(worst_f32, f32_err(sdpa_pallas.sdpa(q9, k9, v9, d_**-0.5, softmax="exact"),
-                                           sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, "exact"),
-                                           f"A9 {b_}x{h_}x{t_}x{d_} float32 softmax=exact"))
+        got_f32 = sdpa_pallas.sdpa(q9, k9, v9, d_**-0.5, softmax="exact")
+        want_f32 = sdpa_pallas._sdpa_plain(q9, k9, v9, d_**-0.5, "exact")
+        what = f"A9 {b_}x{h_}x{t_}x{d_} float32 softmax=exact"
+        worst_f32 = max(worst_f32, f32_err(got_f32, want_f32, what))
+        worst_f64 = max(worst_f64, f64_err(got_f32, want_f32, q9, k9, v9, d_**-0.5, what))
+        del got_f32, want_f32
     record("A9", sdpa_pallas.KERNEL_A9, "flash_sm90.cuh", "sdpa_pallas.py:36", *worst[1:],
            " (the bf16 case nearest its limit)")
     # A9's float32 arm (precision="highest"), on the same inputs in float32
-    record("A9-f32", sdpa_pallas.KERNEL_A9, "sdpa_f32.cu", "sdpa_pallas.py:36", worst_f32, f32_tol,
-           " (the float32 arm, softmax=exact)")
+    record("A9-f32", sdpa_pallas.KERNEL_A9, "flash_f32_sm90.cuh", "sdpa_pallas.py:36", worst_f32, f32_tol,
+           f" (the float32 arm, softmax=exact; queries 0-127 {worst_f64:.3e} from float64)")
     a9_inputs = qkv((LONG_BATCH, heads, long_frames, 64), torch.bfloat16, gen_a9)
     del q9, k9, v9
 
@@ -726,11 +752,24 @@ def main() -> int:
            " (the upstream flash_attention kernel that _flash_sdpa calls)")
     # A15's float32 arm (precision="highest") on the same q, k, v in float32
     a15_f32 = [a.float() for a in a15_inputs]
-    err = f32_err(sdpa_pallas.flash_sdpa(*a15_f32, 0.125), sdpa_pallas._flash_sdpa_plain(*a15_f32, 0.125),
-                  f"A15 2x{heads}x{flash_frames}x64 float32")
-    record("A15-f32", sdpa_pallas.KERNEL_A15, "sdpa_f32.cu", "models/hubert.py:157", err, f32_tol,
-           " (the float32 arm, online softmax)")
-    del a15_f32
+    got_f32 = sdpa_pallas.flash_sdpa(*a15_f32, 0.125)
+    want_f32 = sdpa_pallas._flash_sdpa_plain(*a15_f32, 0.125)
+    what = f"A15 2x{heads}x{flash_frames}x64 float32"
+    err = f32_err(got_f32, want_f32, what)
+    err64 = f64_err(got_f32, want_f32, *a15_f32, 0.125, what)
+    record("A15-f32", sdpa_pallas.KERNEL_A15, "flash_f32_sm90.cuh", "models/hubert.py:157", err, f32_tol,
+           f" (the float32 arm, online softmax; queries 0-127 {err64:.3e} from float64)")
+    del a15_f32, got_f32, want_f32
+    # the float32 arms' split pass, bit for bit its plain version, on A9's
+    # float32 inputs
+    a9_f32 = [a.float() for a in a9_inputs]
+    got_p, want_p = sdpa_pallas.split_pieces(*a9_f32), sdpa_pallas._split_pieces_plain(*a9_f32)
+    err = torch.max(torch.abs(got_p.float() - want_p.float())).item()
+    check(torch.equal(got_p.view(torch.int16), want_p.view(torch.int16)),
+          "the float32 arms' split pass differs from its plain version")
+    record("A9-f32-split", sdpa_pallas.KERNEL_SPLIT, "sdr_halves.cuh", "sdpa_pallas.py:36", err, 0.0,
+           " (the float32 arms' split pass, bit for bit)")
+    del a9_f32, got_p, want_p
 
     # A10 on the normalised signals, as SDR(corr_impl="fused") feeds it: the
     # raw variant at 64 x 16 s, the padded one at 64 x (16 s + 100); atol
@@ -912,7 +951,7 @@ def main() -> int:
     exact60 = pkg.SpeechBERTScore(params=sbs_params, precision="highest")
     dev_fp32 = float(np.max(np.abs(f1_60[:1] - f1_of(drive(lambda: exact60(c60_np[:1], d60_np[:1]),
                                                            "SpeechBERTScore 1 x 60 s, precision='highest'",
-                                                           ("A9-f32",)), 1))))
+                                                           ("A9-f32", "A9-f32-split")), 1))))
     check(dev_fp32 <= 2e-3, f"SpeechBERTScore 60 s: bf16 A9 path vs the card's float32 A9 path {dev_fp32:.3e} "
                             "(atol 2e-3)")
     log(f"SpeechBERTScore {LONG_BATCH} x {LONG_SECONDS} s: batch mean {f1_60.mean()} (first call {first_s:.1f} s); "
@@ -945,7 +984,7 @@ def main() -> int:
     exact820 = pkg.SpeechBERTScore(params=sbs_params, precision="highest")
     t0 = time.perf_counter()
     f1_820_f32 = f1_of(drive(lambda: exact820(c820_np, d820_np), f"SpeechBERTScore 1 x {FLASH_SECONDS} s, "
-                             "precision='highest'", ("A15-f32",)), 1)
+                             "precision='highest'", ("A15-f32", "A9-f32-split")), 1)
     f32_s = time.perf_counter() - t0
     only(dict(zip(attn_kernels, (0, 0, 0, sbs.output_layer))), "SpeechBERTScore 820 s precision='highest'")
     dev_820 = float(np.max(np.abs(f1_820 - f1_820_f32)))
@@ -1205,8 +1244,12 @@ def main() -> int:
         )
 
     # A9's and A15's float32 arms on the same inputs in float32: the least
-    # work at the float32 peak; the yardstick scaled_dot_product_attention
-    # on its memory-efficient backend (float32, no (T, T) logits)
+    # work is the TPU's float32 class at "highest", six bf16 products of 4
+    # T^2 D per (row, head) on the bf16 tensor cores; "direct" adds exact
+    # mode's max pass (six more of 2 T^2 D); the yardstick
+    # scaled_dot_product_attention on its memory-efficient backend
+    # (float32, no (T, T) logits); then their split pass (bytes: q, k, v
+    # read, three bf16 pieces of each written at the padded width)
     def efficient_sdpa(*a):
         with torch.nn.attention.sdpa_kernel(torch.nn.attention.SDPBackend.EFFICIENT_ATTENTION):
             return fn.scaled_dot_product_attention(*a, scale=0.125)
@@ -1218,13 +1261,20 @@ def main() -> int:
          lambda *a: sdpa_pallas._flash_sdpa_plain(*a, 0.125)),
     ):
         b_, h_, t_, d_ = q_.shape
-        ops = 4 * b_ * h_ * t_ * t_ * d_
+        ops = 6 * 4 * b_ * h_ * t_ * t_ * d_
+        direct = ops * 3 // 2 if kid == "A9-f32" else ops
         args = tuple(a.float() for a in (q_, k_, v_))
         timing[kid] = (lambda kern=kern, a=args: kern(*a), lambda plain=plain, a=args: plain(*a),
-                       lambda a=args: efficient_sdpa(*a), ops, ops, 4 * b_ * h_ * t_ * d_ * 4)
+                       lambda a=args: efficient_sdpa(*a), ops, direct, 4 * b_ * h_ * t_ * d_ * 4)
+    args = tuple(a.float() for a in a9_inputs)
+    b_, h_, t_, d_ = args[0].shape
+    split_bytes = 3 * b_ * h_ * t_ * (d_ * 4 + 3 * sdpa_pallas._head_box(d_) * 2)
+    timing["A9-f32-split"] = (lambda a=args: sdpa_pallas.split_pieces(*a),
+                              lambda a=args: sdpa_pallas._split_pieces_plain(*a), None, 0, 0, split_bytes)
 
     peaks = {"A7": PEAK_BF16_TC_FLOPS, "A8": PEAK_BF16_TC_FLOPS, "A9": PEAK_BF16_TC_FLOPS,
-             "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS}
+             "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS,
+             "A9-f32": PEAK_BF16_TC_FLOPS, "A15-f32": PEAK_BF16_TC_FLOPS}
     # the kernels' own algorithms on the bf16 tensor cores
     direct_peaks = {"A1": PEAK_BF16_TC_FLOPS, "A2": PEAK_BF16_TC_FLOPS, "A3": PEAK_BF16_TC_FLOPS,
                     "A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
@@ -1304,6 +1354,11 @@ def main() -> int:
     log(json.dumps({"metric": "SpeechBERTScore", "batch": LONG_BATCH, "seconds": LONG_SECONDS, "ms": ms,
                     "audio_seconds_per_s": LONG_BATCH * LONG_SECONDS / (ms / 1e3),
                     "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    exact820 = pkg.SpeechBERTScore(params=sbs_params, precision="highest")
+    ms = host_ms(lambda: exact820(c820_np, d820_np), warmup=1, reps=3)
+    log(json.dumps({"metric": "SpeechBERTScore", "precision": "highest", "batch": 1, "seconds": FLASH_SECONDS,
+                    "ms": ms, "audio_seconds_per_s": FLASH_SECONDS / (ms / 1e3)}))
+    del exact820
     for impl in ("fused", "gram", "gram_x1"):
         metric = sdr_fused if impl == "fused" else pkg.SDR(corr_impl=impl)
         ms = host_ms(lambda m=metric: m(c, d))

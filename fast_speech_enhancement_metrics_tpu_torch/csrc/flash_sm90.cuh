@@ -20,8 +20,8 @@
 //                  read transposed (MN-major); O stays in registers.
 // Nothing of S, P or O goes through shared memory.
 //
-// Per-element softmax (as attention_core.cuh's, which the float32 arm
-// runs):
+// Per-element softmax (softmax_p, which the float32 arm, flash_f32_sm90.cuh,
+// shares):
 // * kExp2: p = 2^clamp(s, -100, 60) (scale and log2 e are in q already);
 // * kExp2Bf16: p = bf16(exp(bf16(bf16(clamp(s)) * bf16(ln 2))));
 // * kExact: a first pass over the key tiles (S only) for the row max, then

@@ -21,8 +21,8 @@
 // the (B, H, T, D) layout read through 4-D TMA tensor maps; A7's attention
 // (attn_block.cu) launches the same instantiations on its strided qkv. The
 // TPU kernel holds a head's K/V in VMEM; here K/V tiles of 128 keys stream
-// through shared memory. The float32 arm (sdpa_f32.cu) keeps attention_core.cuh: wgmma
-// takes float32 only as TF32.
+// through shared memory. The float32 arm (sdpa_f32.cu, flash_f32_sm90.cuh)
+// runs this block shape on bf16x6 products.
 #include "flash_sm90.cuh"
 
 int fsem_flash_attention(const void* q, const void* k, const void* v, long long ld, long long head_stride,

@@ -17,6 +17,12 @@
 //
 // Bound by bytes: 8 read and 4 kPieces (x0 only: 4) written per sample
 // and pair.
+//
+// split_rows<kPieces>: the same pieces of three float32 (rows, hd)
+// matrices, each into (kPieces, rows, ld) bf16 planes with the columns hd
+// .. ld zeros: the operands of the float32 attention arm
+// (flash_f32_sm90.cuh), q, k and v of (B H T) rows. Bound by bytes: 4 read
+// and 2 kPieces ld / hd written per element.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +37,24 @@ constexpr int kPer = 4;  // samples a thread: one 16-byte load per signal, one 8
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 a, __nv_bfloat16 b) {
   return (uint32_t)__bfloat16_as_ushort(a) | ((uint32_t)__bfloat16_as_ushort(b) << 16);
+}
+
+// the kPieces pieces of two neighbouring values, each piece's pair packed
+// (a in the low half)
+template <int kPieces>
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t (&w)[kPieces]) {
+  __nv_bfloat16 p[kPieces][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float r = h ? b : a;
+#pragma unroll
+    for (int q = 0; q < kPieces; ++q) {
+      p[q][h] = __float2bfloat16_rn(r);
+      r = __fsub_rn(r, __bfloat162float(p[q][h]));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kPieces; ++q) w[q] = pack2(p[q][0], p[q][1]);
 }
 
 // grid (row_len / (kThreads kPer), batch): neighbouring threads on
@@ -80,26 +104,13 @@ __global__ void __launch_bounds__(kThreads) split_kernel(const float* __restrict
   }
 #pragma unroll
   for (int sig = 0; sig < 2; ++sig) {
-    uint32_t w[kPieces][kPer / 2];
+    uint32_t w[2][kPieces];
 #pragma unroll
-    for (int e = 0; e < kPer / 2; ++e) {
-      __nv_bfloat16 p[kPieces][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float r = x[sig][2 * e + h];
-#pragma unroll
-        for (int q = 0; q < kPieces; ++q) {
-          p[q][h] = __float2bfloat16_rn(r);
-          r = __fsub_rn(r, __bfloat162float(p[q][h]));
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kPieces; ++q) w[q][e] = pack2(p[q][0], p[q][1]);
-    }
+    for (int e = 0; e < kPer / 2; ++e) split_pair<kPieces>(x[sig][2 * e], x[sig][2 * e + 1], w[e]);
     __nv_bfloat16* dst = out + (size_t)(kPieces * sig) * plane + (size_t)b * row_len + t0;
 #pragma unroll
     for (int q = 0; q < kPieces; ++q)
-      if (q < written) *reinterpret_cast<uint2*>(dst + q * plane) = make_uint2(w[q][0], w[q][1]);
+      if (q < written) *reinterpret_cast<uint2*>(dst + q * plane) = make_uint2(w[0][q], w[1][q]);
   }
 }
 
@@ -117,6 +128,50 @@ inline cudaError_t split(const float* c, const float* d, void* out, long long t_
   const dim3 grid((unsigned)((row_len + per_block - 1) / per_block), batch);
   split_kernel<kPieces, kScaleSplits><<<grid, kThreads, 0, stream>>>(
       c, d, scale_partial, static_cast<__nv_bfloat16*>(out), t_len, row_len, batch, rest ? kPieces : 1, vec, eps);
+  return cudaGetLastError();
+}
+
+// grid (ceil(rows ld / (kThreads kPer)), 3): one group of kPer
+// columns of one row a thread, neighbouring threads on neighbouring groups
+template <int kPieces>
+__global__ void __launch_bounds__(kThreads) split_rows_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
+                                                              const float* __restrict__ x2,
+                                                              __nv_bfloat16* __restrict__ out, long long rows, int hd,
+                                                              int ld, int vec) {
+  const float* x = blockIdx.y == 0 ? x0 : (blockIdx.y == 1 ? x1 : x2);
+  const int groups = ld / kPer;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= rows * groups) return;
+  const long long r = idx / groups;
+  const int c0 = (int)(idx % groups) * kPer;
+  const float* src = x + r * hd;
+  float v[kPer];
+  if (vec && c0 + kPer <= hd) {
+    const float4 f = __ldcs(reinterpret_cast<const float4*>(src + c0));
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) v[e] = c0 + e < hd ? src[c0 + e] : 0.f;
+  }
+  uint32_t w[2][kPieces];
+#pragma unroll
+  for (int e = 0; e < kPer / 2; ++e) split_pair<kPieces>(v[2 * e], v[2 * e + 1], w[e]);
+  const size_t plane = (size_t)rows * ld;
+  __nv_bfloat16* dst = out + (size_t)blockIdx.y * kPieces * plane + (size_t)r * ld + c0;
+#pragma unroll
+  for (int q = 0; q < kPieces; ++q) *reinterpret_cast<uint2*>(dst + q * plane) = make_uint2(w[0][q], w[1][q]);
+}
+
+// x0, x1, x2 (rows, hd) float32, 16-byte aligned; out (3, kPieces, rows,
+// ld) bf16, 16-byte aligned; 0 < hd <= ld, ld % 4 == 0
+template <int kPieces>
+inline cudaError_t split_rows(const float* x0, const float* x1, const float* x2, void* out, long long rows, int hd,
+                              int ld, cudaStream_t stream) {
+  if (rows <= 0 || hd <= 0 || hd > ld || ld % kPer) return cudaErrorInvalidValue;
+  const long long blocks = (rows * (ld / kPer) + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  split_rows_kernel<kPieces><<<dim3((unsigned)blocks, 3), kThreads, 0, stream>>>(
+      x0, x1, x2, static_cast<__nv_bfloat16*>(out), rows, hd, ld, hd % 4 == 0);
   return cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 
 The softmax modes that A7 (``attn_block_pallas``) and A9 (``sdpa_pallas``)
 take, in the kernels' mode order (``csrc/flash_sm90.cuh``,
-``csrc/attention_core.cuh``), the widest head the kernels hold, and the
+``csrc/flash_f32_sm90.cuh``), the widest head the kernels hold, and the
 bf16 roundings the plain versions use to follow the kernels.
 """
 

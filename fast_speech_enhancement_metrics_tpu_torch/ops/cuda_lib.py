@@ -30,7 +30,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 HEADERS = (
-    "common.cuh", "attention_core.cuh", "block_tiles.cuh", "block_stages.cuh", "sm90.cuh", "flash_sm90.cuh",
+    "common.cuh", "block_tiles.cuh", "block_stages.cuh", "sm90.cuh", "flash_sm90.cuh", "flash_f32_sm90.cuh",
     "gemm_sm90.cuh", "sdr_halves.cuh", "levinson.cuh",
 )
 SOURCES = (
@@ -89,9 +89,13 @@ _SIGNATURES = {
     # (a, b, bias, c, M, N, K, epilogue, stream)
     "fsem_gemm": (_P,) * 4 + (_I,) * 4 + (_P,),
     # (q, k, v, out, batch, heads, frames, keys walked, head width, softmax
-    #  mode, logit scale, row-sum pad, stream); bf16 and float32
+    #  mode, logit scale, row-sum pad, stream); bf16
     "fsem_sdpa": (_P,) * 4 + (_I,) * 6 + (_F, _F, _P),
-    "fsem_sdpa_f32": (_P,) * 4 + (_I,) * 6 + (_F, _F, _P),
+    # (q, k, v, bf16 pieces, rows, head width, padded head width, stream)
+    "fsem_sdpa_f32_split": (_P,) * 4 + (_L, _I, _I, _P),
+    # (bf16 pieces, out, batch, heads, frames, keys walked, head width,
+    #  softmax mode, logit scale, row-sum pad, stream); float32
+    "fsem_sdpa_f32": (_P,) * 2 + (_I,) * 6 + (_F, _F, _P),
     # (clean, denoised, bf16 halves, bf16 table halves, partials, batch,
     #  samples, lags, chunk groups, stream)
     "fsem_corr_fused": (_P,) * 5 + (_I, _L, _I, _I, _P),

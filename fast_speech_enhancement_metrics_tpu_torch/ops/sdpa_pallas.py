@@ -26,11 +26,16 @@ V) / l_next; the output is acc in q's dtype.
 The CUDA kernels are ``csrc/sdpa.cu`` (bf16, on ``csrc/flash_sm90.cuh``:
 TMA, wgmma, the softmax in registers, 128 queries a block) and
 ``csrc/sdpa_f32.cu`` (float32, the ``precision="highest"`` arm, on
-``csrc/attention_core.cuh``, 64 queries a block). The bf16 kernel reads
-rows of 16-byte multiples: a head width that is not a multiple of 8 is
-zero-padded to one first (the zero columns add nothing to q k^T, and give
-output columns that are cut off). CPU tensors take the plain versions; CUDA
-tensors launch the kernels or raise.
+``csrc/flash_f32_sm90.cuh``: the same block shape on bf16x6 products, the
+TPU's arithmetic at "highest"). The bf16 kernel reads rows of 16-byte
+multiples: a head width that is not a multiple of 8 is zero-padded to one
+first (the zero columns add nothing to q k^T, and give output columns that
+are cut off). The float32 arm runs a split pass first (``split_pieces``):
+q (scaled), k and v as three bf16 pieces each, x = x0 + x1 + x2, the head
+zero-padded to 64 or 128 columns; the kernel forms each product as the six
+piece products of order <= 2, small terms first
+(``_sdpa_f32_pieces_reference`` is that dataflow in torch). CPU tensors
+take the plain versions; CUDA tensors launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -47,15 +52,22 @@ from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import (
 
 KERNEL_A9 = "sdpa"
 KERNEL_A15 = "flash_sdpa"
+#: the float32 arm's split pass (``split_pieces``)
+KERNEL_SPLIT = "sdpa_f32_split"
 #: key padding quanta: A9's lane tile, the flash kernel's sequence block
 SDPA_KEY_QUANTUM, FLASH_KEY_QUANTUM = 128, 512
 #: the flash kernel's key block (BlockSizes.get_default's block_k)
 FLASH_BLOCK_K = 128
-#: A9's query block in the CUDA kernels (the JAX signature's ``block_q``):
-#: the float32 arm's, and the bf16 arm's
-KERNEL_BLOCK_Q, KERNEL_BLOCK_Q_BF16 = 64, 128
+#: A9's query block in the CUDA kernels, both arms (the JAX signature's ``block_q``)
+KERNEL_BLOCK_Q = 128
+#: the float32 arm's key tile (its online softmax rescales once a tile)
+F32_BLOCK_K = 64
 #: the bf16 kernel's head widths are multiples of this (16-byte TMA rows)
 _BF16_HEAD_QUANTUM = 8
+#: the float32 arm's pieces per operand and its six products of order <= 2,
+#: (piece of q or p, piece of k or v), small terms first
+_PIECES = 3
+_PRODUCTS = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
 _ONLINE = 3
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -133,6 +145,118 @@ def _flash_sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling
     return acc.to(q.dtype)
 
 
+def _split3(x: torch.Tensor) -> list[torch.Tensor]:
+    """The three bf16 pieces of a float32 tensor, as float32: x0 = bf16(x),
+    x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) (each difference exact)."""
+    pieces = []
+    for _ in range(_PIECES):
+        piece = x.to(torch.bfloat16).float()
+        pieces.append(piece)
+        x = x - piece
+    return pieces
+
+
+def _head_box(d: int) -> int:
+    """The float32 arm's padded head width: one or two 64-column TMA boxes."""
+    return 64 if d <= 64 else 128
+
+
+def _split_pieces_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split pass: (B, H, T, D) float32 q, k, v -> (3
+    tensors, 3 pieces, B H T, D_p) bf16, D_p = ``_head_box(D)``, the padded
+    columns zeros."""
+    d = q.shape[-1]
+    return torch.stack([torch.stack(_split3(torch.nn.functional.pad(x.reshape(-1, d).float(),
+                                                                    (0, _head_box(d) - d))))
+                        for x in (q, k, v)]).to(torch.bfloat16)
+
+
+def split_pieces(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The float32 arm's split pass: (B, H, T, D) float32 q, k, v (q already
+    scaled) -> their bf16 pieces, as ``_split_pieces_plain``. CPU tensors
+    take the plain version; on a CUDA tensor the kernel
+    (``csrc/sdr_halves.cuh``, ``halves::split_rows<3>``)."""
+    if q.device.type == "cpu":
+        return _split_pieces_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"no split kernel for device {q.device}")
+    for name, a in (("q", q), ("k", k), ("v", v)):
+        cuda_lib.check_operand(a, name, q.device, torch.float32, 4)
+        if a.shape != q.shape or a.data_ptr() % 16:
+            raise ValueError(f"{name}: need the shape {tuple(q.shape)}, 16-byte aligned")
+    d = q.shape[-1]
+    rows = q.numel() // d
+    out = torch.empty(3, _PIECES, rows, _head_box(d), dtype=torch.bfloat16, device=q.device)
+    cuda_lib.launch("sdpa_f32_split", q.device, q, k, v, out, rows, d, _head_box(d))
+    cuda_lib.launch_counts[KERNEL_SPLIT] += 1
+    return out
+
+
+def _six_products(a: list[torch.Tensor], b: list[torch.Tensor]) -> torch.Tensor:
+    """sum a_i b_j over ``_PRODUCTS``, in float32, small terms first."""
+    acc = torch.matmul(a[_PRODUCTS[0][0]], b[_PRODUCTS[0][1]])
+    for i, j in _PRODUCTS[1:]:
+        acc = acc + torch.matmul(a[i], b[j])
+    return acc
+
+
+def _sdpa_f32_pieces_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling: float,
+                               mode: str) -> torch.Tensor:
+    """The float32 arm's dataflow in torch, for the tests (never on the main
+    path): q (scaled as ``_scaled_q`` in A9's modes), k and v split in three
+    bf16 pieces; S the six piece products; per key tile of ``F32_BLOCK_K``
+    p as the kernel forms it (mode "online": s *= scaling, the running max,
+    l and O rescaled by exp(m - m_next)), p split in three pieces and P V
+    the six piece products into a tile partial added to O; out O / (l +
+    l_pad) (online: O / l). ``mode``: one of ``SOFTMAX_MODES`` or "online"."""
+    t = q.shape[2]
+    online = mode == "online"
+    qs = q.float() if online else _scaled_q(q.float(), scaling, mode)
+    qp, kp, vp = _split3(qs), _split3(k.float()), _split3(v.float())
+    s = _six_products(qp, [x.transpose(-1, -2) for x in kp])
+    if online:
+        s = s * scaling
+    else:
+        p_all = softmax_p(s, mode)
+    shape = q.shape[:3] + (1,)
+    m = torch.full(shape, float("-inf"), device=q.device)
+    l = torch.zeros(shape, device=q.device)
+    o = torch.zeros(q.shape, device=q.device)
+    for k0 in range(0, t, F32_BLOCK_K):
+        corr = 1.0
+        if online:
+            st = s[..., k0:k0 + F32_BLOCK_K]
+            m_next = torch.maximum(m, torch.amax(st, dim=-1, keepdim=True))
+            corr = torch.exp(m - m_next)
+            p = torch.exp(st - m_next)
+            m = m_next
+        else:
+            p = p_all[..., k0:k0 + F32_BLOCK_K]
+        l = l * corr + torch.sum(p, dim=-1, keepdim=True)
+        o = o * corr + _six_products(_split3(p), [x[:, :, k0:k0 + F32_BLOCK_K] for x in vp])
+    return o / (l if online else l + _pad_keys_l(t, mode))
+
+
+def _exp2_bf16_tie_allowance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling: float,
+                             want: torch.Tensor) -> torch.Tensor:
+    """For the tests: how far two float32 evaluations of A9's ``exp2_bf16``
+    mode may lie apart beyond round-off. The mode rounds each logit to bf16,
+    a step function, so two float32 sums of one logit (the plain version's
+    and the float32 arm's bf16x6) that straddle a step give p one bf16 step
+    apart. Per output element: sum over the keys whose logit lies within
+    2^-20 sum_i |q_i k_i| of a step (16 float32 ulps of that sum's scale) of
+    dp_k (|v_k| + |want|) / l, in float64, with dp_k p's jump across that
+    interval; 0 in a row with no such key."""
+    qs = _scaled_q(q.float(), scaling, "exp2_bf16").double()
+    kt = k.double().transpose(-1, -2)
+    s = torch.matmul(qs, kt)
+    delta = 2.0**-20 * torch.matmul(qs.abs(), kt.abs())
+    p_lo, p_mid, p_hi = (softmax_p(x.float(), "exp2_bf16").double() for x in (s - delta, s, s + delta))
+    dp = p_hi - p_lo
+    l = torch.sum(p_mid, dim=-1, keepdim=True) + _pad_keys_l(q.shape[2], "exp2_bf16")
+    return (torch.matmul(dp, v.double().abs()) + torch.sum(dp, dim=-1, keepdim=True) * want.double().abs()) / l
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -144,14 +268,18 @@ def _launch(kernel: str, q, k, v, mode: int, n_keys: int, scale: float, l_pad: f
         raise ValueError(f"the attention kernels take heads of at most {MAX_HEAD_DIM}, got {d}")
     if b * h * t == 0 or d == 0:
         raise ValueError(f"need a non-empty (B, H, T, D) input, got {tuple(q.shape)}")
-    bf16 = q.dtype == torch.bfloat16
-    pad = -d % _BF16_HEAD_QUANTUM if bf16 else 0
+    if q.dtype == torch.float32:
+        pieces = split_pieces(*(_aligned(a) for a in (q, k, v)))
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        cuda_lib.launch("sdpa_f32", q.device, pieces, out, b, h, t, n_keys, d, mode, scale, l_pad)
+        cuda_lib.launch_counts[kernel] += 1
+        return out
+    pad = -d % _BF16_HEAD_QUANTUM
     q, k, v = (_aligned(torch.nn.functional.pad(a, (0, pad)) if pad else a) for a in (q, k, v))
     for name, a in (("k", k), ("v", v)):
         cuda_lib.check_operand(a, name, q.device, q.dtype, 4)
     out = torch.empty_like(q)
-    cuda_lib.launch("sdpa" if bf16 else "sdpa_f32", q.device, q, k, v, out, b, h, t, n_keys, d + pad, mode, scale,
-                    l_pad)
+    cuda_lib.launch("sdpa", q.device, q, k, v, out, b, h, t, n_keys, d + pad, mode, scale, l_pad)
     cuda_lib.launch_counts[kernel] += 1
     return out[..., :d].contiguous() if pad else out
 
@@ -160,11 +288,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling: float, bloc
          softmax: str = "exact") -> torch.Tensor:
     """Kernel A9 wrapper: softmax((q * scaling) k^T) v over (B, H, T, D),
     bf16 or float32, in q's dtype. ``block_q`` is the JAX signature's query
-    block; the CUDA kernel's is fixed (``KERNEL_BLOCK_Q_BF16`` for bf16,
-    ``KERNEL_BLOCK_Q`` for float32), and another value raises."""
-    kernel_block_q = KERNEL_BLOCK_Q_BF16 if q.dtype == torch.bfloat16 else KERNEL_BLOCK_Q
-    if block_q not in (None, kernel_block_q):
-        raise ValueError(f"the sdpa kernel's query block is {kernel_block_q}, got block_q={block_q}")
+    block; the CUDA kernels' is fixed (``KERNEL_BLOCK_Q``), and another
+    value raises."""
+    if block_q not in (None, KERNEL_BLOCK_Q):
+        raise ValueError(f"the sdpa kernel's query block is {KERNEL_BLOCK_Q}, got block_q={block_q}")
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
     _check_qkv(q, k, v)

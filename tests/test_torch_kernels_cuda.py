@@ -617,8 +617,9 @@ def _qkv(dev, shape, dtype, seed=0):
 @pytest.mark.parametrize("t", [37, 259, 2999])
 def test_sdpa_kernel_matches_plain(dev, softmax, dtype, d, t):
     """Heads of 32, 64, 80 and 128 (one or two 64-column TMA boxes) and 36
-    (zero-padded to 40 by the wrapper); T under one key tile, ragged, and
-    2999 (a ring of stages walked many times)."""
+    (bf16: zero-padded to 40 by the wrapper; float32: to 64 by the split
+    pass); T under one key tile, ragged, and 2999 (a ring of stages walked
+    many times)."""
     q, k, v = _qkv(dev, (2, 3, t, d), dtype)
     before = cuda_lib.launch_counts[sdpa_pallas.KERNEL_A9]
     got = sdpa_pallas.sdpa(q, k, v, d**-0.5, softmax=softmax)
@@ -629,6 +630,50 @@ def test_sdpa_kernel_matches_plain(dev, softmax, dtype, d, t):
         torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
     else:
         _context_class(got, want)
+
+
+def _within(got, want, limit):
+    err = torch.abs(got.double() - want.double())
+    assert torch.all(err <= limit), (err.max().item(), torch.max(err - limit).item())
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exp2_bf16", "exact", "online"])
+@pytest.mark.parametrize("d", [16, 36, 64, 80, 128])
+@pytest.mark.parametrize("t", [37, 259, 1100])
+def test_sdpa_f32_kernel_matches_twin(dev, softmax, d, t):
+    """The float32 arm (A9's modes through ``sdpa``, the online one through
+    ``flash_sdpa``) against its torch dataflow ``_sdpa_f32_pieces_reference``
+    at 2e-6, a tenth of the plain version's tolerance (exp2_bf16: plus the
+    tie allowance); one launch of the split pass and one of the kernel."""
+    q, k, v = _qkv(dev, (2, 3, t, d), torch.float32, seed=2)
+    kname = sdpa_pallas.KERNEL_A15 if softmax == "online" else sdpa_pallas.KERNEL_A9
+    before = (cuda_lib.launch_counts[kname], cuda_lib.launch_counts[sdpa_pallas.KERNEL_SPLIT])
+    if softmax == "online":
+        got = sdpa_pallas.flash_sdpa(q, k, v, d**-0.5)
+    else:
+        got = sdpa_pallas.sdpa(q, k, v, d**-0.5, softmax=softmax)
+    assert (cuda_lib.launch_counts[kname], cuda_lib.launch_counts[sdpa_pallas.KERNEL_SPLIT]) == (
+        before[0] + 1, before[1] + 1)
+    want = sdpa_pallas._sdpa_f32_pieces_reference(q, k, v, d**-0.5, softmax)
+    limit = 2e-6
+    if softmax == "exp2_bf16":
+        limit = limit + sdpa_pallas._exp2_bf16_tie_allowance(q, k, v, d**-0.5, want)
+    _within(got, want, limit)
+    assert torch.equal(got, sdpa_pallas.flash_sdpa(q, k, v, d**-0.5) if softmax == "online"
+                       else sdpa_pallas.sdpa(q, k, v, d**-0.5, softmax=softmax))
+
+
+@pytest.mark.parametrize("d", [16, 36, 64, 80, 128])
+@pytest.mark.parametrize("t", [37, 2999])
+def test_sdpa_f32_split_kernel_is_plain(dev, d, t):
+    """The float32 arm's split pass bit for bit its plain version (the
+    padded columns zeros), one launch counted."""
+    q, k, v = _qkv(dev, (2, 3, t, d), torch.float32, seed=3)
+    before = cuda_lib.launch_counts[sdpa_pallas.KERNEL_SPLIT]
+    got = sdpa_pallas.split_pieces(q, k, v)
+    assert cuda_lib.launch_counts[sdpa_pallas.KERNEL_SPLIT] == before + 1
+    want = sdpa_pallas._split_pieces_plain(q, k, v)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -11,6 +11,18 @@ upstream flash kernel's online softmax; the JAX kernel itself runs only on
 a TPU) against a float64 softmax of the same inputs at the same
 tolerances.
 
+The float32 arm's dataflow (``_sdpa_f32_pieces_reference``: q, k, v and p
+split in three bf16 pieces, each product the six piece products of order
+<= 2) against the same JAX kernel at 2e-6 in the three modes, and against
+a float64 softmax at 5e-7 (the float32 plain version reaches 3.9e-7 there)
+in "exact", "exp2" and the online mode, at T in {37, 259, 1100} and heads
+of 16, 64 and 80; its online mode also against A15's plain version on
+query slices. In ``exp2_bf16`` each logit is rounded to bf16, a step
+function: where two float32 sums of one logit straddle a step, p differs
+by a bf16 step, so that mode is held at 2e-6 plus
+``_exp2_bf16_tie_allowance`` (0 in rows with no logit within round-off of
+a step).
+
 One seam: ``exp2_bf16`` is ``jnp.exp2`` of a bf16 array, whose value is a
 bf16 (op by op, the port's function bit for bit, tested below). Inside a
 jitted graph, as the interpret-mode kernel runs, XLA on the CPU may keep
@@ -34,6 +46,9 @@ from fast_speech_enhancement_metrics_tpu.ops import sdpa_pallas as jax_sdpa
 from fast_speech_enhancement_metrics_tpu_torch.ops import attention_core, sdpa_pallas
 
 CASES = [(70, 16), (128, 64), (259, 80), (259, 16), (70, 80)]
+#: the float32 arm's dataflow: T under one 64-key tile, ragged, and many tiles
+TWIN_CASES = [(t, d) for t in (37, 259, 1100) for d in (16, 64, 80)]
+TWIN_SEED = 4
 
 
 def _qkv(t, d, seed=0, b=1, h=2):
@@ -62,12 +77,12 @@ np.savez(sys.argv[2], **out)
 """
 
 
-@pytest.fixture(scope="module")
-def strict_exp2_bf16(tmp_path_factory):
-    """The JAX kernel's float32 exp2_bf16 outputs for every case of CASES,
-    with XLA's excess precision off (see the module docstring)."""
-    tmp = tmp_path_factory.mktemp("strict_sdpa")
-    np.savez(tmp / "in.npz", **{f"{n}{i}": a for i, (t, d) in enumerate(CASES) for n, a in zip("qkv", _qkv(t, d))})
+def _strict_exp2_bf16(tmp, cases, seed):
+    """The JAX kernel's float32 exp2_bf16 outputs for every case of
+    ``cases`` (inputs ``_qkv(t, d, seed)``), with XLA's excess precision off
+    (see the module docstring)."""
+    np.savez(tmp / "in.npz",
+             **{f"{n}{i}": a for i, (t, d) in enumerate(cases) for n, a in zip("qkv", _qkv(t, d, seed))})
     root = Path(__file__).resolve().parents[1]
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"{os.environ.get('XLA_FLAGS', '')} --xla_allow_excess_precision=false".strip(),
@@ -75,7 +90,17 @@ def strict_exp2_bf16(tmp_path_factory):
     subprocess.run([sys.executable, "-c", _STRICT_JAX, str(tmp / "in.npz"), str(tmp / "out.npz")],
                    cwd=root, env=env, check=True, timeout=600)
     out = np.load(tmp / "out.npz")
-    return {case: out[f"o{i}"] for i, case in enumerate(CASES)}
+    return {case: out[f"o{i}"] for i, case in enumerate(cases)}
+
+
+@pytest.fixture(scope="module")
+def strict_exp2_bf16(tmp_path_factory):
+    return _strict_exp2_bf16(tmp_path_factory.mktemp("strict_sdpa"), CASES, 0)
+
+
+@pytest.fixture(scope="module")
+def strict_exp2_bf16_twin(tmp_path_factory):
+    return _strict_exp2_bf16(tmp_path_factory.mktemp("strict_sdpa_twin"), TWIN_CASES, TWIN_SEED)
 
 
 @pytest.mark.parametrize("softmax", ["exact", "exp2", "exp2_bf16"])
@@ -176,5 +201,68 @@ def test_sdpa_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="shapes"):
         sdpa_pallas.sdpa(x, x[:, :1], x, 0.25)
     with pytest.raises(ValueError, match="query block"):
-        sdpa_pallas.sdpa(x, x, x, 0.25, block_q=128)
+        sdpa_pallas.sdpa(x, x, x, 0.25, block_q=64)
     assert sdpa_pallas.sdpa(x, x, x, 0.25, block_q=sdpa_pallas.KERNEL_BLOCK_Q).shape == x.shape
+
+
+@pytest.mark.parametrize("softmax", ["exact", "exp2", "exp2_bf16"])
+@pytest.mark.parametrize("t,d", TWIN_CASES)
+def test_sdpa_f32_pieces_reference_matches_pallas(t, d, softmax, strict_exp2_bf16_twin):
+    q, k, v = _qkv(t, d, seed=TWIN_SEED)
+    scaling = d**-0.5
+    if softmax == "exp2_bf16":  # see the module docstring
+        theirs = strict_exp2_bf16_twin[(t, d)]
+    else:
+        theirs = np.asarray(jax_sdpa.sdpa(*(jnp.asarray(a) for a in (q, k, v)), scaling, interpret=True,
+                                          softmax=softmax))
+    qkv = [torch.from_numpy(a) for a in (q, k, v)]
+    ours = sdpa_pallas._sdpa_f32_pieces_reference(*qkv, scaling, softmax)
+    assert ours.dtype == torch.float32 and ours.shape == q.shape
+    limit = np.full(q.shape, 2e-6)
+    if softmax == "exp2_bf16":
+        limit = limit + sdpa_pallas._exp2_bf16_tie_allowance(*qkv, scaling, torch.from_numpy(theirs)).numpy()
+    err = np.abs(ours.numpy().astype(np.float64) - theirs)
+    assert np.all(err <= limit), (err.max(), np.max(err - limit))
+
+
+@pytest.mark.parametrize("softmax", ["exact", "exp2", "online"])
+@pytest.mark.parametrize("t,d", TWIN_CASES)
+def test_sdpa_f32_pieces_reference_matches_float64_softmax(t, d, softmax):
+    q, k, v = _qkv(t, d, seed=TWIN_SEED)
+    ours = sdpa_pallas._sdpa_f32_pieces_reference(*(torch.from_numpy(a) for a in (q, k, v)), d**-0.5, softmax)
+    np.testing.assert_allclose(ours.numpy(), _softmax64(q, k, v, d**-0.5), atol=5e-7, rtol=0)
+
+
+@pytest.mark.parametrize("t,d", TWIN_CASES)
+def test_sdpa_f32_pieces_reference_online_matches_flash_plain(t, d):
+    """The online mode (64-key tiles, O kept unnormalised) against A15's
+    plain version (128-key blocks, normalised at every block) on query slices."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(t, d, seed=TWIN_SEED))
+    ours = sdpa_pallas._sdpa_f32_pieces_reference(q, k, v, d**-0.5, "online")
+    for sl in (slice(0, 32), slice(max(0, t - 40), t)):
+        torch.testing.assert_close(ours[:, :, sl], sdpa_pallas._flash_sdpa_plain(q[:, :, sl], k, v, d**-0.5),
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+def test_split_pieces_reassemble_exactly(d):
+    """x0 + x1 + x2 == x in float32 for values whose pieces are normal
+    (binary exponents -100 .. 100: a nonzero piece is at least 2^-23 of
+    x's exponent), and
+    the split pass's planes: (q, k, v) x 3 pieces of (B H T, D_p) bf16, the
+    head zero-padded to 64 or 128 columns."""
+    rs = np.random.RandomState(d)
+    shape = (2, 3, 50, d)
+    x = (rs.choice([-1.0, 1.0], shape) * rs.uniform(1.0, 2.0, shape) * np.exp2(rs.randint(-100, 100, shape)))
+    x = x.astype(np.float32)
+    x = torch.from_numpy(x)
+    x0, x1, x2 = sdpa_pallas._split3(x)
+    assert all(torch.equal(a.to(torch.bfloat16).float(), a) for a in (x0, x1, x2))
+    assert torch.equal((x0 + x1) + x2, x)
+    pieces = sdpa_pallas.split_pieces(x, 2 * x, -x)
+    d_p = 64 if d <= 64 else 128
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (3, 3, 2 * 3 * 50, d_p)
+    assert not torch.any(pieces[..., d:])
+    for i, scale in enumerate((1, 2, -1)):
+        total = (pieces[i, 0].float() + pieces[i, 1].float()) + pieces[i, 2].float()
+        assert torch.equal(total[:, :d], scale * x.reshape(-1, d))

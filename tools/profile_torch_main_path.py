@@ -15,10 +15,12 @@ with ``attention_impl="layer_block"`` (each layer one launch of kernel A11,
 A7's and A8's launches chained) and ``"block_int8"`` (the int8 attention
 block A12, then the plain FFN),
 on its long-audio path at 16 x 60 s (2999 frames, the attention on
-kernel A9), and on one pair of 820 s clips (40 999 frames, kernel A15).
+kernel A9), and on one pair of 820 s clips (40 999 frames, kernel A15),
+the last also at ``precision="highest"`` ("SpeechBERTScore highest": A15's
+float32 arm and its split pass).
 Each line also gives the share of device time of the attention kernel
-(``flash_kernel``: A9, A15, A7's and so A11's; ``attention_kernel``: the
-float32 arm's; ``i8_attention_kernel``: A12's), and the time of each kernel
+(``flash_kernel``: A9, A15, A7's and so A11's; ``flash_f32_kernel``: A9's
+and A15's float32 arm; ``i8_attention_kernel``: A12's), and the time of each kernel
 in an anonymous namespace by its short name: the package's own (A7 and A8
 are several: ``cast_kernel``, ``gemm_kernel<epilogue>``, ``flash_kernel``,
 ``residual_ln_kernel``; A12 adds the int8 ``gemm_kernel<3>`` and its
@@ -48,7 +50,7 @@ from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_dat
 CALLS = 5  # profiled calls per metric, after 3 warm-ups
 LONG_BATCH, LONG_SECONDS = 16, 60  # SpeechBERTScore's long-audio run (A9)
 FLASH_SECONDS = 820  # one pair past the sdpa range (A15)
-ATTENTION_KERNELS = ("flash_kernel", "attention_kernel")  # the second also matches i8_attention_kernel
+ATTENTION_KERNELS = ("flash_kernel", "flash_f32_kernel", "i8_attention_kernel")
 
 
 def main() -> None:
@@ -81,6 +83,8 @@ def main() -> None:
          args.batch, args.seconds),
         ("SpeechBERTScore", sbs, *on_card(LONG_SECONDS, LONG_BATCH), LONG_BATCH, LONG_SECONDS),
         ("SpeechBERTScore", sbs, *on_card(FLASH_SECONDS, 1), 1, FLASH_SECONDS),
+        ("SpeechBERTScore highest", SpeechBERTScore(params=params, precision="highest"),
+         *on_card(FLASH_SECONDS, 1), 1, FLASH_SECONDS),
     ]
     for name, metric, c, d, batch, seconds in runs:
         if args.only and name not in args.only:
