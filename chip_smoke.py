@@ -8,7 +8,8 @@ Usage, from the repository root, on a machine with a CUDA card:
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (``nvidia-smi``) and the TF32 switches;
-   float32 matmuls must not use TF32, nor the metrics' convs,
+   float32 matmuls must not use TF32, nor the metrics' convs (HuBERT's
+   and DNSMOS's),
 2. build the CUDA kernels from ``csrc/`` (``nvcc``, sm_90a) and print each
    kernel's registers and spills (``ptxas -v``), and any wgmma
    serialization warning; the attention kernel of A9, A15 and A7 (A11) and
@@ -59,7 +60,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``SDR(corr_impl="gram")`` and ``"gram_x1"`` on the 16 s batch (A4 in
    split x3 and x1);
    ``lsd_scores(..., dft_impl="ct")`` on the 16 s batch (A13);
-   ``levinson_solve_fused(..., variant=v)`` for each A14 variant.
+   ``levinson_solve_fused(..., variant=v)`` for each A14 variant;
+   ``PESQ()`` and ``DNSMOS()`` on the 16 s batch (no kernel on either path:
+   none may launch), ``DNSMOS`` also at ``precision="highest"``, with
+   ``conv_dtype=torch.bfloat16`` (within 0.04 / 0.04 / 0.02 of it) and
+   ``window_plan="per_window"`` on the first rows (1e-4 of shared_exact),
+   ``PESQ(time_align=True)`` on the batch delayed by 1200 samples (every row
+   shifted back exactly).
    The first rows are scored again on the CPU (plain path) for agreement,
    and SpeechBERTScore's also by the card's float32 path (the 820 s pair:
    by the exact A9 path); fused SDR also against ``SDR()``,
@@ -80,7 +87,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    end (SpeechBERTScore also on
    16 x 60 s, one 820 s pair at ``precision="highest"``, and with
    ``attention_impl`` "layer_block" and "block_int8",
-   SDR also with ``corr_impl`` "fused", "gram" and "gram_x1"),
+   SDR also with ``corr_impl`` "fused", "gram" and "gram_x1"; PESQ, also
+   with ``time_align=True``, and DNSMOS, also with a bf16 trunk, each with
+   its peak device memory),
 6. the result: a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -108,6 +117,8 @@ SBS_CPU_ROWS = 2
 HOP, EPS, LAGS = 256, 1e-8, 512
 #: unaligned clip lengths for LSD's A2 (F + 1 <= 1024 frames) and A3 (beyond)
 A2_SAMPLES, A3_SAMPLES = 16 * RATE + 100, 20 * RATE + 100
+#: PESQ(time_align=True)'s injected delay: 75 ms, inside its +-100 ms search
+SHIFT = 1200
 #: SpeechBERTScore's long-audio paths: 16 x 60 s (2999 frames, A9) and one
 #: pair of 820 s clips (40 999 frames, A15)
 LONG_BATCH, LONG_SECONDS, FLASH_SECONDS = 16, 60, 820
@@ -122,8 +133,16 @@ PACKAGE = "fast_speech_enhancement_metrics_tpu_torch"
 JAX_PACKAGE = "fast_speech_enhancement_metrics_tpu"
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase(title: str) -> None:
+    """Mark the start of a phase with the seconds since the script started."""
+    log(f"== {title} at {time.perf_counter() - T0:.1f} s")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -218,7 +237,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import fast_speech_enhancement_metrics_tpu_torch as pkg
-    from fast_speech_enhancement_metrics_tpu_torch.models import hubert
+    from fast_speech_enhancement_metrics_tpu_torch.models import dnsmos_net, hubert
     from fast_speech_enhancement_metrics_tpu_torch.ops import (
         attn_block_pallas,
         cuda_lib,
@@ -254,8 +273,13 @@ def main() -> int:
         conv_tf32 = torch.backends.cudnn.allow_tf32
     log(f"torch.backends.cudnn.allow_tf32 inside the metrics' convs={conv_tf32}")
     check(not conv_tf32, "the metrics' float32 convs would use TF32")
+    with dnsmos_net._conv_flags():  # as the DNSMOS net sets it around its trunk
+        dnsmos_tf32 = torch.backends.cudnn.allow_tf32
+    log(f"torch.backends.cudnn.allow_tf32 inside DNSMOS's convs={dnsmos_tf32}")
+    check(not dnsmos_tf32, "DNSMOS's float32 convs would use TF32")
 
     # -- 2. build -------------------------------------------------------------
+    phase("build")
     t0 = time.perf_counter()
     so = cuda_lib.build()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {so.name}")
@@ -322,6 +346,7 @@ def main() -> int:
         check(len(spills) == n and not any(spills), f"{kernel} ({source}.cu) spills registers")
 
     # -- 3. kernels against their plain versions --------------------------------
+    phase("kernels against their plain versions")
     clean_np, noisy_np, _ = load_audio_data(SECONDS, BATCH, RATE)
     c = torch.from_numpy(clean_np).to(dev)
     d = torch.from_numpy(noisy_np).to(dev)
@@ -789,6 +814,7 @@ def main() -> int:
         record(kid, kname, "sdr_corr_fused.cu", line, err, 2e-4 * scale, f" ({cn.shape[1]} samples)")
 
     # -- 4. main path -----------------------------------------------------------
+    phase("main path")
     metrics = {
         "LSD": pkg.LSD(),
         "SDR": pkg.SDR(),
@@ -1024,7 +1050,76 @@ def main() -> int:
         log(f"SDR corr_impl={impl!r}: batch mean {vals.mean()}; vs the CPU plain path on {CPU_ROWS} rows "
             f"{dev_cpu:.3e} dB (atol 1e-2); vs SDR() (split x4) {vs_x4:.3e} dB")
 
+    phase("main path: PESQ, DNSMOS")
+    # PESQ and DNSMOS: no Pallas kernel on their paths in the JAX package, so
+    # none here (cuBLAS / cuDNN float32, TF32 off) and no launch counted; the
+    # first rows against the CPU plain path, PESQ at abs 1e-3 MOS, DNSMOS at
+    # 5e-4
+    pesq_m, dnsmos_m = pkg.PESQ(), pkg.DNSMOS()
+    pd_scores = drive(lambda: {"PESQ": pesq_m(clean_np, noisy_np), "DNSMOS": dnsmos_m(clean_np, noisy_np)},
+                      "main path (PESQ, DNSMOS)", ())
+    check(not any(cuda_lib.launch_counts.values()), "PESQ / DNSMOS launched a kernel of the package")
+    dns_keys = ("SIG", "BAK", "OVRL")
+
+    def score_rows(rows, keys, n):
+        vals = np.array([[r[k] for k in keys] for r in rows])
+        check(vals.shape == (n, len(keys)) and bool(np.all(np.isfinite(vals))), f"{keys}: bad scores")
+        return vals
+
+    pesq_vals = score_rows(pd_scores["PESQ"], ("PESQ",), BATCH)
+    dns_vals = score_rows(pd_scores["DNSMOS"], dns_keys, BATCH)
+    check(bool(np.all((pesq_vals > 0.99) & (pesq_vals < 4.56))) and bool(np.all((dns_vals >= 1) & (dns_vals <= 5))),
+          "PESQ / DNSMOS: scores out of range")
+    for name, vals, keys, tol in (("PESQ", pesq_vals, ("PESQ",), 1e-3), ("DNSMOS", dns_vals, dns_keys, 5e-4)):
+        t0 = time.perf_counter()
+        cpu_vals = score_rows(getattr(pkg, name)(device="cpu")(clean_np[:CPU_ROWS], noisy_np[:CPU_ROWS]), keys,
+                              CPU_ROWS)
+        cpu_s = time.perf_counter() - t0
+        dev_cpu = float(np.max(np.abs(vals[:CPU_ROWS] - cpu_vals)))
+        check(dev_cpu <= tol, f"{name}: card vs CPU plain path {dev_cpu:.3e} (atol {tol})")
+        log(f"{name}: batch mean {vals.mean(axis=0).tolist()}; card vs CPU plain path on {CPU_ROWS} rows: "
+            f"max diff {dev_cpu:.3e} (atol {tol}; the CPU took {cpu_s:.1f} s)")
+    rows = dnsmos_m._shared_chunk_rows(BATCH, dnsmos_m._tile_to_window(d).shape[1] // 160 - 1)
+    log(f"DNSMOS shared_exact: {1 if rows is None else -(-BATCH // rows)} trunk chunk(s) of "
+        f"{BATCH if rows is None else rows} rows at {BATCH} x {SECONDS} s (6 GB rule on the conv0 map)")
+    # precision="highest" is the same float32 function on the card; the bf16
+    # trunk within the JAX package's bf16 class of it; the per-window plan on
+    # 4 rows against shared_exact at 1e-4 (cuDNN picks its algorithms by
+    # shape, so the gap is printed)
+    dns_highest = score_rows(pkg.DNSMOS(precision="highest")(None, noisy_np), dns_keys, BATCH)
+    dev_h = float(np.max(np.abs(dns_highest - dns_vals)))
+    check(dev_h <= 1e-5, f"DNSMOS precision='highest' vs default on the card {dev_h:.3e} (atol 1e-5)")
+    dnsmos_bf16 = pkg.DNSMOS(conv_dtype=torch.bfloat16)
+    dns_bf16 = score_rows(dnsmos_bf16(None, noisy_np), dns_keys, BATCH)
+    bf16_err = np.max(np.abs(dns_bf16 - dns_highest), axis=0)
+    check(bool(np.all(bf16_err <= np.array([0.04, 0.04, 0.02]))),
+          f"DNSMOS conv_dtype=bfloat16 vs 'highest' {bf16_err.tolist()} (atol 0.04 / 0.04 / 0.02)")
+    dns_pw = score_rows(pkg.DNSMOS(window_plan="per_window")(None, noisy_np[:CPU_ROWS]), dns_keys, CPU_ROWS)
+    dev_pw = float(np.max(np.abs(dns_pw - dns_vals[:CPU_ROWS])))
+    check(dev_pw <= 1e-4, f"DNSMOS per_window vs shared_exact on the card {dev_pw:.3e} (atol 1e-4)")
+    log(f"DNSMOS: precision='highest' vs default {dev_h:.3e} (atol 1e-5); conv_dtype=bfloat16 vs 'highest' "
+        f"SIG / BAK / OVRL {bf16_err.tolist()} (atol 0.04 / 0.04 / 0.02); window_plan='per_window' vs "
+        f"shared_exact on {CPU_ROWS} rows {dev_pw:.3e} (atol 1e-4)")
+    # PESQ(time_align=True) on the batch delayed by SHIFT samples: every row
+    # shifted back exactly, the scores within 0.1 of the undelayed ones (the
+    # zero-filled tail) and the first rows at 1e-3 of the CPU plain path
+    delayed_np = np.concatenate([np.zeros_like(noisy_np[:, :SHIFT]), noisy_np[:, :-SHIFT]], axis=1)
+    pesq_al = pkg.PESQ(time_align=True)
+    al_vals = score_rows(drive(lambda: pesq_al(clean_np, delayed_np), "PESQ time_align=True", ()), ("PESQ",), BATCH)
+    back = pesq_al._align_delay(c, torch.from_numpy(delayed_np).to(dev))
+    exact = int(torch.sum(torch.all(back[:, :-SHIFT] == d[:, :-SHIFT], dim=1)).item())
+    check(exact == BATCH, f"PESQ time_align: {exact} of {BATCH} rows shifted back exactly")
+    cpu_al = score_rows(pkg.PESQ(device="cpu", time_align=True)(clean_np[:CPU_ROWS], delayed_np[:CPU_ROWS]),
+                        ("PESQ",), CPU_ROWS)
+    dev_al, dev_base = float(np.max(np.abs(al_vals[:CPU_ROWS] - cpu_al))), float(np.max(np.abs(al_vals - pesq_vals)))
+    check(dev_al <= 1e-3 and dev_base <= 0.1,
+          f"PESQ time_align: card vs CPU {dev_al:.3e} (atol 1e-3), vs the undelayed scores {dev_base:.3e} (atol 0.1)")
+    log(f"PESQ time_align=True on a {SHIFT}-sample delay: {exact} of {BATCH} rows shifted back exactly; card vs CPU "
+        f"plain path on {CPU_ROWS} rows {dev_al:.3e} (atol 1e-3); vs PESQ() on the undelayed batch {dev_base:.3e} "
+        "(atol 0.1)")
+
     # -- 5. times ---------------------------------------------------------------
+    phase("times")
     nc = t_len // HOP
     idx = torch.as_tensor(np.abs(np.arange(LAGS)[None, :] - np.arange(LAGS)[:, None]), device=dev)
     toeplitz_full = r0n[:, idx]
@@ -1364,9 +1459,21 @@ def main() -> int:
         ms = host_ms(lambda m=metric: m(c, d))
         log(json.dumps({"metric": "SDR", "corr_impl": impl, "batch": BATCH, "seconds": SECONDS, "ms": ms,
                         "audio_seconds_per_s": audio_s / (ms / 1e3)}))
+    phase("times: PESQ, DNSMOS")
+    for name, opts, metric, clean_in, reps in (
+        ("PESQ", {}, pesq_m, c, 10), ("DNSMOS", {}, dnsmos_m, None, 3),
+        ("DNSMOS", {"conv_dtype": "bfloat16"}, dnsmos_bf16, None, 3), ("PESQ", {"time_align": True}, pesq_al, c, 10),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda m=metric, ci=clean_in: m(ci, d), warmup=1, reps=reps)
+        log(json.dumps({"metric": name, **opts, "batch": BATCH, "seconds": SECONDS, "ms": ms,
+                        "audio_seconds_per_s": audio_s / (ms / 1e3),
+                        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    phase("times: PESQ, DNSMOS done")
     log(f"peak device memory: {peak_all / 2**30:.2f} GiB up to the end-to-end times")
 
     # -- 6. result ---------------------------------------------------------------
+    phase("result")
     keys = ("name", "id", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "direct_bound_ms",
             "library_ms", "library_partial_ms")

@@ -4,7 +4,8 @@ Usage, from the repository root, on a machine with a CUDA card:
 
     python3 tools/profile_torch_main_path.py [--batch 64] [--seconds 16] [--only NAME ...]
 
-For each of LSD, SDR, STOI(sample_rate=16000) and SpeechBERTScore (at
+For each of LSD, SDR, STOI(sample_rate=16000), PESQ, DNSMOS (also with its
+trunk in bf16, "DNSMOS bf16") and SpeechBERTScore (at
 mHuBERT-147's width with seeded random weights, ``init_params`` seed 0),
 scores a batch of the package's synthetic audio (already on the card, as a
 benchmark would hold it) a few times under ``torch.profiler`` and prints
@@ -43,7 +44,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI, SpeechBERTScore  # noqa: E402
+from fast_speech_enhancement_metrics_tpu_torch import DNSMOS, LSD, PESQ, SDR, STOI, SpeechBERTScore  # noqa: E402
 from fast_speech_enhancement_metrics_tpu_torch.models.hubert import init_params  # noqa: E402
 from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_data  # noqa: E402
 
@@ -76,6 +77,9 @@ def main() -> None:
         ("LSD", LSD(), c, d, args.batch, args.seconds),
         ("SDR", SDR(), c, d, args.batch, args.seconds),
         ("STOI", STOI(sample_rate=16000), c, d, args.batch, args.seconds),
+        ("PESQ", PESQ(), c, d, args.batch, args.seconds),
+        ("DNSMOS", DNSMOS(), c, d, args.batch, args.seconds),
+        ("DNSMOS bf16", DNSMOS(conv_dtype=torch.bfloat16), c, d, args.batch, args.seconds),
         ("SpeechBERTScore", sbs, c, d, args.batch, args.seconds),
         ("SpeechBERTScore layer_block", SpeechBERTScore(params=params, attention_impl="layer_block"), c, d,
          args.batch, args.seconds),
