@@ -90,7 +90,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    SDR also with ``corr_impl`` "fused", "gram" and "gram_x1"; PESQ, also
    with ``time_align=True``, and DNSMOS, also with a bf16 trunk, each with
    its peak device memory),
-6. the result: a ``{"kernels": [...]}`` line, then the last line
+6. the bench harness (``benchmarking/runner.py``): the calibration canary
+   and its graph-protocol twin, each at or below 1.1 x the card's bf16
+   peak; ``bench_one`` for each of ``make_metrics()``'s six at 64 x 16 s
+   with a short budget, one record a line: each on the CUDA graph protocol,
+   the graph's captured launches equal to one eager call's, A1, A4, A5, A6,
+   A7 and A8 among them, the replays' scores the eager call's,
+7. the mesh (``parallel/``): a one-rank NCCL group on 127.0.0.1 and
+   ``create_mesh(1, 1)``; the six metrics with ``mesh=`` against the same
+   metrics without it: phase 4's limits, the same launch counts; the group
+   destroyed after,
+8. the result: a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX and nothing of the JAX package.
@@ -100,8 +110,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -110,6 +122,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 BATCH, SECONDS, RATE = 64, 16, 16000
 CPU_ROWS = 4
@@ -122,6 +135,17 @@ SHIFT = 1200
 #: SpeechBERTScore's long-audio paths: 16 x 60 s (2999 frames, A9) and one
 #: pair of 820 s clips (40 999 frames, A15)
 LONG_BATCH, LONG_SECONDS, FLASH_SECONDS = 16, 60, 820
+#: the bench harness's time budget per metric in phase 6 (seconds)
+HARNESS_BUDGET_S = 1.0
+#: the kernels each bench metric's path must launch (phases 6 and 7)
+HARNESS_KERNELS = {"LSD": ("A1",), "SDR": ("A4", "A5"), "STOI": ("A6",), "SpeechBERTScore": ("A7", "A8"),
+                   "PESQ": (), "DNSMOS": ()}
+#: the graph's replays against the eager call (phase 6): phase 4's limits
+#: (LSD's rtol 2e-4 on scores below 10 as an atol)
+HARNESS_TOL = {"LSD": 2e-3, "SDR": 1e-2, "STOI": 5e-4, "PESQ": 1e-3, "DNSMOS": 5e-4, "SpeechBERTScore": 2e-4}
+#: a metric on a one-rank mesh against itself without one (phase 7): phase 4's limits
+MESH_TOL = {"LSD": ("rel", 2e-4), "SDR": ("abs", 1e-2), "STOI": ("abs", 5e-4), "PESQ": ("abs", 1e-3),
+            "DNSMOS": ("abs", 5e-4), "SpeechBERTScore": ("abs", 2e-4)}
 #: seeds of the generators that A9's and A15's checks draw from
 A9_SEED, A15_SEED = 9, 10
 #: published H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
@@ -230,6 +254,115 @@ def rfft_flops(n: int) -> float:
 def sdr_db(b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     coh = torch.sum(b * x, dim=-1)
     return 10.0 * torch.log10(torch.clamp(coh / torch.clamp(1.0 - coh, min=1e-8), min=1e-8))
+
+
+def bench_harness_phase(results: dict, single: dict, clean_np: np.ndarray, noisy_np: np.ndarray,
+                        device=None) -> None:
+    """Phase 6: the canary and each of the bench's six factories through
+    ``benchmarking/runner.py`` with a short budget: the graph protocol (none
+    runs a host plan), the graph's captured launches equal one eager
+    call's, the replays' scores the eager call's; the launch counts set to
+    0 before each metric. Each factory's scores also against phase 4's
+    metric of that name (``single``): the same configuration within phase
+    4's limits, DNSMOS's bf16 trunk within its bf16 class, SpeechBERTScore's
+    bf16 activations printed. ``results``: the kernels' records (their
+    names)."""
+    from fast_speech_enhancement_metrics_tpu_torch.benchmarking import runner
+    from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
+
+    phase("bench harness")
+    t_phase = time.perf_counter()
+    canary = runner.calibration_canary(device)
+    log(json.dumps({"metric": "_canary", **canary}))
+    peak = 1.1 * runner.H100_PEAK_BF16_TFLOPS
+    check(canary["canary_ok"] and canary["canary_tflops"] <= peak and canary["canary_scan_tflops"] <= peak,
+          f"timing canary {canary['canary_tflops']} / {canary['canary_scan_tflops']} TFLOP/s above 1.1 x "
+          f"{runner.H100_PEAK_BF16_TFLOPS}")
+    for name, factory in runner.make_metrics(RATE, device).items():
+        metric = factory()
+        check(getattr(metric, "host_chunk", None) is None, f"{name}: the bench factory runs a host plan")
+        torch.cuda.synchronize()
+        cuda_lib.launch_counts.clear()
+        rec = runner.bench_one(name, metric, clean_np, noisy_np, clean_np.shape[1] // RATE,
+                               time_budget_s=HARNESS_BUDGET_S)
+        log(json.dumps(rec))
+        check(rec["protocol"] == "graph", f"{name}: protocol {rec['protocol']}, expected the CUDA graph")
+        check(rec["graph_launches"] == rec["launches"],
+              f"{name}: the graph captured launches {rec['graph_launches']}, one eager call {rec['launches']}")
+        for kid in HARNESS_KERNELS[name]:
+            kname = results[kid]["name"]
+            check(rec["launches"].get(kname, 0) >= 1, f"{kid} {kname} was not launched on the {name} bench path")
+        dev = rec["scan_vs_eager_max_abs"]
+        check(math.isfinite(dev) and dev <= HARNESS_TOL[name],
+              f"{name}: the graph's scores vs the eager call's {dev:.3e} (atol {HARNESS_TOL[name]})")
+        clean_in = None if metric.NON_INTRUSIVE else clean_np
+        got, want = (np.array([list(r.values()) for r in m_(clean_in, noisy_np)]) for m_ in (metric, single[name]))
+        vs_phase4 = np.max(np.abs(got - want), axis=0)
+        if name == "DNSMOS":  # the bf16 trunk against float32
+            check(bool(np.all(vs_phase4 <= np.array([0.04, 0.04, 0.02]))),
+                  f"DNSMOS bench factory (bf16 trunk) vs float32 {vs_phase4.tolist()} (atol 0.04 / 0.04 / 0.02)")
+        elif name != "SpeechBERTScore":
+            check(float(vs_phase4.max()) <= HARNESS_TOL[name], f"{name} bench factory vs phase 4 {vs_phase4.tolist()}")
+        log(f"{name} bench factory vs phase 4's {name}: max diff {vs_phase4.tolist()}")
+        del metric
+        torch.cuda.empty_cache()
+    log(f"bench harness: {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_phase(pkg, results: dict, single: dict, sbs_params: dict, clean_np: np.ndarray, noisy_np: np.ndarray,
+               device_type: str = "cuda") -> None:
+    """Phase 7: a one-rank group on 127.0.0.1 (NCCL on the card) and
+    ``create_mesh(1, 1)``; each metric of ``single`` (name -> the metric
+    without a mesh) against the same metric with ``mesh=``: the scores
+    within phase 4's limits, the same launch counts. One card holds one
+    rank: the data all-gather and tensor parallelism run in the CPU tests'
+    gloo groups."""
+    from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
+    from fast_speech_enhancement_metrics_tpu_torch.parallel import create_mesh, initialize_distributed
+
+    phase("mesh")
+    t_phase = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0", LOCAL_RANK="0", WORLD_SIZE="1")
+    initialize_distributed(device_type)
+    try:
+        mesh = create_mesh(1, 1, device_type=device_type)
+        log(f"mesh: {mesh} on backend {dist.get_backend()}")
+        make = {
+            "LSD": lambda: pkg.LSD(mesh=mesh),
+            "SDR": lambda: pkg.SDR(mesh=mesh),
+            "STOI": lambda: pkg.STOI(sample_rate=RATE, mesh=mesh),
+            "PESQ": lambda: pkg.PESQ(mesh=mesh),
+            "DNSMOS": lambda: pkg.DNSMOS(mesh=mesh),
+            "SpeechBERTScore": lambda: pkg.SpeechBERTScore(params=sbs_params, mesh=mesh),
+        }
+        for name, metric in single.items():
+            sharded = make[name]()
+            kind, tol = MESH_TOL[name]
+            clean_in = None if metric.NON_INTRUSIVE else clean_np
+            counts, rows = [], []
+            for m_ in (metric, sharded):
+                torch.cuda.synchronize()
+                cuda_lib.launch_counts.clear()
+                rows.append(m_(clean_in, noisy_np))
+                torch.cuda.synchronize()
+                counts.append(dict(cuda_lib.launch_counts))
+            check(counts[1] == counts[0], f"{name} on the mesh launched {counts[1]}, without one {counts[0]}")
+            for kid in HARNESS_KERNELS[name]:
+                check(counts[1].get(results[kid]["name"], 0) >= 1, f"{kid} was not launched by {name} on the mesh")
+            want, got = (np.array([list(r.values()) for r in rows_]) for rows_ in rows)
+            check(got.shape == want.shape == (len(noisy_np), len(rows[0][0])) and bool(np.all(np.isfinite(got))),
+                  f"{name} on the mesh: bad scores")
+            excess = float(np.max(np.abs(got - want) - (tol * np.abs(want) if kind == "rel" else 0.0)))
+            check(excess <= tol, f"{name} on the mesh vs one device beyond {kind} {tol}")
+            log(f"mesh {name}: launches {counts[1]} (as without a mesh); max diff vs one device "
+                f"{float(np.max(np.abs(got - want))):.3e} ({kind} {tol})")
+            del sharded
+    finally:
+        dist.destroy_process_group()
+    log(f"mesh: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1472,7 +1605,13 @@ def main() -> int:
     phase("times: PESQ, DNSMOS done")
     log(f"peak device memory: {peak_all / 2**30:.2f} GiB up to the end-to-end times")
 
-    # -- 6. result ---------------------------------------------------------------
+    # -- 6. the bench harness, 7. the mesh ------------------------------------------
+    single = {"LSD": metrics["LSD"], "SDR": metrics["SDR"], "STOI": metrics["STOI"], "PESQ": pesq_m,
+              "DNSMOS": dnsmos_m, "SpeechBERTScore": sbs}
+    bench_harness_phase(results, single, clean_np, noisy_np)
+    mesh_phase(pkg, results, single, sbs_params, clean_np, noisy_np)
+
+    # -- 8. result ---------------------------------------------------------------
     phase("result")
     keys = ("name", "id", "route", "source", "replaces", "launches", "max_abs_err",
             "tolerance", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "direct_bound_ms",

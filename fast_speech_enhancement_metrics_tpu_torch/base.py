@@ -10,7 +10,10 @@ already on the metric's device and at ``EXPECTED_SAMPLING_RATE``:
 * ``__call__`` makes one device->host copy per call (the score vectors,
   stacked) instead of one per utterance,
 * ``compute_ragged`` scores variable-length utterances grouped by exact
-  length, so no padding ever reaches a metric.
+  length, so no padding ever reaches a metric,
+* under a ``torch.distributed`` ``DeviceMesh`` (``parallel/``) each rank
+  scores its contiguous share of the batch over the ``data`` axis as a
+  one-device call, and ``compute`` all-gathers the score vectors.
 
 Metrics run on ``torch.device("cuda")`` unless the caller names another
 device; on a machine without CUDA that default raises.
@@ -23,8 +26,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fast_speech_enhancement_metrics_tpu_torch.ops.resample import resample
+from fast_speech_enhancement_metrics_tpu_torch.parallel.mesh import axis_size, mesh_device
 
 
 def _to_tensor(audio: Any) -> torch.Tensor:
@@ -76,20 +81,19 @@ class BaseMetric(abc.ABC):
         self,
         sample_rate: int = 16000,
         device: torch.device | str | None = None,
-        mesh: None = None,
+        mesh=None,
         dtype: torch.dtype = torch.float32,
     ):
-        """``mesh``: the JAX package's device mesh keyword; the port's
-        multi-device layer is not ported yet (ROADMAP.md §A, ``parallel/``),
-        so only ``None`` is taken. ``dtype``: the JAX package's parameter
-        dtype keyword (its SpeechBERTScore loads a checkpoint's weights in
-        it); the port keeps its parameters in float32, so only
-        ``torch.float32`` is taken."""
+        """``mesh``: a ``("data", "model")`` ``DeviceMesh``
+        (``parallel.create_mesh``); the metric then runs on this rank's
+        device, and every rank must make the same calls with the same
+        batch. ``dtype``: the JAX package's parameter dtype keyword (its
+        SpeechBERTScore loads a checkpoint's weights in it); the port keeps
+        its parameters in float32, so only ``torch.float32`` is taken."""
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the port's multi-device layer (parallel/, ROADMAP.md §A) is not ported yet; "
-                "pass mesh=None"
-            )
+            if device is not None:
+                raise ValueError("pass device or mesh, not both: under a mesh the device is the rank's own")
+            device = mesh_device(mesh)
         if dtype != torch.float32:
             raise NotImplementedError(
                 f"dtype={dtype}: the port keeps parameters in float32 only; pass dtype=torch.float32 "
@@ -107,12 +111,26 @@ class BaseMetric(abc.ABC):
 
     # -- input pipeline -----------------------------------------------------
 
+    def _data_axis_size(self) -> int:
+        return axis_size(self.mesh, "data")
+
     def prepare_audio(self, audio: Any) -> torch.Tensor:
+        """(B, T) float32 on the metric's device. Under a mesh, the batch is
+        padded to a multiple of the ``data`` axis with replicas of its last
+        row (real audio, sliced off again in ``compute``), and this rank
+        keeps its contiguous ``B / data`` rows."""
         a = _to_tensor(audio)
         if a.ndim == 1:
             a = a[None, :]
         if a.ndim != 2:
             raise ValueError(f"audio must be 1-D or 2-D, got shape {tuple(a.shape)}")
+        n = self._data_axis_size()
+        if n > 1:
+            if a.shape[0] % n:
+                a = torch.cat([a, a[-1:].expand(n - a.shape[0] % n, -1)])
+            rows = a.shape[0] // n
+            first = self.mesh.get_local_rank("data") * rows
+            a = a[first:first + rows]
         return a.to(device=self.device, dtype=torch.float32).contiguous()
 
     def prepare_inputs(self, clean_speech, denoised_speech):
@@ -147,9 +165,20 @@ class BaseMetric(abc.ABC):
         return self._compute_resampled(clean, denoised)
 
     def compute(self, clean_speech, denoised_speech) -> dict[str, torch.Tensor]:
-        """Functional API: a dict of per-utterance score tensors on the device."""
+        """Functional API: a dict of per-utterance score tensors on the device
+        (under a mesh, all B rows on every rank)."""
         clean, denoised = self.prepare_inputs(clean_speech, denoised_speech)
-        return self._run_prepared(clean, denoised)
+        scores = self._run_prepared(clean, denoised)
+        n = self._data_axis_size()
+        if n == 1:
+            return scores
+        keys = list(scores)
+        local = torch.stack([scores[k].float() for k in keys])
+        parts = [torch.empty_like(local) for _ in range(n)]
+        dist.all_gather(parts, local, group=self.mesh.get_group("data"))
+        d = _to_tensor(denoised_speech)
+        full = torch.cat(parts, dim=1)[:, : 1 if d.ndim == 1 else d.shape[0]]  # the pad rows go
+        return {k: full[i] for i, k in enumerate(keys)}
 
     @staticmethod
     def _to_host(scores: dict[str, torch.Tensor]) -> list[dict[str, float]]:

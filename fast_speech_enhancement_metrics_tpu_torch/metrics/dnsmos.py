@@ -111,7 +111,13 @@ class DNSMOS(BaseMetric):
         self.shared_chunk_gb = 6.0
         if shared_conv and host_chunk is None:
             raise ValueError("shared_conv requires host_chunk (utterances per step)")
+        if host_chunk is not None and self.mesh is not None:
+            raise ValueError("host_chunk is a single-device execution plan; use segment_chunk with a mesh")
+        # under a mesh every rank holds the whole (small) net: replicated
         self.params = load_params(checkpoint, self.device)
+        #: the calibration polynomial's coefficients on the device, made once
+        #: here: a copy from the host inside a call would sync it
+        self._poly = torch.from_numpy(np.stack([POLY_C, POLY_B1, POLY_B2])).to(self.device)
 
     # -- segmentation -----------------------------------------------------------
 
@@ -205,15 +211,10 @@ class DNSMOS(BaseMetric):
 
     # -- in-graph plans -------------------------------------------------------------
 
-    @staticmethod
-    def _calibrate(raw: torch.Tensor, batch: int, num_windows: int) -> dict[str, torch.Tensor]:
+    def _calibrate(self, raw: torch.Tensor, batch: int, num_windows: int) -> dict[str, torch.Tensor]:
         """(B*S, 3) raw float32 scores -> calibrated window means in float32."""
-        dev = raw.device
-        calibrated = (
-            torch.from_numpy(POLY_C).to(dev)
-            + torch.from_numpy(POLY_B1).to(dev) * raw
-            + torch.from_numpy(POLY_B2).to(dev) * torch.square(raw)
-        )
+        c, b1, b2 = self._poly
+        calibrated = c + b1 * raw + b2 * torch.square(raw)
         scores = calibrated.reshape(batch, num_windows, 3).mean(dim=1)
         return {"SIG": scores[:, 0], "BAK": scores[:, 1], "OVRL": scores[:, 2]}
 

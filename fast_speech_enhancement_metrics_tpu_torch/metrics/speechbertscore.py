@@ -33,6 +33,8 @@ from fast_speech_enhancement_metrics_tpu_torch.models.hubert import (
     hubert_hidden_state,
 )
 from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import MAX_HEAD_DIM
+from fast_speech_enhancement_metrics_tpu_torch.parallel.mesh import axis_size
+from fast_speech_enhancement_metrics_tpu_torch.parallel.sharding import shard_params
 
 DEFAULT_CHECKPOINT = Path(__file__).parent.parent / "checkpoints" / "mhubert147.npz"
 #: past this many frames "auto" takes the flash kernel instead of sdpa
@@ -75,8 +77,11 @@ class SpeechBERTScore(BaseMetric):
         activation stream in bf16. ``batch_chunk`` encodes the doubled batch
         in row chunks (the same scores). ``host_chunk`` is an alias of it,
         kept for the JAX package's signature, where it splits the jit graph
-        on the host; it wins where both are given. Other keywords (``mesh``,
-        ``dtype``) go to ``BaseMetric``."""
+        on the host; it wins where both are given, and takes no mesh. Other
+        keywords (``mesh``, ``dtype``) go to ``BaseMetric``; a mesh whose
+        ``model`` axis is larger than 1 runs the encoder tensor-parallel
+        over it (``params`` then the pytree, cut by
+        ``parallel.shard_params``)."""
         super().__init__(sample_rate, device=device, **kw)
         for name, value, allowed in (
             ("precision", precision, (None, "default", "highest")),
@@ -95,8 +100,18 @@ class SpeechBERTScore(BaseMetric):
         self.batch_chunk = batch_chunk
         self.attention_impl = attention_impl
         self.host_chunk = host_chunk
+        if host_chunk is not None and self.mesh is not None:
+            raise ValueError("host_chunk is a single-device execution plan; use batch_chunk with a mesh")
         if params is None:
             params = self._load_params(checkpoint)
+        self._tp_group = None
+        if self.mesh is not None and axis_size(self.mesh, "model") > 1:
+            # Megatron tensor parallelism over the mesh's 'model' axis
+            if isinstance(params, HubertEncoder):
+                raise ValueError("tensor parallelism shards the parameter pytree: pass params as the "
+                                 "JAX package's layout (init_params, load_params), not a HubertEncoder")
+            params = shard_params(params, self.mesh, config)
+            self._tp_group = self.mesh.get_group("model")
         encoder = params if isinstance(params, HubertEncoder) else from_jax_params(params, config)
         self.config = encoder.config
         self.encoder = encoder.to(self.device)
@@ -121,9 +136,11 @@ class SpeechBERTScore(BaseMetric):
         chunk's logits over 4 GB, take the long-audio kernel A9 ("sdpa") up
         to 40 000 frames and A15 ("flash") past that, at any precision;
         shorter clips at the default precision with a post-LN config and an
-        even head count take the block kernels A7 + A8. The kernels take
-        heads of up to 128: a wider head raises on the card, naming the
-        limit."""
+        even head count take the block kernels A7 + A8, except under tensor
+        parallelism, whose sharded weights close the block routes: there
+        they take "einsum", as the JAX package does under a mesh. The
+        kernels take heads of up to 128: a wider head raises on the card,
+        naming the limit."""
         impl = self.attention_impl
         on_cuda = self._on_cuda()
         if impl == "auto":
@@ -136,6 +153,7 @@ class SpeechBERTScore(BaseMetric):
                 impl = "sdpa" if frames <= SDPA_MAX_FRAMES else "flash"
             elif (
                 self.precision in (None, "default")
+                and self._tp_group is None
                 and not self.config.do_stable_layer_norm
                 and heads % 2 == 0
             ):
@@ -164,7 +182,7 @@ class SpeechBERTScore(BaseMetric):
             return hubert_hidden_state(
                 self.encoder, audio, output_layer=self.output_layer, attention_impl=impl,
                 act_dtype=self.act_dtype, gelu=self.gelu, softmax=self.softmax,
-                precision=self.precision,
+                precision=self.precision, tp_group=self._tp_group,
             )
 
     def _compute(self, clean, denoised):

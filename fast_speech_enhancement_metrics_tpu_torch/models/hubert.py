@@ -35,6 +35,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -170,24 +171,35 @@ def feature_encoder(enc: HubertEncoder, audio: torch.Tensor, gelu: str = "erf") 
 
 def _attention(
     p, x: torch.Tensor, num_heads: int, softmax: str = "exact", impl: str = "einsum",
-    bf16_kernel: bool = False,
+    bf16_kernel: bool = False, tp_group=None,
 ) -> torch.Tensor:
-    """Multi-head self-attention with the fused (d, 3d) QKV projection: plain
-    tensor ops (``impl="einsum"``) or one attention kernel (``"sdpa*"``: A9,
-    ``"flash"``: A15). ``bf16_kernel`` (the default precision) casts q, k, v
-    to bf16 for the kernel and its context back, as the JAX package does."""
+    """Multi-head self-attention: plain tensor ops (``impl="einsum"``) or one
+    attention kernel (``"sdpa*"``: A9, ``"flash"``: A15). ``bf16_kernel``
+    (the default precision) casts q, k, v to bf16 for the kernel and its
+    context back, as the JAX package does.
+
+    One device takes the fused (d, 3d) QKV projection. Under tensor
+    parallelism (``tp_group``) ``p`` holds this rank's columns of q/k/v and
+    rows of o (``parallel/sharding.py``): q, k and v are projected
+    separately onto the local heads, of the full model's head width, and
+    the output projection's partial sums are all-reduced over the group
+    before ``o_b`` is added once."""
     b, t, d = x.shape
     hd = d // num_heads
     scaling = hd**-0.5
     dt = x.dtype
+    local_d = p["q_w"].shape[1]
 
     def split(h):
-        return h.reshape(b, t, num_heads, hd).transpose(1, 2)
+        return h.reshape(b, t, local_d // hd, hd).transpose(1, 2)
 
-    qkv_w = torch.cat([p["q_w"], p["k_w"], p["v_w"]], dim=1).to(dt)
-    qkv_b = torch.cat([p["q_b"], p["k_b"], p["v_b"]]).to(dt)
-    qkv = torch.matmul(x, qkv_w) + qkv_b
-    q, k, v = split(qkv[..., :d]), split(qkv[..., d:2 * d]), split(qkv[..., 2 * d:])
+    if tp_group is None:
+        qkv_w = torch.cat([p["q_w"], p["k_w"], p["v_w"]], dim=1).to(dt)
+        qkv_b = torch.cat([p["q_b"], p["k_b"], p["v_b"]]).to(dt)
+        qkv = torch.matmul(x, qkv_w) + qkv_b
+        q, k, v = split(qkv[..., :d]), split(qkv[..., d:2 * d]), split(qkv[..., 2 * d:])
+    else:
+        q, k, v = (split(torch.matmul(x, p[f"{n}_w"].to(dt)) + p[f"{n}_b"].to(dt)) for n in "qkv")
     if impl in KERNEL_ATTENTION_IMPLS:
         if impl == "flash":  # the flash kernel's softmax is always the exact one
             kernel = sdpa_pallas.flash_sdpa
@@ -212,19 +224,31 @@ def _attention(
         ctx = torch.matmul(weights, v)
     else:
         raise ValueError(f"unknown attention impl: {impl!r}")
-    ctx = ctx.transpose(1, 2).reshape(b, t, d)
-    return torch.matmul(ctx, p["o_w"].to(dt)) + p["o_b"].to(dt)
+    ctx = ctx.transpose(1, 2).reshape(b, t, local_d)
+    return _row_sharded(ctx, p["o_w"], p["o_b"], tp_group)
 
 
-def _ffn(p, x: torch.Tensor, gelu: str) -> torch.Tensor:
+def _row_sharded(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, tp_group) -> torch.Tensor:
+    """h @ w + bias, where under ``tp_group`` h and w hold this rank's part
+    of the reduced axis: the partial products are all-reduced first."""
+    dt = h.dtype
+    out = torch.matmul(h, w.to(dt))
+    if tp_group is not None:
+        dist.all_reduce(out, group=tp_group)
+    return out + bias.to(dt)
+
+
+def _ffn(p, x: torch.Tensor, gelu: str, tp_group=None) -> torch.Tensor:
+    """The FFN; under ``tp_group``, this rank's ``ff_w1`` columns and
+    ``ff_w2`` rows, all-reduced before ``ff_b2``."""
     dt = x.dtype
     h = _gelu(torch.matmul(x, p["ff_w1"].to(dt)) + p["ff_b1"].to(dt), gelu)
-    return torch.matmul(h, p["ff_w2"].to(dt)) + p["ff_b2"].to(dt)
+    return _row_sharded(h, p["ff_w2"], p["ff_b2"], tp_group)
 
 
 def _encoder_layer(
     enc: HubertEncoder, i: int, x: torch.Tensor, attention_impl: str = "einsum",
-    gelu: str = "erf", softmax: str = "exact", bf16_kernel: bool = False,
+    gelu: str = "erf", softmax: str = "exact", bf16_kernel: bool = False, tp_group=None,
 ) -> torch.Tensor:
     config = enc.config
     p = enc.layers[i]
@@ -232,12 +256,15 @@ def _encoder_layer(
     heads = config.num_attention_heads
     if attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
+    if tp_group is not None and attention_impl in BLOCK_IMPLS:
+        raise ValueError(f"the block paths fuse the sharded products; under tensor parallelism take "
+                         f"'einsum', 'sdpa*' or 'flash', got {attention_impl!r}")
     if config.do_stable_layer_norm:
         if attention_impl in BLOCK_IMPLS:
             raise ValueError(f"pre-LN layers have no block path, got {attention_impl!r}")
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
-        x = x + _attention(p, h, heads, softmax, attention_impl, bf16_kernel)
-        return x + _ffn(p, _layer_norm(x, p["ln2_s"], p["ln2_b"], eps), gelu)
+        x = x + _attention(p, h, heads, softmax, attention_impl, bf16_kernel, tp_group)
+        return x + _ffn(p, _layer_norm(x, p["ln2_s"], p["ln2_b"], eps), gelu, tp_group)
     if attention_impl == "layer_block" and gelu == "tanh":
         mode = "exp2" if softmax == "exp2" else "exact"
         attn_ops, ffn_ops = enc.packed_blocks(i, mode)
@@ -251,9 +278,9 @@ def _encoder_layer(
         if attention_impl == "block_ffn" and (gelu == "tanh" or x.device.type == "cpu"):
             return attn_block_pallas.ffn_block(x, ffn_ops, eps, gelu=gelu)
     else:
-        x = _layer_norm(x + _attention(p, x, heads, softmax, attention_impl, bf16_kernel),
+        x = _layer_norm(x + _attention(p, x, heads, softmax, attention_impl, bf16_kernel, tp_group),
                         p["ln1_s"], p["ln1_b"], eps)
-    return _layer_norm(x + _ffn(p, x, gelu), p["ln2_s"], p["ln2_b"], eps)
+    return _layer_norm(x + _ffn(p, x, gelu, tp_group), p["ln2_s"], p["ln2_b"], eps)
 
 
 def hubert_hidden_state(
@@ -265,6 +292,7 @@ def hubert_hidden_state(
     gelu: str = "erf",
     softmax: str = "exact",
     precision: str | None = "highest",
+    tp_group=None,
 ) -> torch.Tensor:
     """(B, T) audio -> (B, frames, hidden) == HF ``hidden_states[output_layer]``:
     the output of the first ``output_layer`` encoder layers (only those run).
@@ -278,6 +306,11 @@ def hubert_hidden_state(
     statistics and the softmax stay fp32); the result is then fp32.
     ``softmax``: ``"exact"``, ``"exp2"`` or ``"exp2_bf16"``; the einsum path
     runs the last as ``"exact"``, as the JAX package does.
+
+    ``tp_group``: the ``model`` group of a tensor-parallel mesh, whose
+    ranks hold their shards of the layers' products (``enc`` built from
+    ``parallel.shard_params``); the conv feature encoder, the positional
+    conv and the LayerNorms are replicated.
     """
     config = enc.config
     dt = act_dtype or torch.float32
@@ -308,7 +341,7 @@ def hubert_hidden_state(
         x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
     for i in range(min(output_layer, len(enc.layers))):
         x = _encoder_layer(enc, i, x, attention_impl, gelu=gelu, softmax=softmax,
-                           bf16_kernel=precision in (None, "default"))
+                           bf16_kernel=precision in (None, "default"), tp_group=tp_group)
     if config.do_stable_layer_norm and output_layer == config.num_hidden_layers:
         # pre-LN stack: the encoder LayerNorm applies after the final layer
         x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)

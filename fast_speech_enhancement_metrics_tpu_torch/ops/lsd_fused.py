@@ -252,6 +252,10 @@ def _ct_hann_power(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch.cat([power, ynyq * ynyq], dim=-1)
 
 
+#: (-1)^br of the eight branches, (8, 1): a device table, so that a call copies nothing from the host
+_CT_BRANCH_SIGN = np.array([1.0, -1.0] * 4, dtype=np.float32)[:, None]
+
+
 def _ct_frame_powers(chunks: torch.Tensor) -> torch.Tensor:
     """(B, NC, 256) raw chunks -> windowed power spectra of the NC + 1
     centered frames, (B, NC + 1, 257) in the scrambled bin order: the branch
@@ -260,7 +264,7 @@ def _ct_frame_powers(chunks: torch.Tensor) -> torch.Tensor:
     z, q = _ct_branch_spectra(chunks)
     z = F.pad(z, (0, 0, 0, 0, 1, 1))  # (B, NC + 2, 8, 64)
     q = F.pad(q, (0, 0, 1, 1))
-    sign = torch.tensor([1.0, -1.0] * 4, device=z.device, dtype=z.dtype)[:, None]
+    sign = device_table(_CT_BRANCH_SIGN, z.device).to(z.dtype)
     return _ct_hann_power(z[:, :-1] + sign * z[:, 1:], q[:, :-1] + q[:, 1:])
 
 

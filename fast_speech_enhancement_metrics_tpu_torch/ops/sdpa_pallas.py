@@ -40,6 +40,8 @@ take the plain versions; CUDA tensors launch the kernels or raise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
@@ -82,11 +84,18 @@ def _pad_keys_l(t: int, softmax: str) -> float:
     return n_pad * p_pad
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_tensor(scaling: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The 0-d scale in ``dtype`` on ``device``, made once: a copy from the
+    host inside a call would sync it."""
+    return torch.tensor(scaling, dtype=dtype, device=device)
+
+
 def _scaled_q(q: torch.Tensor, scaling: float, softmax: str) -> torch.Tensor:
     """q * scaling in q's dtype (the scale rounded to it), as the JAX wrapper does."""
     if softmax != "exact":
         scaling = scaling * LOG2E
-    return q * torch.tensor(scaling, dtype=q.dtype, device=q.device)
+    return q * _scale_tensor(scaling, q.dtype, q.device)
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -120,8 +120,9 @@ def test_base_keywords_construct():
 
 @pytest.mark.parametrize("cls", [LSD, SDR, STOI, SpeechBERTScore], ids=lambda c: c.__name__)
 def test_mesh_other_than_none_raises(cls):
-    """The multi-device layer is not ported: a mesh raises, naming it."""
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    """A mesh sets the metric's device to the rank's own: a mesh beside an
+    explicit device raises, naming both."""
+    with pytest.raises(ValueError, match="device or mesh"):
         cls(device="cpu", mesh=object())
 
 
