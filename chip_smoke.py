@@ -69,7 +69,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    shifted back exactly).
    The first rows are scored again on the CPU (plain path) for agreement,
    and SpeechBERTScore's also by the card's float32 path (the 820 s pair:
-   by the exact A9 path); fused SDR also against ``SDR()``,
+   by the exact A9 path); fused SDR also against ``SDR()``.
+   Then the API that has no kernel of its own: ``ops/stft.py``'s ``stft``
+   and ``spectrogram`` (power 1 and 2) on the 16 s batch, ``n_fft=512`` at
+   ``hop=256, center=True`` and at ``hop=160, win_length=400``, against
+   the same call on the CPU (1e-5 of max|Z|); ``SpeechBERTScore(checkpoint=
+   ...)`` from a ``save_params`` file of the seeded weights, on the 16 s
+   batch: A7 and A8 as often as the ``params=`` route, its F1 bit-equal,
 5. times: each kernel (CUDA events around one call; also its device time
    alone, the card kept busy while the host enqueues it), its plain
    version (A5 and each A14 variant also beside its chain's floor, an
@@ -89,7 +95,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``attention_impl`` "layer_block" and "block_int8",
    SDR also with ``corr_impl`` "fused", "gram" and "gram_x1"; PESQ, also
    with ``time_align=True``, and DNSMOS, also with a bf16 trunk, each with
-   its peak device memory),
+   its peak device memory); conv 0 and the feature encoder alone on the
+   16 s clean rows, for the record,
 6. the bench harness (``benchmarking/runner.py``): the calibration canary
    and its graph-protocol twin, each at or below 1.1 x the card's bf16
    peak; ``bench_one`` for each of ``make_metrics()``'s six at 64 x 16 s
@@ -363,6 +370,82 @@ def mesh_phase(pkg, results: dict, single: dict, sbs_params: dict, clean_np: np.
     finally:
         dist.destroy_process_group()
     log(f"mesh: {time.perf_counter() - t_phase:.1f} s")
+
+
+def public_api_phase(pkg, sbs, sbs_params: dict, f1: np.ndarray, clean_np: np.ndarray, noisy_np: np.ndarray,
+                     device=None) -> None:
+    """Phase 4's checks of the API that takes no kernel of its own:
+    ``stft`` and ``spectrogram`` (power 1 and 2) on the 16 s batch on the
+    card against the same call on the CPU (1e-5 of max|Z|);
+    ``SpeechBERTScore(checkpoint=...)`` from a ``save_params`` file of the
+    seeded full-width weights (a temporary directory, deleted after),
+    through ``__call__``: A7 and A8 launched as often as by ``sbs`` (the
+    ``params=`` route, whose F1 is ``f1``) and its F1 bit-equal to ``f1``."""
+    import tempfile
+    from functools import partial
+
+    from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, cuda_lib, stft
+    from fast_speech_enhancement_metrics_tpu_torch.utils.convert_hubert import save_params
+
+    phase("main path: stft, the checkpoint route")
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    x_cpu = torch.from_numpy(clean_np)
+    x = x_cpu.to(dev)
+    for kw in (dict(n_fft=512, hop=256, center=True), dict(n_fft=512, hop=160, win_length=400)):
+        for what, fn in (("stft", stft.stft), ("spectrogram power=1", partial(stft.spectrogram, power=1.0)),
+                         ("spectrogram power=2", partial(stft.spectrogram, power=2.0))):
+            got, want = fn(x, **kw), fn(x_cpu, **kw)
+            check(got.device.type == dev.type, f"{what} {kw}: the result left the input's device")
+            got = got.cpu()
+            finite = torch.isfinite(torch.view_as_real(got) if got.is_complex() else got)
+            check(got.shape == want.shape and got.dtype == want.dtype and bool(torch.all(finite)),
+                  f"{what} {kw}: {tuple(got.shape)} {got.dtype} on the card, {tuple(want.shape)} {want.dtype} on "
+                  "the CPU, or not finite")
+            gap, scale = float((got - want).abs().max()), float(want.abs().max())
+            check(gap <= 1e-5 * scale, f"{what} {kw}: card vs CPU {gap:.3e} over 1e-5 of max {scale:.3e}")
+            log(f"{what} {kw} on {tuple(got.shape)}: card vs CPU max gap {gap:.3e} (limit 1e-5 x {scale:.4g})")
+    del x, x_cpu
+
+    kernels = (attn_block_pallas.KERNEL_A7, attn_block_pallas.KERNEL_A8)
+    counts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "mhubert147.npz"
+        save_params(sbs_params, str(path))
+        size_mb = path.stat().st_size / 1e6
+        from_file = pkg.SpeechBERTScore(checkpoint=path, device=device)
+    for metric in (sbs, from_file):
+        torch.cuda.synchronize()
+        cuda_lib.launch_counts.clear()
+        rows = metric(clean_np, noisy_np)
+        torch.cuda.synchronize()
+        counts.append({k: cuda_lib.launch_counts.get(k, 0) for k in kernels})
+    f1_file = np.array([r["SpeechBERTScore"] for r in rows])
+    check(counts[1] == counts[0] and (dev.type != "cuda" or all(counts[1].values())),
+          f"SpeechBERTScore(checkpoint=...) launched {counts[1]}, params= {counts[0]}")
+    check(f1_file.shape == f1.shape and np.array_equal(f1_file, f1),
+          f"SpeechBERTScore(checkpoint=...) vs params=: max diff {float(np.max(np.abs(f1_file - f1))):.3e}")
+    log(f"SpeechBERTScore(checkpoint=<{size_mb:.0f} MB npz>): launches {counts[1]} (as params=), F1 bit-equal to "
+        f"the params= route on {len(f1)} rows")
+    del from_file
+
+
+def conv0_times(sbs, smi: str, clean: torch.Tensor) -> None:
+    """Phase 5, for the record: conv 0 and the whole feature encoder of the
+    ``sbs`` encoder on ``clean``."""
+    from fast_speech_enhancement_metrics_tpu_torch.models import hubert
+
+    enc = sbs.encoder
+    w, stride = enc.feature_encoder[0]["w"], enc.config.conv_stride[0]
+    x = clean[:, None]
+
+    def conv0():
+        with hubert._conv_flags():
+            return torch.nn.functional.conv1d(x, w, stride=stride)
+
+    with torch.inference_mode():
+        log(json.dumps({"what": "HuBERT feature encoder", "rows": clean.shape[0], "seconds": clean.shape[1] / RATE,
+                        "card": smi, "conv0_ms": cuda_ms(conv0),
+                        "feature_encoder_ms": cuda_ms(lambda: hubert.feature_encoder(enc, clean))}))
 
 
 def main() -> int:
@@ -1251,6 +1334,8 @@ def main() -> int:
         f"plain path on {CPU_ROWS} rows {dev_al:.3e} (atol 1e-3); vs PESQ() on the undelayed batch {dev_base:.3e} "
         "(atol 0.1)")
 
+    public_api_phase(pkg, sbs, sbs_params, f1, clean_np, noisy_np)
+
     # -- 5. times ---------------------------------------------------------------
     phase("times")
     nc = t_len // HOP
@@ -1592,6 +1677,7 @@ def main() -> int:
         ms = host_ms(lambda m=metric: m(c, d))
         log(json.dumps({"metric": "SDR", "corr_impl": impl, "batch": BATCH, "seconds": SECONDS, "ms": ms,
                         "audio_seconds_per_s": audio_s / (ms / 1e3)}))
+    conv0_times(sbs, smi, c)
     phase("times: PESQ, DNSMOS")
     for name, opts, metric, clean_in, reps in (
         ("PESQ", {}, pesq_m, c, 10), ("DNSMOS", {}, dnsmos_m, None, 3),

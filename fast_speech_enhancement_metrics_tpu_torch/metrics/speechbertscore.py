@@ -14,7 +14,10 @@ attention kernel A9 (``sdpa``; bf16 at the default precision, float32 at
 the default precision run each post-LN layer on kernels A7 (attention
 block) and A8 (FFN block), and ``precision="highest"`` the plain float32
 tensor path. The kernels take heads of up to 128. Weights load from a
-converted ``.npz`` (``utils/convert_hubert.py``); there is no hub download.
+converted ``.npz`` (``utils/convert_hubert.py``); with no checkpoint at all
+they fall back to converting ``utter-project/mHuBERT-147`` with
+``transformers`` (local hub cache, or the network), and otherwise raise with
+the converter's command line.
 """
 
 from __future__ import annotations
@@ -65,7 +68,8 @@ class SpeechBERTScore(BaseMetric):
         """``params``: the JAX package's parameter pytree (numpy leaves, as
         ``init_params`` or ``load_params`` give) or a ``HubertEncoder``;
         without it the weights load from ``checkpoint`` (default
-        ``checkpoints/mhubert147.npz`` in this package).
+        ``checkpoints/mhubert147.npz`` in this package; if that is absent
+        too, the HF model converted, whose config then replaces ``config``).
         ``precision="default"`` is the bf16 block-kernel class on the card,
         ``"highest"`` the float32 tensor path. ``attention_impl``: "einsum",
         "sdpa" / "sdpa_exp2" / "sdpa_exp2_bf16" (kernel A9), "flash" (A15),
@@ -103,7 +107,7 @@ class SpeechBERTScore(BaseMetric):
         if host_chunk is not None and self.mesh is not None:
             raise ValueError("host_chunk is a single-device execution plan; use batch_chunk with a mesh")
         if params is None:
-            params = self._load_params(checkpoint)
+            params, config = self._load_params(checkpoint, config)
         self._tp_group = None
         if self.mesh is not None and axis_size(self.mesh, "model") > 1:
             # Megatron tensor parallelism over the mesh's 'model' axis
@@ -117,18 +121,30 @@ class SpeechBERTScore(BaseMetric):
         self.encoder = encoder.to(self.device)
 
     @staticmethod
-    def _load_params(checkpoint):
-        from fast_speech_enhancement_metrics_tpu_torch.utils.convert_hubert import load_params
+    def _load_params(checkpoint, config: HubertConfig) -> tuple[dict, HubertConfig]:
+        """(params, config): an existing ``checkpoint`` (or the default one)
+        with ``config``; with no checkpoint given and none at the default
+        path, ``convert_pretrained(MHUBERT_147)`` with the model's own config."""
+        from fast_speech_enhancement_metrics_tpu_torch.utils.convert_hubert import (
+            MHUBERT_147,
+            convert_pretrained,
+            load_params,
+        )
 
         path = Path(checkpoint) if checkpoint is not None else DEFAULT_CHECKPOINT
-        if not path.exists():
+        if path.exists():
+            return load_params(str(path)), config
+        if checkpoint is not None:
+            raise FileNotFoundError(f"HuBERT checkpoint not found: {checkpoint}")
+        try:
+            return convert_pretrained(MHUBERT_147)
+        except Exception as e:  # no transformers, no hub cache, no network
             raise FileNotFoundError(
-                f"HuBERT checkpoint not found: {path}. Convert the HF model once, on a "
-                "machine that has it: load utter-project/mHuBERT-147 with transformers, "
-                "then utils.convert_hubert.save_params(convert_hf_hubert(model.state_dict(), "
-                f"config_from_hf(model.config)), '{DEFAULT_CHECKPOINT}'); or pass params=..."
-            )
-        return load_params(str(path))
+                f"No converted mHuBERT-147 checkpoint at {DEFAULT_CHECKPOINT} and the HF model could "
+                f"not be loaded ({type(e).__name__}). On a machine with network access run: python -m "
+                f"fast_speech_enhancement_metrics_tpu_torch.utils.convert_hubert '{MHUBERT_147}' "
+                f"'{DEFAULT_CHECKPOINT}'; or pass params=..."
+            ) from e
 
     def _resolve_impl(self, num_samples: int, rows: int) -> str:
         """The attention path for (rows, num_samples) inputs. On a CUDA device,

@@ -1,15 +1,23 @@
-"""Deterministic synthetic speech/noise generation and SNR mixing.
+"""Deterministic synthetic speech/noise generation, SNR mixing, and the HF loaders.
 
 The port's own copy of the synthetic generator: harmonic "speech" with
 pitch/amplitude modulation and pauses, plus coloured noise, mixed at a
 per-utterance SNR with RMS-based mixing math. The same seed gives the same
 arrays as the JAX package's generator, so tests and benches on either side
-score identical audio. There is no network loader: scoring runs offline.
+score identical audio. ``load_audio_data(source="hf")`` streams the
+reference's real speech and noise sets with ``datasets`` instead (network
+required); when the stream or the package is missing it warns and returns
+the synthetic batch, as the JAX package does.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
+import torch
+
+from fast_speech_enhancement_metrics_tpu_torch.ops.resample import resample
 
 
 def synth_speech(
@@ -99,13 +107,81 @@ def load_audio_data(
     seed: int = 42,
     source: str = "synthetic",
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(clean, noisy, snr) batches from the deterministic synthetic generator.
+    """(clean, noisy, snr) batches, shaped like the reference's loader.
 
-    Only ``source="synthetic"`` exists here; streaming real speech needs the
-    network and is not part of this package.
+    ``source="synthetic"`` (default) uses the deterministic generators, so
+    tests and benches run offline; ``"hf"`` streams real speech and noise
+    from the HF hub (``load_hf_speech`` / ``load_hf_noise``), and without
+    the network or the ``datasets`` package (an ``ImportError`` or an
+    ``OSError``, which the hub's and ``datasets``' errors are) warns
+    (``RuntimeWarning``) and falls back to the synthetic batch; any other
+    error propagates. Any other source raises ``ValueError``.
     """
-    if source != "synthetic":
-        raise ValueError(f"only source='synthetic' is available, got {source!r}")
+    if source not in ("synthetic", "hf"):
+        raise ValueError(f"source must be 'synthetic' or 'hf', got {source!r}")
+    if source == "hf":
+        try:
+            speech = load_hf_speech(num_samples, sample_duration, sample_rate)
+            noise = load_hf_noise(num_samples, sample_duration, sample_rate)
+            return combine_speech_noise(speech, noise, snr_high, snr_low, seed=seed + 2)
+        except (ImportError, OSError) as e:  # no datasets package / no network, hub or dataset
+            warnings.warn(
+                f"HF streaming unavailable ({type(e).__name__}: {e}); falling back to synthetic audio",
+                RuntimeWarning,
+                stacklevel=2,
+            )
     speech = synth_speech(num_samples, sample_duration, sample_rate, seed=seed)
     noise = synth_noise(num_samples, sample_duration, sample_rate, seed=seed + 1)
     return combine_speech_noise(speech, noise, snr_high, snr_low, seed=seed + 2)
+
+
+def _clip(item, sample_rate: int) -> np.ndarray:
+    """One streamed clip as float32 numpy at ``sample_rate``: resampled on a
+    CPU tensor by ``ops/resample.py`` (the loaders are host code; the
+    metrics copy their batches to the device)."""
+    audio = np.asarray(item["audio"]["array"], dtype=np.float32)
+    orig_sr = int(item["audio"]["sampling_rate"])
+    if orig_sr != sample_rate:
+        audio = resample(torch.from_numpy(audio)[None], orig_sr, sample_rate)[0].numpy()
+    return audio
+
+
+def load_hf_noise(num_samples: int, duration_s: float, sample_rate: int = 16000) -> np.ndarray:
+    """Stream the reference's noise set (nccratliri wing-flap noise):
+    resample, concatenate clips until ``num_samples * duration_s`` seconds
+    are on hand, tile if the whole set is shorter, and reshape to
+    (num_samples, T): the reference's concat-then-chop semantics."""
+    from datasets import load_dataset
+
+    target_len = int(duration_s * sample_rate)
+    total = num_samples * target_len
+    stream = load_dataset("nccratliri/wing-flap-noise-audio-examples", split="train", streaming=True)
+    parts, have = [], 0
+    for item in stream:
+        audio = _clip(item, sample_rate)
+        parts.append(audio)
+        have += len(audio)
+        if have >= total:
+            break
+    noises = np.concatenate(parts) if parts else np.zeros(1, np.float32)
+    if len(noises) < total:
+        noises = np.tile(noises, total // len(noises) + 1)
+    return noises[:total].reshape(num_samples, target_len)
+
+
+def load_hf_speech(num_samples: int, duration_s: float, sample_rate: int = 16000) -> np.ndarray:
+    """Stream real utterances from MLCommons peoples_speech (the reference's
+    speech source): resample to the target rate and tile or crop each clip
+    to exactly ``duration_s`` seconds."""
+    from datasets import load_dataset
+
+    target_len = int(duration_s * sample_rate)
+    out = np.zeros((num_samples, target_len), dtype=np.float32)
+    stream = load_dataset("MLCommons/peoples_speech", "clean", split="train", streaming=True)
+    for i, item in enumerate(stream):
+        if i >= num_samples:
+            break
+        audio = _clip(item, sample_rate)
+        reps = -(-target_len // max(len(audio), 1))
+        out[i] = np.tile(audio, reps)[:target_len]
+    return out

@@ -1,18 +1,23 @@
-"""HuBERT weights: the npz format and the fold of a Hugging Face state dict, in numpy.
+"""HuBERT weights: the npz format, the fold of a Hugging Face state dict, and the converter CLI.
 
 The port's own copy of the JAX package's ``utils/convert_hubert.py``
-(``save_params`` / ``load_params``) and of ``models/hubert.py``'s
-``convert_hf_hubert``: the same flat ``a.b.0.c``-keyed float32 ``.npz`` and
-the same parameter pytree (JAX layout, numpy leaves), so one converted file
-serves both packages. ``from_jax_params`` (``models/hubert.py``) carries a
-loaded pytree into the port's ``HubertEncoder``.
+(``save_params`` / ``load_params``, ``convert_pretrained``, ``main``) and of
+``models/hubert.py``'s ``convert_hf_hubert``: the same flat ``a.b.0.c``-keyed
+float32 ``.npz`` and the same parameter pytree (JAX layout, numpy leaves),
+so one converted file serves both packages. ``from_jax_params``
+(``models/hubert.py``) carries a loaded pytree into the port's
+``HubertEncoder``.
 
-To make ``checkpoints/mhubert147.npz`` without JAX, on a machine that has
-the HF model: ``convert_hf_hubert(HubertModel.from_pretrained(...).state_dict(),
-config_from_hf(model.config))`` and ``save_params`` the result.
+``python -m fast_speech_enhancement_metrics_tpu_torch.utils.convert_hubert
+[model_name_or_path] [output.npz]`` loads an HF ``HubertModel`` (default
+``utter-project/mHuBERT-147``, from a local directory or the hub cache; a
+hub name not yet cached needs the network), folds it and writes the npz
+that ``SpeechBERTScore`` loads offline (``checkpoints/mhubert147.npz``).
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 
@@ -164,3 +169,34 @@ def convert_hf_hubert(state_dict, config: HubertConfig = MHUBERT_147_CONFIG) -> 
         return np.ascontiguousarray(node, dtype=np.float32)
 
     return to_f32(params)
+
+
+def convert_pretrained(name_or_path: str = MHUBERT_147) -> tuple[dict, HubertConfig]:
+    """Load an HF ``HubertModel`` (hub cache or local dir) -> (params, config)."""
+    from transformers import AutoModel
+
+    model = AutoModel.from_pretrained(name_or_path)
+    config = config_from_hf(model.config)
+    return convert_hf_hubert(model.state_dict(), config), config
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _leaves(v)
+    else:
+        yield node
+
+
+def main(name: str = MHUBERT_147, out: str = "mhubert147.npz") -> None:
+    params, config = convert_pretrained(name)
+    save_params(params, out)
+    n = sum(int(np.prod(np.shape(x))) for x in _leaves(params))
+    print(f"wrote {out}: {n/1e6:.1f} M parameters, config={config}")
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

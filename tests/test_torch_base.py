@@ -13,7 +13,7 @@ import torch
 
 import fast_speech_enhancement_metrics_tpu as jax_pkg
 from fast_speech_enhancement_metrics_tpu import LSD as JaxLSD
-from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI, SpeechBERTScore
+from fast_speech_enhancement_metrics_tpu_torch import LSD, PESQ, SDR, STOI, SpeechBERTScore
 from fast_speech_enhancement_metrics_tpu_torch.base import _is_ragged
 from fast_speech_enhancement_metrics_tpu_torch.models.hubert import HubertConfig, init_params
 from fast_speech_enhancement_metrics_tpu_torch.ops.resample import resample
@@ -29,7 +29,33 @@ def test_synthetic_audio_matches_jax_generator():
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="synthetic"):
-        pt_audio.load_audio_data(source="hf")
+        pt_audio.load_audio_data(source="nope")
+
+
+def test_metrics_handle_short_audio():
+    """1-second clips score finite values in every DSP metric of the port."""
+    rng = np.random.RandomState(1)
+    clean = rng.randn(2, 16000).astype(np.float32) * 0.1
+    noisy = clean + 0.02 * rng.randn(2, 16000).astype(np.float32)
+    for metric in (PESQ(device="cpu"), STOI(sample_rate=16000, device="cpu"), SDR(device="cpu"),
+                   LSD(device="cpu")):
+        results = metric(clean, noisy)
+        assert len(results) == 2
+        for r in results:
+            for v in r.values():
+                assert np.isfinite(v)
+
+
+def test_pesq_scores_degrade_with_noise():
+    rng = np.random.RandomState(2)
+    clean = np.sin(2 * np.pi * 220 * np.arange(32000) / 16000).astype(np.float32)
+    clean = np.tile(clean, (2, 1)) * 0.5
+    light = clean + 0.01 * rng.randn(*clean.shape).astype(np.float32)
+    heavy = clean + 0.3 * rng.randn(*clean.shape).astype(np.float32)
+    metric = PESQ(device="cpu")
+    light_scores = [r["PESQ"] for r in metric(clean, light)]
+    heavy_scores = [r["PESQ"] for r in metric(clean, heavy)]
+    assert np.mean(light_scores) > np.mean(heavy_scores)
 
 
 def test_numpy_torch_and_list_inputs_agree(speech_data):

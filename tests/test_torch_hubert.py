@@ -12,7 +12,9 @@ differ in order) moves one residual by one bf16 step, up to 1.6e-2 at
 of at most 1e-4. The long-audio paths ("sdpa*": kernel A9, "flash": A15,
 plain versions here; the JAX sdpa kernel in interpret mode) agree at atol
 1e-4 in float32 (precision "highest") and at the bf16 class at the default
-precision, where q, k, v go to the kernel in bf16.
+precision, where q, k, v go to the kernel in bf16. The converter
+(``convert_pretrained``, ``main``) on a saved small random HF model equals
+the JAX package's bit for bit.
 """
 
 import functools
@@ -24,6 +26,7 @@ import torch
 
 from fast_speech_enhancement_metrics_tpu.models import hubert as jax_hubert
 from fast_speech_enhancement_metrics_tpu.ops import sdpa_pallas as jax_sdpa
+from fast_speech_enhancement_metrics_tpu.utils import convert_hubert as jax_convert_hubert
 from fast_speech_enhancement_metrics_tpu.utils.convert_hubert import save_params as jax_save_params
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert
 from fast_speech_enhancement_metrics_tpu_torch.utils import convert_hubert
@@ -177,6 +180,56 @@ def test_hf_state_dict_fold_matches_jax(overrides):
     assert jax.tree.structure(jax.tree.map(np.asarray, theirs)) == jax.tree.structure(ours)
     for a, b in zip(jax.tree.leaves(theirs), jax.tree.leaves(ours)):
         np.testing.assert_array_equal(np.asarray(a), b)
+
+
+@pytest.fixture(scope="module")
+def saved_hf_model(tmp_path_factory):
+    """A small random HF ``HubertModel`` (batch-norm positional conv, as
+    mHuBERT-147's) saved with ``save_pretrained``: the hub model's stand-in."""
+    from transformers import HubertConfig as HFConfig
+    from transformers import HubertModel
+
+    torch.manual_seed(1)
+    model = HubertModel(HFConfig(**{**SMALL, "intermediate_size": 96, "conv_pos_batch_norm": True})).eval()
+    path = tmp_path_factory.mktemp("hf_hubert")
+    model.save_pretrained(path)
+    return str(path)
+
+
+@pytest.fixture
+def hf_offline(monkeypatch):
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("TRANSFORMERS_OFFLINE", "1")
+
+
+def test_convert_pretrained_matches_jax(saved_hf_model, hf_offline):
+    """``convert_pretrained`` on a saved model: the JAX package's pytree bit
+    for bit, and an equal config."""
+    ours, cfg = convert_hubert.convert_pretrained(saved_hf_model)
+    theirs, jcfg = jax_convert_hubert.convert_pretrained(saved_hf_model)
+    assert repr(cfg) == repr(jcfg) and cfg.conv_dim == SMALL["conv_dim"] and cfg.intermediate_size == 96
+    assert jax.tree.structure(jax.tree.map(np.asarray, theirs)) == jax.tree.structure(ours)
+    assert "bn_scale" in ours["pos_conv"]
+    for a, b in zip(jax.tree.leaves(theirs), jax.tree.leaves(ours)):
+        assert b.dtype == np.float32
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_converter_main_round_trip(saved_hf_model, hf_offline, tmp_path, capsys):
+    """``main`` writes the npz that ``load_params`` reads back leaf for leaf,
+    and prints the JAX package's line."""
+    out = str(tmp_path / "ours.npz")
+    convert_hubert.main(saved_hf_model, out)
+    ours_line = capsys.readouterr().out.strip()
+    jax_convert_hubert.main(saved_hf_model, str(tmp_path / "theirs.npz"))
+    theirs_line = capsys.readouterr().out.strip()
+    assert ours_line.startswith(f"wrote {out}: ") and " M parameters, config=HubertConfig(" in ours_line
+    assert ours_line.replace("ours.npz", "theirs.npz") == theirs_line
+    params, _ = convert_hubert.convert_pretrained(saved_hf_model)
+    loaded = convert_hubert.load_params(out)
+    assert jax.tree.structure(loaded) == jax.tree.structure(params)
+    for a, b in zip(jax.tree.leaves(params), jax.tree.leaves(loaded)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_init_params_layout_and_seed():

@@ -81,6 +81,61 @@ def test_frame_matches_jax(length, frame_length, hop):
     np.testing.assert_array_equal(ours, theirs)
 
 
+STFT_CASES = {  # n_fft, hop, win_length, center, window, input rank
+    "centered": (512, 256, None, True, None, 2),
+    "short_window": (512, 160, 400, False, None, 2),
+    "short_window_centered_1d": (512, 128, 300, True, None, 1),
+    "custom_window_1d": (256, 64, None, False, "custom", 1),
+    "hop_past_frame": (128, 200, None, False, None, 2),
+}
+
+
+def _stft_case(name):
+    n_fft, hop, win_length, center, window, rank = STFT_CASES[name]
+    x = np.random.RandomState(12).randn(*((3, 3001) if rank == 2 else (3001,))).astype(np.float32)
+    if window == "custom":
+        window = np.random.RandomState(13).uniform(0.1, 1.0, n_fft).astype(np.float32)
+    return x, dict(n_fft=n_fft, hop=hop, win_length=win_length, center=center, window=window)
+
+
+@pytest.mark.parametrize("name", sorted(STFT_CASES))
+def test_stft_matches_jax_and_torch_stft(name):
+    """The port's ``stft`` against JAX's and against ``torch.stft`` (constant
+    padding, frames moved before bins), rtol/atol 1e-5 of the output's scale."""
+    x, kw = _stft_case(name)
+    ours = pt_stft.stft(torch.from_numpy(x), **kw)
+    theirs = np.asarray(jax_stft.stft(x, **kw))
+    assert ours.dtype == torch.complex64
+    _close(ours.real, theirs.real)
+    _close(ours.imag, theirs.imag)
+    win_length = kw["win_length"] or kw["n_fft"]
+    window = torch.hann_window(win_length) if kw["window"] is None else torch.from_numpy(kw["window"])
+    ref = torch.stft(torch.from_numpy(x), kw["n_fft"], kw["hop"], win_length, window=window, center=kw["center"],
+                     pad_mode="constant", return_complex=True).transpose(-1, -2)
+    _close(ours.real, ref.real)
+    _close(ours.imag, ref.imag)
+
+
+@pytest.mark.parametrize("power", [1.0, 2.0, 0.5])
+@pytest.mark.parametrize("name", ["centered", "short_window_centered_1d", "hop_past_frame"])
+def test_spectrogram_matches_jax(name, power):
+    x, kw = _stft_case(name)
+    ours = pt_stft.spectrogram(torch.from_numpy(x), power=power, **kw)
+    _close(ours, jax_stft.spectrogram(x, power=power, **kw))
+    assert ours.dtype == torch.float32
+
+
+def test_stft_gapped_frames_match_the_jax_gather():
+    """hop > n_fft: ``unfold`` gives the frames JAX's gather fallback takes."""
+    x = np.random.RandomState(14).randn(2, 1000).astype(np.float32)
+    ours = pt_stft.frame(torch.from_numpy(x), 64, 150).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(jax_stft.frame(x, 64, 150)))
+    assert ours.shape == (2, 7, 64)
+    win = pt_stft._window_cache(400, 512, True)
+    assert pt_stft._window_cache(400, 512, True) is win
+    np.testing.assert_array_equal(win, jax_stft._window_cache(400, 512, True))
+
+
 @pytest.mark.parametrize(
     "n_fft,hop,center,window",
     [(512, 256, True, None), (512, 128, False, None), (256, 128, False, None), (512, 128, False, "stoi")],

@@ -431,7 +431,7 @@ def test_sdr_self_reference_saturates(speech_data):
 
 
 @pytest.mark.parametrize("impl", ["fused", "gram", "gram_x1"])
-def test_sdr_unported_corr_modes_raise(impl):
+def test_sdr_corr_modes_match_jax(impl):
     """Every corr_impl of the JAX package is ported now: fused (A10) scores
     a noisy pair as the default path does, and gram / gram_x1 (A4 in split
     x3 / x1) as the JAX metric in that mode does, at 1e-2 dB, on raw

@@ -9,6 +9,8 @@ on 2 x 0.5 s clips for the long-audio paths: "sdpa" (kernel A9's plain
 version) in each softmax mode against the JAX metric's "sdpa" (its Pallas
 kernel in interpret mode), and "flash" (A15's plain version) against the
 JAX metric's exact "sdpa", since the JAX flash kernel runs only on a TPU.
+Without a checkpoint both packages fall back to the converter (here fed a
+saved small random HF model, never the network) and agree at F1 atol 2e-4.
 """
 
 import functools
@@ -19,11 +21,15 @@ import pytest
 import torch
 
 from fast_speech_enhancement_metrics_tpu import SpeechBERTScore as JaxSpeechBERTScore
+from fast_speech_enhancement_metrics_tpu.metrics import speechbertscore as jax_sbs_mod
 from fast_speech_enhancement_metrics_tpu.models import hubert as jax_hubert
 from fast_speech_enhancement_metrics_tpu.ops import sdpa_pallas as jax_sdpa
+from fast_speech_enhancement_metrics_tpu.utils import convert_hubert as jax_convert_hubert
 from fast_speech_enhancement_metrics_tpu.utils.audio import load_audio_data
 from fast_speech_enhancement_metrics_tpu_torch import SpeechBERTScore
+from fast_speech_enhancement_metrics_tpu_torch.metrics import speechbertscore as sbs_mod
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert
+from fast_speech_enhancement_metrics_tpu_torch.utils import convert_hubert
 
 SMALL = dict(
     hidden_size=64, num_hidden_layers=3, num_attention_heads=4, intermediate_size=256,
@@ -144,3 +150,88 @@ def test_unported_paths_and_missing_weights_raise(tmp_path, small):
         SpeechBERTScore(device="cpu", params=params, config=cfg, attention_impl="nope")
     with pytest.raises(FileNotFoundError, match="mhubert"):
         SpeechBERTScore(device="cpu", checkpoint=tmp_path / "mhubert147.npz")
+
+
+@pytest.fixture(scope="module")
+def saved_hf_model(tmp_path_factory):
+    """A small random HF ``HubertModel`` saved with ``save_pretrained``: the
+    stand-in for mHuBERT-147 on the hub."""
+    from transformers import HubertConfig as HFConfig
+    from transformers import HubertModel
+
+    torch.manual_seed(2)
+    model = HubertModel(HFConfig(**{**SMALL, "conv_pos_batch_norm": True})).eval()
+    path = tmp_path_factory.mktemp("hf_hubert")
+    model.save_pretrained(path)
+    return str(path)
+
+
+@pytest.fixture
+def no_default_checkpoint(monkeypatch, tmp_path):
+    """Both packages' default checkpoint missing, the hub offline."""
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    monkeypatch.setenv("TRANSFORMERS_OFFLINE", "1")
+    monkeypatch.setattr(sbs_mod, "DEFAULT_CHECKPOINT", tmp_path / "absent" / "mhubert147.npz")
+    monkeypatch.setattr(jax_sbs_mod, "DEFAULT_CHECKPOINT", tmp_path / "absent" / "mhubert147.npz")
+
+
+def test_missing_checkpoint_falls_back_to_the_converter(speech_data, saved_hf_model, no_default_checkpoint,
+                                                        monkeypatch):
+    """No checkpoint anywhere: both packages convert the HF model (here the
+    saved small one), take its config, and agree at F1 atol 2e-4."""
+    from transformers import AutoConfig
+
+    names = []
+    for module, convert in ((convert_hubert, convert_hubert.convert_pretrained),
+                            (jax_convert_hubert, jax_convert_hubert.convert_pretrained)):
+        monkeypatch.setattr(module, "convert_pretrained",
+                            lambda name, convert=convert: names.append(name) or convert(saved_hf_model))
+    clean, noisy = speech_data["speech"], speech_data["noisy_speech"]
+    ours_metric = SpeechBERTScore(device="cpu", output_layer=2)
+    theirs_metric = JaxSpeechBERTScore(output_layer=2)
+    assert names == [convert_hubert.MHUBERT_147] * 2
+    assert ours_metric.config == convert_hubert.config_from_hf(AutoConfig.from_pretrained(saved_hf_model))
+    assert ours_metric.config != hubert.MHUBERT_147_CONFIG and repr(ours_metric.config) == repr(theirs_metric.config)
+    ours, theirs = _f1(ours_metric(clean, noisy)), _f1(theirs_metric(clean, noisy))
+    np.testing.assert_allclose(ours, theirs, atol=2e-4, rtol=0)
+    assert np.all(np.isfinite(ours)) and np.all(ours <= 1.0)
+
+
+def test_failed_conversion_raises_file_not_found(no_default_checkpoint, monkeypatch):
+    """The converter failing: both packages raise FileNotFoundError chained
+    from its error; the port's message names its own converter CLI."""
+
+    def offline(name):
+        raise OSError(f"{name} is not in the hub cache")
+
+    monkeypatch.setattr(convert_hubert, "convert_pretrained", offline)
+    monkeypatch.setattr(jax_convert_hubert, "convert_pretrained", offline)
+    cli = "fast_speech_enhancement_metrics_tpu_torch.utils.convert_hubert"
+    with pytest.raises(FileNotFoundError, match=cli) as ours:
+        SpeechBERTScore(device="cpu")
+    assert isinstance(ours.value.__cause__, OSError)
+    with pytest.raises(FileNotFoundError) as theirs:
+        JaxSpeechBERTScore()
+    assert isinstance(theirs.value.__cause__, OSError)
+
+
+def test_named_missing_checkpoint_raises_before_conversion(tmp_path, monkeypatch):
+    calls = []
+    monkeypatch.setattr(convert_hubert, "convert_pretrained", lambda *a: calls.append(a))
+    with pytest.raises(FileNotFoundError, match="not found"):
+        SpeechBERTScore(device="cpu", checkpoint=tmp_path / "nope.npz")
+    assert calls == []
+
+
+def test_checkpoint_route_equals_params_route(speech_data, small, tmp_path, monkeypatch):
+    """``checkpoint=`` (a ``save_params`` file) scores as ``params=`` does,
+    bit for bit; ``params=`` wins over every load."""
+    _, params, cfg = small
+    path = tmp_path / "small.npz"
+    convert_hubert.save_params(params, str(path))
+    clean, noisy = speech_data["speech"][:2], speech_data["noisy_speech"][:2]
+    via_file = _f1(SpeechBERTScore(device="cpu", checkpoint=path, config=cfg, output_layer=2)(clean, noisy))
+    monkeypatch.setattr(convert_hubert, "load_params", lambda *a: pytest.fail("params= must not load"))
+    via_params = _f1(SpeechBERTScore(device="cpu", checkpoint=tmp_path / "nope.npz", params=params, config=cfg,
+                                     output_layer=2)(clean, noisy))
+    np.testing.assert_array_equal(via_file, via_params)
