@@ -14,6 +14,9 @@ already on the metric's device and at ``EXPECTED_SAMPLING_RATE``:
 * under a ``torch.distributed`` ``DeviceMesh`` (``parallel/``) each rank
   scores its contiguous share of the batch over the ``data`` axis as a
   one-device call, and ``compute`` all-gathers the score vectors.
+* while a ``torch.profiler`` session records, the entry, the exit and each
+  ragged group are spans, and the host-to-device bytes a count
+  (``tracing.py``).
 
 Metrics run on ``torch.device("cuda")`` unless the caller names another
 device; on a machine without CUDA that default raises.
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from fast_speech_enhancement_metrics_tpu_torch import tracing
 from fast_speech_enhancement_metrics_tpu_torch.ops.resample import resample
 from fast_speech_enhancement_metrics_tpu_torch.parallel.mesh import axis_size, mesh_device
 
@@ -131,7 +135,10 @@ class BaseMetric(abc.ABC):
             rows = a.shape[0] // n
             first = self.mesh.get_local_rank("data") * rows
             a = a[first:first + rows]
-        return a.to(device=self.device, dtype=torch.float32).contiguous()
+        out = a.to(device=self.device, dtype=torch.float32).contiguous()
+        if a.device.type != "cuda" and out.device.type == "cuda":
+            tracing.count("h2d_bytes", out.numel() * out.element_size())
+        return out
 
     def prepare_inputs(self, clean_speech, denoised_speech):
         if clean_speech is not None:
@@ -167,7 +174,8 @@ class BaseMetric(abc.ABC):
     def compute(self, clean_speech, denoised_speech) -> dict[str, torch.Tensor]:
         """Functional API: a dict of per-utterance score tensors on the device
         (under a mesh, all B rows on every rank)."""
-        clean, denoised = self.prepare_inputs(clean_speech, denoised_speech)
+        with tracing.span("fsem.entry"):
+            clean, denoised = self.prepare_inputs(clean_speech, denoised_speech)
         scores = self._run_prepared(clean, denoised)
         n = self._data_axis_size()
         if n == 1:
@@ -183,12 +191,13 @@ class BaseMetric(abc.ABC):
     @staticmethod
     def _to_host(scores: dict[str, torch.Tensor]) -> list[dict[str, float]]:
         """One device->host copy of all score vectors -> one dict per row."""
-        keys = list(scores)
-        host = torch.stack([scores[k].float() for k in keys]).cpu().numpy()
-        return [
-            {k: float(host[i, row]) for i, k in enumerate(keys)}
-            for row in range(host.shape[1])
-        ]
+        with tracing.span("fsem.exit"):
+            keys = list(scores)
+            host = torch.stack([scores[k].float() for k in keys]).cpu().numpy()
+            return [
+                {k: float(host[i, row]) for i, k in enumerate(keys)}
+                for row in range(host.shape[1])
+            ]
 
     def __call__(self, clean_speech, denoised_speech) -> list[dict[str, float]]:
         if _is_ragged(denoised_speech):
@@ -222,9 +231,10 @@ class BaseMetric(abc.ABC):
 
         results: list[dict[str, float] | None] = [None] * len(den)
         for idxs in groups.values():
-            d = torch.stack([den[i].float() for i in idxs])
-            c = None if clean_speech is None else torch.stack([cln[i].float() for i in idxs])
-            rows = self._to_host(self.compute(c, d))
+            with tracing.span("fsem.ragged_group"):
+                d = torch.stack([den[i].float() for i in idxs])
+                c = None if clean_speech is None else torch.stack([cln[i].float() for i in idxs])
+                rows = self._to_host(self.compute(c, d))
             for row, i in zip(rows, idxs):
                 results[i] = row
         return results  # type: ignore[return-value]

@@ -23,6 +23,9 @@ cast of that bf16 output.
 Parameters come from the committed ``.npz`` (JAX layouts), mapped at load
 time to OIHW conv weights and ``(out, in)`` matmul weights
 (``utils/convert_dnsmos.py::npz_to_torch_layout``).
+
+While a ``torch.profiler`` session records, the learned STFT features, the
+trunk and the edge strips are spans (``tracing.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fast_speech_enhancement_metrics_tpu_torch import tracing
 from fast_speech_enhancement_metrics_tpu_torch.models.hubert import _conv_flags
 from fast_speech_enhancement_metrics_tpu_torch.utils.convert_dnsmos import npz_to_torch_layout
 
@@ -77,17 +81,18 @@ def _log_power_features(params: dict, audio: torch.Tensor) -> torch.Tensor:
     (160, 644) matmul on the chunks, [real_top | imag_top | real_bot |
     imag_bot], and a sum of adjacent chunks' halves.
     """
-    n_chunks = audio.shape[1] // 160
-    f = n_chunks - 1
-    chunks = audio[:, : n_chunks * 160].reshape(audio.shape[0], n_chunks, 160)
-    real_w, imag_w = params["stft_real"], params["stft_imag"]  # (161, 320)
-    w = torch.cat([real_w[:, :160], imag_w[:, :160], real_w[:, 160:], imag_w[:, 160:]], dim=0).t()
-    a = chunks @ w
-    nb = real_w.shape[0]
-    real = a[:, :f, 0 * nb : 1 * nb] + a[:, 1:, 2 * nb : 3 * nb]
-    imag = a[:, :f, 1 * nb : 2 * nb] + a[:, 1:, 3 * nb : 4 * nb]
-    power = torch.square(real) + torch.square(imag)
-    return torch.log10(torch.clamp(power, min=1e-12))
+    with tracing.span("fsem.dnsmos.features"):
+        n_chunks = audio.shape[1] // 160
+        f = n_chunks - 1
+        chunks = audio[:, : n_chunks * 160].reshape(audio.shape[0], n_chunks, 160)
+        real_w, imag_w = params["stft_real"], params["stft_imag"]  # (161, 320)
+        w = torch.cat([real_w[:, :160], imag_w[:, :160], real_w[:, 160:], imag_w[:, 160:]], dim=0).t()
+        a = chunks @ w
+        nb = real_w.shape[0]
+        real = a[:, :f, 0 * nb : 1 * nb] + a[:, 1:, 2 * nb : 3 * nb]
+        imag = a[:, :f, 1 * nb : 2 * nb] + a[:, 1:, 3 * nb : 4 * nb]
+        power = torch.square(real) + torch.square(imag)
+        return torch.log10(torch.clamp(power, min=1e-12))
 
 
 def _conv_layer(params: dict, x: torch.Tensor, n: int) -> torch.Tensor:
@@ -152,7 +157,8 @@ def dnsmos_net_shared(
         )
     with _conv_flags():
         feats = _log_power_features(params, audio)
-        phases = _pool3_phases(params, _trunk_conv0_5(params, feats[:, None], conv_dtype))
+        with tracing.span("fsem.dnsmos.trunk"):
+            phases = _pool3_phases(params, _trunk_conv0_5(params, feats[:, None], conv_dtype))
         window_cells = 900 // 8  # 112 pooled cells per 9.01 s window
         pooled = []
         for k in range(num_windows):
@@ -206,7 +212,8 @@ def dnsmos_net_windowed_exact(
     with _conv_flags():
         feats = _log_power_features(params, audio)  # (B, Tf, 161)
         batch = feats.shape[0]
-        phases = _pool3_phases(params, _trunk_conv0_5(params, feats[:, None], conv_dtype))
+        with tracing.span("fsem.dnsmos.trunk"):
+            phases = _pool3_phases(params, _trunk_conv0_5(params, feats[:, None], conv_dtype))
 
         def edge_cells(start: int, length: int) -> torch.Tensor:
             """Per-window feature strips through the stack with the window's
@@ -219,8 +226,9 @@ def dnsmos_net_windowed_exact(
             z = _max_pool_2x2(_trunk_conv0_5(params, strip, conv_dtype))
             return _conv_layer(params, z, 6)
 
-        left = edge_cells(0, _LEFT_STRIP)[:, :, :_EDGE_LEFT_CELLS]
-        right = edge_cells(_WINDOW_FRAMES - _RIGHT_STRIP, _RIGHT_STRIP)[:, :, -_EDGE_RIGHT_CELLS:]
+        with tracing.span("fsem.dnsmos.edges"):
+            left = edge_cells(0, _LEFT_STRIP)[:, :, :_EDGE_LEFT_CELLS]
+            right = edge_cells(_WINDOW_FRAMES - _RIGHT_STRIP, _RIGHT_STRIP)[:, :, -_EDGE_RIGHT_CELLS:]
         left_max = torch.amax(left, dim=(2, 3)).reshape(batch, num_windows, -1)
         right_max = torch.amax(right, dim=(2, 3)).reshape(batch, num_windows, -1)
 
@@ -242,11 +250,12 @@ def dnsmos_net(params: dict, audio: torch.Tensor, conv_dtype=None) -> torch.Tens
     """(N, 144160) audio windows at 16 kHz -> (N, 3) raw SIG/BAK/OVR."""
     with _conv_flags():
         x = _log_power_features(params, audio)[:, None]  # (N, 1, frames, 161)
-        if conv_dtype is not None:
-            x = x.to(conv_dtype)
-        for n in range(len(CONV_CHANNELS)):
-            x = _conv_layer(params, x, n)
-            if n in POOL_AFTER:
-                x = _max_pool_2x2(x)
+        with tracing.span("fsem.dnsmos.trunk"):
+            if conv_dtype is not None:
+                x = x.to(conv_dtype)
+            for n in range(len(CONV_CHANNELS)):
+                x = _conv_layer(params, x, n)
+                if n in POOL_AFTER:
+                    x = _max_pool_2x2(x)
         pooled = torch.amax(x, dim=(2, 3)).float()  # global max -> (N, 64)
         return _output_mlp(params, pooled)

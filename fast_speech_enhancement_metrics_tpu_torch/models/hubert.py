@@ -26,6 +26,10 @@ JAX package does on the TPU, whose FFN kernel has no erf),
 softmax "exp2" or else "exact", so "exp2_bf16" runs exact there, as in the
 JAX package; with the erf GELU the ``"block_ffn"`` route) and
 ``"block_int8"`` (the int8 attention block, kernel A12, then the plain FFN).
+
+While a ``torch.profiler`` session records, the conv encoder, the stage from
+the feature projection through the positional conv, and each layer are
+spans (``tracing.py``).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from fast_speech_enhancement_metrics_tpu_torch import tracing
 from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, sdpa_pallas
 
 
@@ -147,26 +152,27 @@ def from_jax_params(params_np: dict, config: HubertConfig = MHUBERT_147_CONFIG) 
 
 def feature_encoder(enc: HubertEncoder, audio: torch.Tensor, gelu: str = "erf") -> torch.Tensor:
     """(B, T) raw audio -> (B, frames, conv_dim[-1]) conv features."""
-    config = enc.config
-    x = audio[:, None, :]  # (B, 1, T): channels first
-    for i, layer in enumerate(enc.feature_encoder):
-        with _conv_flags():
-            x = F.conv1d(x, layer["w"].to(x.dtype), stride=config.conv_stride[i])
-        if "b" in layer:
-            x = x + layer["b"].to(x.dtype)[:, None]
-        if config.feat_extract_norm == "group" and i == 0:
-            # GroupNorm(groups == channels): per-channel norm over time, fp32
-            # one-pass statistics
-            xf = x.float()
-            mean = torch.mean(xf, dim=2, keepdim=True)
-            var = torch.clamp(torch.mean(xf * xf, dim=2, keepdim=True) - mean * mean, min=0.0)
-            xf = (xf - mean) * torch.rsqrt(var + config.layer_norm_eps)
-            x = (xf * layer["norm_scale"].float()[:, None] + layer["norm_bias"].float()[:, None]).to(x.dtype)
-        elif config.feat_extract_norm == "layer":
-            x = _layer_norm(x.transpose(1, 2), layer["norm_scale"], layer["norm_bias"],
-                            config.layer_norm_eps).transpose(1, 2)
-        x = _gelu(x, gelu)
-    return x.transpose(1, 2)
+    with tracing.span("fsem.hubert.conv_encoder"):
+        config = enc.config
+        x = audio[:, None, :]  # (B, 1, T): channels first
+        for i, layer in enumerate(enc.feature_encoder):
+            with _conv_flags():
+                x = F.conv1d(x, layer["w"].to(x.dtype), stride=config.conv_stride[i])
+            if "b" in layer:
+                x = x + layer["b"].to(x.dtype)[:, None]
+            if config.feat_extract_norm == "group" and i == 0:
+                # GroupNorm(groups == channels): per-channel norm over time, fp32
+                # one-pass statistics
+                xf = x.float()
+                mean = torch.mean(xf, dim=2, keepdim=True)
+                var = torch.clamp(torch.mean(xf * xf, dim=2, keepdim=True) - mean * mean, min=0.0)
+                xf = (xf - mean) * torch.rsqrt(var + config.layer_norm_eps)
+                x = (xf * layer["norm_scale"].float()[:, None] + layer["norm_bias"].float()[:, None]).to(x.dtype)
+            elif config.feat_extract_norm == "layer":
+                x = _layer_norm(x.transpose(1, 2), layer["norm_scale"], layer["norm_bias"],
+                                config.layer_norm_eps).transpose(1, 2)
+            x = _gelu(x, gelu)
+        return x.transpose(1, 2)
 
 
 def _attention(
@@ -316,32 +322,34 @@ def hubert_hidden_state(
     dt = act_dtype or torch.float32
     x = feature_encoder(enc, audio.to(dt), gelu=gelu)
 
-    fp = enc.feature_projection
-    if config.feat_proj_layer_norm:
-        x = _layer_norm(x, fp["ln_s"], fp["ln_b"], config.layer_norm_eps)
-    x = torch.matmul(x, fp["w"].to(dt)) + fp["b"].to(dt)
+    with tracing.span("fsem.hubert.pos_conv"):
+        fp = enc.feature_projection
+        if config.feat_proj_layer_norm:
+            x = _layer_norm(x, fp["ln_s"], fp["ln_b"], config.layer_norm_eps)
+        x = torch.matmul(x, fp["w"].to(dt)) + fp["b"].to(dt)
 
-    pc = enc.pos_conv
-    pos_in = x
-    if "bn_scale" in pc:
-        pos_in = x * pc["bn_scale"].to(dt) + pc["bn_shift"].to(dt)
-    with _conv_flags():
-        pos = F.conv1d(
-            pos_in.transpose(1, 2), pc["w"].to(dt),
-            padding=config.num_conv_pos_embeddings // 2,
-            groups=config.num_conv_pos_embedding_groups,
-        ).transpose(1, 2)
-    if config.num_conv_pos_embeddings % 2 == 0:
-        pos = pos[:, :-1, :]
-    x = x + _gelu(pos + pc["b"].to(dt), "erf")  # exact GELU, always
+        pc = enc.pos_conv
+        pos_in = x
+        if "bn_scale" in pc:
+            pos_in = x * pc["bn_scale"].to(dt) + pc["bn_shift"].to(dt)
+        with _conv_flags():
+            pos = F.conv1d(
+                pos_in.transpose(1, 2), pc["w"].to(dt),
+                padding=config.num_conv_pos_embeddings // 2,
+                groups=config.num_conv_pos_embedding_groups,
+            ).transpose(1, 2)
+        if config.num_conv_pos_embeddings % 2 == 0:
+            pos = pos[:, :-1, :]
+        x = x + _gelu(pos + pc["b"].to(dt), "erf")  # exact GELU, always
 
-    enc_ln = enc.encoder_ln
-    if not config.do_stable_layer_norm:
-        # post-LN stack: the encoder LayerNorm applies before the layers
-        x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
+        enc_ln = enc.encoder_ln
+        if not config.do_stable_layer_norm:
+            # post-LN stack: the encoder LayerNorm applies before the layers
+            x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
     for i in range(min(output_layer, len(enc.layers))):
-        x = _encoder_layer(enc, i, x, attention_impl, gelu=gelu, softmax=softmax,
-                           bf16_kernel=precision in (None, "default"), tp_group=tp_group)
+        with tracing.span("fsem.hubert.layer"):
+            x = _encoder_layer(enc, i, x, attention_impl, gelu=gelu, softmax=softmax,
+                               bf16_kernel=precision in (None, "default"), tp_group=tp_group)
     if config.do_stable_layer_norm and output_layer == config.num_hidden_layers:
         # pre-LN stack: the encoder LayerNorm applies after the final layer
         x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)

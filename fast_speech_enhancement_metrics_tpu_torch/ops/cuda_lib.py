@@ -9,12 +9,12 @@ directory (``_build/`` in the package) is generated and not tracked.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises if that is not 0. Each wrapper in
-``ops/`` counts its launches in ``launch_counts`` under its own name.
+``ops/`` counts its launches in ``launch_counts`` under its own name: the
+counter lives with the port's other spans and counters in ``tracing.py``.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import hashlib
 import os
@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from fast_speech_enhancement_metrics_tpu_torch.tracing import launch_counts  # noqa: F401  (the wrappers' counter)
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -40,9 +42,6 @@ SOURCES = (
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-#: launches per kernel wrapper; a wrapper adds one where it launches
-launch_counts: collections.Counter = collections.Counter()
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
