@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    same tensor cores), A12's int8 GEMM and int8 attention int8 wgmma (IGMMA)
    and TMA, SDR's correlation kernels (A4's Gram in splits x4, x3, x1 and
    A10's chunk DFT) and LSD's frame-tile kernel (A1-A3) bf16 wgmma and
-   TMA, and none may spill a register, nor may the Levinson warp kernels
+   TMA, so must the conv encoder's convs 1-6 (``conv_gelu.cu``, both
+   widths and GELUs) bf16 wgmma and TMA,
+   and none may spill a register, nor may the Levinson warp kernels
    (A5 and the A14 variants, all 32 orders each) or A6's segment kernel,
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
@@ -45,13 +47,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    (0, mid-tile, full); A11 and A12 on A7's mHuBERT-147 layer in every softmax mode, A11
    also against A7 then A8 bit for bit, A12 also in the JAX package's int8
    screening class against A7; A12's int8 GEMM alone exactly against its
-   plain version at the layer's QKV and W_o products),
+   plain version at the layer's QKV and W_o products; FE, convs 1-6 of
+   mHuBERT-147's conv encoder on ``conv_gelu.cu``, at 64 x 16 s against
+   their plain version (cuDNN float32, TF32 off, then the GELU), conv 1
+   on two rows also against a float64 conv, within twice cuDNN's distance),
 4. the main paths, each with every kernel's launch count set to 0 before
    it and read after it: ``LSD()``, ``SDR()`` and
    ``STOI(sample_rate=16000)`` through ``__call__`` on the 16 s batch;
    ``LSD()`` on the two unaligned batches; ``SpeechBERTScore`` at
    mHuBERT-147's full width with seeded random weights on the 16 s batch
-   (A7, A8; ``attention_impl="layer_block"``: A11, its F1 equal to A7 +
+   (A7, A8, and FE six launches a row chunk; ``attention_impl="layer_block"``: A11, its F1 equal to A7 +
    A8's; ``"block_int8"``: A12),
    on 16 x 60 s (A9) and on one pair of 820 s clips (A15), and each at
    ``precision="highest"`` (one 60 s pair: A9's float32 arm; the 820 s
@@ -87,7 +92,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    dequantization for its QKV and W_o products only); the GEMM of A7 and A8
    alone at the layer's four products against bf16 ``F.linear``, A12's
    int8 GEMM alone at QKV and W_o against ``torch._int_mm`` and the
-   dequantization; A9's and A15's float32 arms (``precision="highest"``)
+   dequantization; FE's six convs in a chain from a 64 x 16 s conv 0
+   output, against the same chain on cuDNN; A9's and A15's float32 arms (``precision="highest"``)
    on their float32 inputs, against scaled_dot_product_attention's
    memory-efficient backend, and their split pass; and each metric end to
    end (SpeechBERTScore also on
@@ -96,7 +102,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    SDR also with ``corr_impl`` "fused", "gram" and "gram_x1"; PESQ, also
    with ``time_align=True``, and DNSMOS, also with a bf16 trunk, each with
    its peak device memory); conv 0 and the feature encoder alone on the
-   16 s clean rows, for the record,
+   16 s clean rows, with FE's launches a call, for the record,
 6. the bench harness (``benchmarking/runner.py``): the calibration canary
    and its graph-protocol twin, each at or below 1.1 x the card's bf16
    peak; ``bench_one`` for each of ``make_metrics()``'s six at 64 x 16 s
@@ -429,6 +435,22 @@ def public_api_phase(pkg, sbs, sbs_params: dict, f1: np.ndarray, clean_np: np.nd
     del from_file
 
 
+def fe_inputs(dev: torch.device) -> tuple[torch.Tensor, list, list]:
+    """FE's operands at the main path's shape: a GELU output of conv 0's
+    shape on 64 rows of 16 s (512 x 51 199), He-scaled weights of convs
+    1-6 and their bf16 pieces; the same from every call."""
+    from fast_speech_enhancement_metrics_tpu_torch.models import hubert
+    from fast_speech_enhancement_metrics_tpu_torch.ops import conv_gelu
+
+    cfg = hubert.MHUBERT_147_CONFIG
+    g = torch.Generator(device=dev).manual_seed(16)
+    t_in = (SECONDS * RATE - cfg.conv_kernel[0]) // cfg.conv_stride[0] + 1
+    x = torch.nn.functional.gelu(torch.randn(BATCH, cfg.conv_dim[0], t_in, device=dev, generator=g))
+    ws = [torch.randn(c_out, c_in, k, device=dev, generator=g) * (c_in * k) ** -0.5
+          for c_in, c_out, k in zip(cfg.conv_dim, cfg.conv_dim[1:], cfg.conv_kernel[1:])]
+    return x, ws, [conv_gelu.split_pieces(w) for w in ws]
+
+
 def conv0_times(sbs, smi: str, clean: torch.Tensor) -> None:
     """Phase 5, for the record: conv 0 and the whole feature encoder of the
     ``sbs`` encoder on ``clean``."""
@@ -442,9 +464,14 @@ def conv0_times(sbs, smi: str, clean: torch.Tensor) -> None:
         with hubert._conv_flags():
             return torch.nn.functional.conv1d(x, w, stride=stride)
 
+    from fast_speech_enhancement_metrics_tpu_torch.ops import conv_gelu, cuda_lib
+
     with torch.inference_mode():
+        before = cuda_lib.launch_counts[conv_gelu.KERNEL]
+        hubert.feature_encoder(enc, clean)
+        launches = cuda_lib.launch_counts[conv_gelu.KERNEL] - before
         log(json.dumps({"what": "HuBERT feature encoder", "rows": clean.shape[0], "seconds": clean.shape[1] / RATE,
-                        "card": smi, "conv0_ms": cuda_ms(conv0),
+                        "card": smi, "conv0_ms": cuda_ms(conv0), "conv_gelu_launches": launches,
                         "feature_encoder_ms": cuda_ms(lambda: hubert.feature_encoder(enc, clean))}))
 
 
@@ -456,6 +483,7 @@ def main() -> int:
     from fast_speech_enhancement_metrics_tpu_torch.models import dnsmos_net, hubert
     from fast_speech_enhancement_metrics_tpu_torch.ops import (
         attn_block_pallas,
+        conv_gelu,
         cuda_lib,
         levinson_pallas,
         lsd_fused,
@@ -528,6 +556,7 @@ def main() -> int:
         ("gram_kernel", "sdr_corr_gram", 3, "HGMMA", lambda name: True),
         ("corr_dft_kernel", "sdr_corr_fused", 1, "HGMMA", lambda name: True),
         ("lsd_tile_kernel", "lsd_fused", 1, "HGMMA", lambda name: True),
+        ("conv_gelu_kernel", "conv_gelu", 4, "HGMMA", lambda name: True),
     ):
         funcs = [f for f in sass.split("Function : ")[1:]
                  if kernel in f.split("\n", 1)[0] and keep(f.split("\n", 1)[0])]
@@ -1012,6 +1041,29 @@ def main() -> int:
            " (the float32 arms' split pass, bit for bit)")
     del a9_f32, got_p, want_p
 
+    # FE: convs 1-6 of mHuBERT-147's conv encoder at 64 x 16 s, each
+    # kernel launch against the plain version on the same input (the plain
+    # chain's), over the plain output's largest magnitude; conv 1 on two
+    # rows also against a float64 conv, within twice cuDNN float32's distance
+    fe_x, fe_w, fe_pieces = fe_inputs(dev)
+    worst, x_ = 0.0, fe_x
+    for w_, p_ in zip(fe_w, fe_pieces):
+        got = conv_gelu.conv_gelu(x_, w_, "tanh", pieces=p_)
+        x_ = conv_gelu._conv_gelu_plain(x_, w_, "tanh")
+        worst = max(worst, ((got - x_).abs().max() / x_.abs().max()).item())
+    want64 = conv_gelu._gelu(torch.nn.functional.conv1d(fe_x[:2].double(), fe_w[0].double(), stride=2), "tanh")
+
+    def from64(y):
+        return ((y.double() - want64).abs().max() / want64.abs().max()).item()
+
+    fe64 = from64(conv_gelu.conv_gelu(fe_x[:2], fe_w[0], "tanh", pieces=fe_pieces[0]))
+    lib64 = from64(conv_gelu._conv_gelu_plain(fe_x[:2], fe_w[0], "tanh"))
+    check(fe64 <= 2 * lib64, f"FE conv 1 from float64 {fe64:.3e}, over twice cuDNN float32's {lib64:.3e}")
+    record("FE", conv_gelu.KERNEL, "conv_gelu.cu", "models/hubert.py:120", worst, 1e-5,
+           f" (convs 1-6 at 64 x 16 s, over max|plain|; conv 1 on 2 rows from float64: {fe64:.3e}, "
+           f"cuDNN float32 {lib64:.3e})")
+    del fe_x, fe_w, fe_pieces, got, x_, want64
+
     # A10 on the normalised signals, as SDR(corr_impl="fused") feeds it: the
     # raw variant at 64 x 16 s, the padded one at 64 x (16 s + 100); atol
     # 2e-4 * max|r_auto|, as A4
@@ -1088,9 +1140,8 @@ def main() -> int:
     # 8 layers x 2 row chunks of the doubled batch -> 16 launches each of A7, A8
     sbs_params = hubert.init_params(torch.Generator().manual_seed(0), cfg)
     sbs = pkg.SpeechBERTScore(params=sbs_params)
-    sbs_rows = drive(lambda: sbs(clean_np, noisy_np), "SpeechBERTScore", ("A7", "A8"))
-    want = sbs.output_layer * 2
-    for kid in ("A7", "A8"):
+    sbs_rows = drive(lambda: sbs(clean_np, noisy_np), "SpeechBERTScore", ("A7", "A8", "FE"))
+    for kid, want in (("A7", sbs.output_layer * 2), ("A8", sbs.output_layer * 2), ("FE", 6 * 2)):
         check(results[kid]["launches"] == want,
               f"{kid}: {results[kid]['launches']} launches, expected {want}")
     f1 = np.array([r["SpeechBERTScore"] for r in sbs_rows])
@@ -1585,9 +1636,33 @@ def main() -> int:
     timing["A9-f32-split"] = (lambda a=args: sdpa_pallas.split_pieces(*a),
                               lambda a=args: sdpa_pallas._split_pieces_plain(*a), None, 0, 0, split_bytes)
 
+    # FE: the six convs in a chain from a conv 0 output, as the encoder runs
+    # them; the least work is the float32 class on the bf16 tensor cores,
+    # six bf16 products of 2 T_out C_out C_in k per row; the yardstick (and
+    # the plain version) cuDNN float32 with TF32 off, then F.gelu
+    fe_x, fe_w, fe_pieces = fe_inputs(dev)
+
+    def fe_chain(conv):
+        y = fe_x
+        for w_, p_ in zip(fe_w, fe_pieces):
+            y = conv(y, w_, p_)
+        return y
+
+    fe_ops = fe_bytes = 0
+    t_ = fe_x.shape[2]
+    for w_ in fe_w:
+        c_out, c_in, k_ = w_.shape
+        t_out = (t_ - k_) // 2 + 1
+        fe_ops += 6 * 2 * BATCH * t_out * c_out * c_in * k_
+        fe_bytes += 4 * BATCH * (c_in * t_ + c_out * t_out)
+        t_ = t_out
+    fe_plain = lambda: fe_chain(lambda y, w_, p_: conv_gelu._conv_gelu_plain(y, w_, "tanh"))  # noqa: E731
+    timing["FE"] = (lambda: fe_chain(lambda y, w_, p_: conv_gelu.conv_gelu(y, w_, "tanh", pieces=p_)),
+                    fe_plain, fe_plain, fe_ops, fe_ops, fe_bytes)
+
     peaks = {"A7": PEAK_BF16_TC_FLOPS, "A8": PEAK_BF16_TC_FLOPS, "A9": PEAK_BF16_TC_FLOPS,
              "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS,
-             "A9-f32": PEAK_BF16_TC_FLOPS, "A15-f32": PEAK_BF16_TC_FLOPS}
+             "A9-f32": PEAK_BF16_TC_FLOPS, "A15-f32": PEAK_BF16_TC_FLOPS, "FE": PEAK_BF16_TC_FLOPS}
     # the kernels' own algorithms on the bf16 tensor cores
     direct_peaks = {"A1": PEAK_BF16_TC_FLOPS, "A2": PEAK_BF16_TC_FLOPS, "A3": PEAK_BF16_TC_FLOPS,
                     "A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
@@ -1615,6 +1690,7 @@ def main() -> int:
                f"assumed {FP32_LATENCY_CYCLES} cycles an operation at {sm_clock_hz / 1e9:.2f} GHz; A5's "
                f"{chain_floor_ms(LAGS, sm_clock_hz):.4f} ms)"))
 
+    del fe_x, fe_w, fe_pieces
     # the GEMM of A7 and A8 alone at the layer's four products (M = 64 x 799),
     # against bf16 F.linear on the same operands (its bias in bf16; for W_1
     # followed by F.gelu), beside the least time of 2 M N K operations on

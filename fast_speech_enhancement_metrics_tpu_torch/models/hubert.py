@@ -12,7 +12,10 @@ Parameters come in the JAX package's pytree layout (``init_params``,
 conv weights) and ``from_jax_params`` carries them into ``HubertEncoder``,
 which holds the conv weights transposed once to PyTorch's (out, in/groups,
 K). Every float32 conv runs with cuDNN's TF32 off and every float32 matmul
-without TF32, on the card as on the CPU.
+without TF32, on the card as on the CPU, except the feature encoder's
+convs 1-6 on the card in float32: conv and GELU on one kernel
+(``ops/conv_gelu.py``, bf16x6 on the tensor cores, the float32 class),
+its weights' bf16 pieces cached beside the block operands.
 
 ``attention_impl``: ``"einsum"`` (plain tensor ops, either softmax);
 ``"sdpa"``, ``"sdpa_exp2"``, ``"sdpa_exp2_bf16"`` (the attention itself on
@@ -44,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fast_speech_enhancement_metrics_tpu_torch import tracing
-from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, sdpa_pallas
+from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, conv_gelu, sdpa_pallas
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +105,9 @@ def _param(a) -> nn.Parameter:
 class HubertEncoder(nn.Module):
     """The encoder's parameters in the port's layout, built by
     ``from_jax_params``; run it with ``hubert_hidden_state``. Packed block
-    operands for kernels A7/A8 are made on first use and kept per layer,
-    softmax mode and device."""
+    operands for kernels A7/A8 and the conv weights' pieces for
+    ``conv_gelu`` are made on first use and kept per layer (and softmax
+    mode) and device."""
 
     def __init__(self, params: dict, config: HubertConfig = MHUBERT_147_CONFIG):
         super().__init__()
@@ -143,6 +147,16 @@ class HubertEncoder(nn.Module):
             self._packed[key] = hit
         return hit
 
+    def conv_pieces(self, i: int) -> torch.Tensor:
+        """The three bf16 pieces of conv layer i's weights, as the conv_gelu
+        kernel reads them (``conv_gelu.split_pieces``)."""
+        w = self.feature_encoder[i]["w"]
+        key = ("conv", i, str(w.device))
+        hit = self._packed.get(key)
+        if hit is None:
+            hit = self._packed[key] = conv_gelu.split_pieces(w)
+        return hit
+
 
 def from_jax_params(params_np: dict, config: HubertConfig = MHUBERT_147_CONFIG) -> HubertEncoder:
     """The JAX package's parameter pytree (numpy-convertible leaves) -> a
@@ -151,11 +165,22 @@ def from_jax_params(params_np: dict, config: HubertConfig = MHUBERT_147_CONFIG) 
 
 
 def feature_encoder(enc: HubertEncoder, audio: torch.Tensor, gelu: str = "erf") -> torch.Tensor:
-    """(B, T) raw audio -> (B, frames, conv_dim[-1]) conv features."""
+    """(B, T) raw audio -> (B, frames, conv_dim[-1]) conv features.
+
+    A layer with no bias and no norm whose conv ``conv_gelu.engages`` runs
+    conv and GELU as one kernel (on the card in float32: convs 1-6 of the
+    group-norm encoder); every other layer, and every layer on the CPU,
+    takes ``F.conv1d`` and its passes."""
     with tracing.span("fsem.hubert.conv_encoder"):
         config = enc.config
         x = audio[:, None, :]  # (B, 1, T): channels first
         for i, layer in enumerate(enc.feature_encoder):
+            normed = (config.feat_extract_norm == "group" and i == 0) or config.feat_extract_norm == "layer"
+            c_out, c_in, width = layer["w"].shape
+            if ("b" not in layer and not normed
+                    and conv_gelu.engages(x.device.type, x.dtype, config.conv_stride[i], width, c_in, c_out)):
+                x = conv_gelu.conv_gelu(x, layer["w"], gelu, pieces=enc.conv_pieces(i))
+                continue
             with _conv_flags():
                 x = F.conv1d(x, layer["w"].to(x.dtype), stride=config.conv_stride[i])
             if "b" in layer:

@@ -38,7 +38,7 @@ HEADERS = (
 SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
     "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu", "layer_block.cu",
-    "attn_block_int8.cu", "levinson_flat.cu", "levinson_dotreduce.cu", "levinson_double.cu",
+    "attn_block_int8.cu", "levinson_flat.cu", "levinson_dotreduce.cu", "levinson_double.cu", "conv_gelu.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -98,6 +98,9 @@ _SIGNATURES = {
     # (clean, denoised, bf16 halves, bf16 table halves, partials, batch,
     #  samples, lags, chunk groups, stream)
     "fsem_corr_fused": (_P,) * 5 + (_I, _L, _I, _I, _P),
+    # (x, bf16 weight pieces, out, batch, input channels, output channels,
+    #  input frames, width, gelu, stream)
+    "fsem_conv_gelu": (_P,) * 3 + (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()

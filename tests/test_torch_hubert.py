@@ -29,6 +29,7 @@ from fast_speech_enhancement_metrics_tpu.ops import sdpa_pallas as jax_sdpa
 from fast_speech_enhancement_metrics_tpu.utils import convert_hubert as jax_convert_hubert
 from fast_speech_enhancement_metrics_tpu.utils.convert_hubert import save_params as jax_save_params
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert
+from fast_speech_enhancement_metrics_tpu_torch.ops import conv_gelu
 from fast_speech_enhancement_metrics_tpu_torch.utils import convert_hubert
 
 SMALL = dict(
@@ -241,6 +242,117 @@ def test_init_params_layout_and_seed():
     for x, y, r in zip(jax.tree.leaves(a), jax.tree.leaves(b), jax.tree.leaves(ref)):
         assert x.shape == r.shape and x.dtype == np.float32
         np.testing.assert_array_equal(x, y)
+
+
+# -- convs 1-6 on the conv_gelu kernel: the rule, and the CPU path it leaves alone --
+
+WIDE = dict(SMALL, conv_dim=(64, 64, 64), conv_kernel=(10, 3, 2))  # convs 1-2 are the kernel's shape on a card
+
+
+@pytest.mark.parametrize("device_type,dtype,stride,width,c_in,c_out,want", [
+    ("cuda", torch.float32, 2, 3, 512, 512, True),
+    ("cuda", torch.float32, 2, 2, 512, 512, True),
+    ("cuda", torch.float32, 2, 3, 64, 64, True),
+    ("cuda", torch.float32, 2, 2, 64, 512, True),
+    ("cpu", torch.float32, 2, 3, 512, 512, False),
+    ("meta", torch.float32, 2, 3, 512, 512, False),
+    ("cuda", torch.bfloat16, 2, 3, 512, 512, False),
+    ("cuda", torch.float16, 2, 3, 512, 512, False),
+    ("cuda", torch.float64, 2, 3, 512, 512, False),
+    ("cuda", torch.float32, 5, 10, 1, 512, False),  # conv 0
+    ("cuda", torch.float32, 1, 3, 512, 512, False),
+    ("cuda", torch.float32, 2, 4, 512, 512, False),
+    ("cuda", torch.float32, 2, 1, 512, 512, False),
+    ("cuda", torch.float32, 2, 3, 32, 32, False),  # the small config's channels
+    ("cuda", torch.float32, 2, 3, 96, 512, False),
+    ("cuda", torch.float32, 2, 3, 512, 96, False),
+])
+def test_conv_gelu_dispatch_rule(device_type, dtype, stride, width, c_in, c_out, want):
+    """The kernel engages on what the call shows alone: a CUDA device,
+    float32, stride 2, width 2 or 3, channels multiples of 64."""
+    assert conv_gelu.engages(device_type, dtype, stride, width, c_in, c_out) is want
+
+
+def _feature_encoder_before_kernel(enc, audio, gelu):
+    """``feature_encoder`` as it was before convs 1-6 had a kernel: every
+    layer on ``F.conv1d`` and its passes."""
+    config = enc.config
+    x = audio[:, None, :]
+    for i, layer in enumerate(enc.feature_encoder):
+        with hubert._conv_flags():
+            x = torch.nn.functional.conv1d(x, layer["w"].to(x.dtype), stride=config.conv_stride[i])
+        if "b" in layer:
+            x = x + layer["b"].to(x.dtype)[:, None]
+        if config.feat_extract_norm == "group" and i == 0:
+            xf = x.float()
+            mean = torch.mean(xf, dim=2, keepdim=True)
+            var = torch.clamp(torch.mean(xf * xf, dim=2, keepdim=True) - mean * mean, min=0.0)
+            xf = (xf - mean) * torch.rsqrt(var + config.layer_norm_eps)
+            x = (xf * layer["norm_scale"].float()[:, None] + layer["norm_bias"].float()[:, None]).to(x.dtype)
+        elif config.feat_extract_norm == "layer":
+            x = hubert._layer_norm(x.transpose(1, 2), layer["norm_scale"], layer["norm_bias"],
+                                   config.layer_norm_eps).transpose(1, 2)
+        x = hubert._gelu(x, gelu)
+    return x.transpose(1, 2)
+
+
+@pytest.mark.parametrize("gelu", ["erf", "tanh"])
+@pytest.mark.parametrize("overrides", [{}, WIDE, dict(WIDE, feat_extract_norm="layer")])
+def test_feature_encoder_on_cpu_is_the_pre_kernel_path(overrides, gelu):
+    _, _, enc = _setup(**overrides)
+    audio = torch.from_numpy(AUDIO)
+    got = hubert.feature_encoder(enc, audio, gelu=gelu)
+    assert torch.equal(got, _feature_encoder_before_kernel(enc, audio, gelu))
+
+
+@pytest.mark.parametrize("dtype,routed", [(torch.float32, 2), (torch.bfloat16, 0)])
+def test_feature_encoder_routes_eligible_layers(monkeypatch, dtype, routed):
+    """With the device check pretended away, the 64-channel encoder sends
+    convs 1-2 (no norm, no bias) to ``conv_gelu`` in float32, with their
+    cached pieces, and nothing in bf16; conv 0 (GroupNorm) never."""
+    _, _, enc = _setup(**WIDE)
+    rule, calls = conv_gelu.engages, []
+
+    def on_card(device_type, *args):
+        return rule("cuda", *args)
+
+    def plain(x, w, gelu, pieces=None):
+        calls.append(pieces)
+        return conv_gelu._conv_gelu_plain(x, w, gelu)
+
+    monkeypatch.setattr(conv_gelu, "engages", on_card)
+    monkeypatch.setattr(conv_gelu, "conv_gelu", plain)
+    audio = torch.from_numpy(AUDIO).to(dtype)
+    got = hubert.feature_encoder(enc, audio, gelu="tanh")
+    assert len(calls) == routed
+    assert all(p is enc.conv_pieces(i + 1) for i, p in enumerate(calls))
+    assert torch.equal(got, _feature_encoder_before_kernel(enc, audio, "tanh"))
+
+
+def test_conv_pieces_sum_to_the_weights_and_are_cached():
+    _, _, enc = _setup(**WIDE)
+    pieces = enc.conv_pieces(1)
+    w = enc.feature_encoder[1]["w"]
+    assert pieces.dtype == torch.bfloat16 and tuple(pieces.shape) == (3, 3, 64, 64)
+    assert torch.equal((pieces[0].float() + pieces[1].float()) + pieces[2].float(), w.permute(2, 0, 1))
+    assert enc.conv_pieces(1) is pieces
+    enc.float()  # moving or casting the module drops the cache
+    assert enc.conv_pieces(1) is not pieces
+
+
+@pytest.mark.parametrize("gelu", ["erf", "tanh"])
+def test_conv_gelu_pieces_arithmetic_is_float32_class(gelu):
+    """The kernel's bf16x6 sum (its float64 twin) against a float64 conv:
+    within float32 rounding of the products' magnitudes."""
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(2, 64, 101).astype(np.float32))
+    w = torch.from_numpy((rs.randn(64, 64, 3) / 14).astype(np.float32))
+    want = conv_gelu._gelu(torch.nn.functional.conv1d(x.double(), w.double(), stride=2), gelu)
+    bound = torch.nn.functional.conv1d(x.double().abs(), w.double().abs(), stride=2)
+    got = conv_gelu._conv_gelu_pieces_reference(x, w, gelu)
+    assert bool(torch.all((got - want).abs() <= 2.0**-22 * bound))
+    plain = conv_gelu.conv_gelu(x, w, gelu)
+    assert plain.dtype == torch.float32 and bool(torch.all((plain.double() - want).abs() <= 2.0**-18 * bound))
 
 
 if __name__ == "__main__":

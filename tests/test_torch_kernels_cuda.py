@@ -16,9 +16,11 @@ import pytest
 import torch
 
 from fast_speech_enhancement_metrics_tpu_torch import LSD, SDR, STOI, SpeechBERTScore
+from fast_speech_enhancement_metrics_tpu_torch.models import hubert
 from fast_speech_enhancement_metrics_tpu_torch.models.hubert import HubertConfig, init_params
 from fast_speech_enhancement_metrics_tpu_torch.ops import (
     attn_block_pallas,
+    conv_gelu,
     cuda_lib,
     levinson_pallas,
     lsd_fused,
@@ -869,3 +871,69 @@ def test_metrics_on_card_match_cpu(dev, t):
             for k, v in b.items():
                 assert a[k] == pytest.approx(v, rel=tol if cls is LSD else 0, abs=tol)
     assert cuda_lib.launch_counts[kname] == before + 1
+
+
+# -- the conv encoder's convs 1-6 (conv_gelu.cu) --
+
+
+def _conv_inputs(dev, rows, c_in, c_out, width, t_in, seed=0):
+    """x like the encoder's GELU outputs, He-scaled weights."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.nn.functional.gelu(torch.randn(rows, c_in, t_in, device=dev, generator=g))
+    w = torch.randn(c_out, c_in, width, device=dev, generator=g) * (c_in * width) ** -0.5
+    return x, w
+
+
+def _check_conv_gelu(dev, rows, c_in, c_out, width, t_in, gelu):
+    """Against a float64 conv + GELU, max |err| over max |ref| at most twice
+    cuDNN float32's (TF32 off) on the same inputs; a second launch bit-equal;
+    one launch counted each."""
+    x, w = _conv_inputs(dev, rows, c_in, c_out, width, t_in)
+    pieces = conv_gelu.split_pieces(w)
+    before = cuda_lib.launch_counts[conv_gelu.KERNEL]
+    got = conv_gelu.conv_gelu(x, w, gelu, pieces=pieces)
+    again = conv_gelu.conv_gelu(x, w, gelu, pieces=pieces)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts[conv_gelu.KERNEL] == before + 2
+    assert got.shape == (rows, c_out, (t_in - width) // 2 + 1) and torch.equal(got, again)
+    want = conv_gelu._gelu(torch.nn.functional.conv1d(x.double(), w.double(), stride=2), gelu)
+    library = conv_gelu._conv_gelu_plain(x, w, gelu)
+    scale = want.abs().max()
+    err = ((got.double() - want).abs().max() / scale).item()
+    err_library = ((library.double() - want).abs().max() / scale).item()
+    assert err <= 2 * err_library, (err, err_library)
+
+
+@pytest.mark.parametrize("gelu", ["erf", "tanh"])
+@pytest.mark.parametrize("channels", [64, 512])
+@pytest.mark.parametrize("t_in,width", [(t, k) for t in (2, 3, 4, 5, 127, 1001) for k in (2, 3) if t >= k])
+def test_conv_gelu_kernel_against_float64(dev, t_in, width, channels, gelu):
+    _check_conv_gelu(dev, 2, channels, channels, width, t_in, gelu)
+
+
+@pytest.mark.parametrize("rows", [2, 64])
+def test_conv_gelu_kernel_main_shape(dev, rows):
+    """Conv 1 of mHuBERT-147 on 16 s (51 199 frames in, 25 599 out)."""
+    _check_conv_gelu(dev, rows, 512, 512, 3, 51199, "tanh")
+
+
+@pytest.mark.parametrize("c_in,c_out", [(64, 512), (512, 64), (192, 128)])
+def test_conv_gelu_kernel_unequal_channels(dev, c_in, c_out):
+    _check_conv_gelu(dev, 3, c_in, c_out, 3, 300, "erf")
+
+
+def test_feature_encoder_takes_conv_gelu_in_float32_only(dev, monkeypatch):
+    """mHuBERT-147's encoder on the card: six launches in float32, within
+    its float32 class of the cuDNN path; none with bf16 activations."""
+    enc = hubert.from_jax_params(init_params(torch.Generator().manual_seed(0))).to(dev)
+    audio = _audio(dev, rows=2, t=16000)[0]
+    before = cuda_lib.launch_counts[conv_gelu.KERNEL]
+    with torch.inference_mode():
+        got = hubert.feature_encoder(enc, audio, gelu="tanh")
+        assert cuda_lib.launch_counts[conv_gelu.KERNEL] == before + 6
+        hubert.feature_encoder(enc, audio.to(torch.bfloat16), gelu="tanh")
+        assert cuda_lib.launch_counts[conv_gelu.KERNEL] == before + 6
+        monkeypatch.setattr(conv_gelu, "engages", lambda *args: False)
+        want = hubert.feature_encoder(enc, audio, gelu="tanh")
+    assert cuda_lib.launch_counts[conv_gelu.KERNEL] == before + 6
+    assert ((got - want).abs().max() / want.abs().max()).item() < 1e-5
