@@ -50,7 +50,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    plain version at the layer's QKV and W_o products; FE, convs 1-6 of
    mHuBERT-147's conv encoder on ``conv_gelu.cu``, at 64 x 16 s against
    their plain version (cuDNN float32, TF32 off, then the GELU), conv 1
-   on two rows also against a float64 conv, within twice cuDNN's distance),
+   on two rows also against a float64 conv, within twice cuDNN's distance);
+   RP, WavLM's gated relative-position attention, at 64 x 799 and 32 x 2999
+   in its three softmax modes, with a zero bias bit for bit A9; RP-in and
+   RP-out, the pre-LN layer's other launches, and the whole layer, on
+   WavLM-Large's layer 0 at 64 x 799 x 1024 (then WavLM-Large's public call
+   in phase 4: 28 launches of each a call),
 4. the main paths, each with every kernel's launch count set to 0 before
    it and read after it: ``LSD()``, ``SDR()`` and
    ``STOI(sample_rate=16000)`` through ``__call__`` on the 16 s batch;
@@ -89,7 +94,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    A7, A8 and A11, a composite of library calls) for the same function where
    one exists (none computes int8 attention: A12's ``library_ms`` is null,
    and its ``library_partial_ms`` is ``torch._int_mm`` with the
-   dequantization for its QKV and W_o products only); the GEMM of A7 and A8
+   dequantization for its QKV and W_o products only; RP's is SDPA with the
+   gated bias built whole as its mask, its partial figure SDPA on the mask
+   prebuilt; RP-in's and RP-out's PyTorch's layer_norm and bf16 matmuls with
+   separate element-wise ops); the GEMM of A7 and A8
    alone at the layer's four products against bf16 ``F.linear``, A12's
    int8 GEMM alone at QKV and W_o against ``torch._int_mm`` and the
    dequantization; FE's six convs in a chain from a 64 x 16 s conv 0
@@ -487,6 +495,7 @@ def main() -> int:
         cuda_lib,
         levinson_pallas,
         lsd_fused,
+        relpos_attention,
         sdpa_pallas,
         sdr_corr_fused,
         sdr_corr_gram,
@@ -557,6 +566,7 @@ def main() -> int:
         ("corr_dft_kernel", "sdr_corr_fused", 1, "HGMMA", lambda name: True),
         ("lsd_tile_kernel", "lsd_fused", 1, "HGMMA", lambda name: True),
         ("conv_gelu_kernel", "conv_gelu", 4, "HGMMA", lambda name: True),
+        ("relpos_attn_kernel", "relpos_attn", 6, "HGMMA", lambda name: True),
     ):
         funcs = [f for f in sass.split("Function : ")[1:]
                  if kernel in f.split("\n", 1)[0] and keep(f.split("\n", 1)[0])]
@@ -1010,6 +1020,107 @@ def main() -> int:
     a9_inputs = qkv((LONG_BATCH, heads, long_frames, 64), torch.bfloat16, gen_a9)
     del q9, k9, v9
 
+    # RP, WavLM's gated relative-position attention (relpos_attn), at
+    # WavLM-Large's 16 heads of 64 on the cell's row chunk (64 x 799) and on
+    # 32 x 2999, in the three softmax modes, against its plain version (on
+    # the card) in A9's per-row class, twice bit-equal; with a zero bias bit
+    # for bit A9's kernel on the same pre-scaled q, k, v (one body,
+    # flash_sm90.cuh)
+    gen_rp = torch.Generator(device=dev).manual_seed(A9_SEED + 2)
+    rp_d, rp_heads = 1024, 16
+    rp_cols = 3 * rp_d + relpos_attention.gate_columns(rp_heads)
+
+    def rp_case(rows_, t_):  # q pre-scaled by hd^-0.5, as the route's packing folds it
+        qkvg_ = rnd(rows_, t_, rp_cols, scale=0.7, g=gen_rp)
+        qkvg_[..., :rp_d] *= 0.125
+        return qkvg_.to(torch.bfloat16), 1 + rnd(rp_heads, scale=0.1, g=gen_rp), rnd(320, rp_heads, scale=1.0, g=gen_rp)
+
+    worst_rp = (0.0, 0.0, 1.0)
+    for rows_, t_ in ((BATCH, 799), (32, long_frames)):
+        qkvg_, const_, table_ = rp_case(rows_, t_)
+        for mode in relpos_attention.SOFTMAX_MODES:
+            vec_ = relpos_attention.offset_bias(table_, t_, 320, 800,
+                                                1.0 if mode == "exact" else relpos_attention.LOG2E)
+            got_ = relpos_attention.relpos_attention(qkvg_, const_, vec_, rp_heads, mode)
+            want_ = relpos_attention._relpos_attention_plain(qkvg_, const_, vec_, rp_heads, mode)
+            check(torch.equal(got_, relpos_attention.relpos_attention(qkvg_, const_, vec_, rp_heads, mode)),
+                  f"RP {rows_}x{t_} softmax={mode}: two launches differ")
+            if mode == "exp2_bf16":  # A9's tie allowance, the bias in the logit: the class beyond it
+                allow_ = relpos_attention._exp2_bf16_tie_allowance(qkvg_, const_, vec_, rp_heads, want_)
+                excess_ = torch.clamp((got_.double() - want_.double()).abs() - allow_, min=0.0)
+                got_ = (want_.double() + excess_).float()
+                del allow_, excess_
+            worst_rp = context_err(got_, want_, f"RP {rows_}x{rp_heads}x{t_}x64 softmax={mode}"
+                                   + (" (beyond the tie allowance)" if mode == "exp2_bf16" else ""), worst_rp)
+            del want_
+        hd_ = rp_d // rp_heads
+        q_, k_, v_ = (qkvg_[..., i * rp_d:(i + 1) * rp_d].reshape(rows_, t_, rp_heads, hd_).transpose(1, 2)
+                      .contiguous() for i in range(3))
+        a9_same = sdpa_pallas._launch(sdpa_pallas.KERNEL_A9, q_, k_, v_, 0, t_, 1.0, 0.0)
+        zero = relpos_attention.relpos_attention(qkvg_, const_, torch.zeros_like(vec_), rp_heads, "exp2")
+        check(torch.equal(a9_same.transpose(1, 2).reshape(rows_, t_, rp_d), zero),
+              f"RP {rows_}x{t_} with a zero bias is not A9's kernel bit for bit")
+        log(f"  RP {rows_}x{t_}: with a zero bias bit for bit A9's kernel")
+        del qkvg_, got_, a9_same, zero, q_, k_, v_
+    record("RP", relpos_attention.KERNEL, "relpos_attn.cu", "models/hubert.py", *worst_rp[1:],
+           " (the case nearest its limit; no TPU kernel: the JAX package has no WavLM)")
+    results["RP"]["replaces"] = None
+    rp_inputs = rp_case(BATCH, 799)
+
+    # RP-in and RP-out, the pre-LN layer's other two launches (prenorm_in:
+    # LN1 to bf16 and the QKV + gate product; prenorm_out: W_o, the residual
+    # add and LN2, the FFN, the second residual add), on WavLM-Large's layer 0
+    # (init_params seed 0) at the cell's row chunk (64 x 799 x 1024), each
+    # against its plain version on the card on the same inputs and twice
+    # bit-equal, then the whole layer (three launches, one count each)
+    # against the plain chain. Relative to the output's largest magnitude:
+    # prenorm_in's bf16 output within one bf16 step there (2^-7), the fp32
+    # outputs within the card tests' bf16 class (max 4e-3); medians 4e-4
+    wavlm_params = hubert.init_params(torch.Generator().manual_seed(0), hubert.WAVLM_LARGE_CONFIG)
+    wavlm_params["layers"] = wavlm_params["layers"][:14]
+    ln_packed = relpos_attention.pack_prenorm_layer(
+        {k: torch.from_numpy(v).to(dev) for k, v in wavlm_params["layers"][0].items()}, rp_heads, "exp2")
+    ln_vec = relpos_attention.offset_bias(torch.from_numpy(wavlm_params["rel_embed"]).to(dev), 799, 320, 800,
+                                          relpos_attention.LOG2E)
+    ln_x = rnd(BATCH, 799, rp_d, scale=1.0, g=gen_rp)
+    eps_ln = hubert.WAVLM_LARGE_CONFIG.layer_norm_eps
+
+    def rel_class(got, want, what, max_tol, med_tol=4e-4):
+        rel = (got.float() - want.float()).abs() / want.float().abs().max()
+        mx, med = rel.max().item(), rel.median().item()
+        log(f"  {what}: max {mx:.3e}, median {med:.3e} of the largest magnitude (limits {max_tol:.3e} / {med_tol:.0e})")
+        check(mx <= max_tol and med <= med_tol, f"{what}: max {mx:.3e}, median {med:.3e} of the largest magnitude "
+                                                f"(limits {max_tol:.3e} / {med_tol:.0e})")
+        return mx
+
+    qkvg_k = relpos_attention.prenorm_in(ln_x, ln_packed, eps_ln)
+    qkvg_p = relpos_attention._prenorm_in_plain(ln_x, ln_packed, eps_ln)
+    check(torch.equal(qkvg_k, relpos_attention.prenorm_in(ln_x, ln_packed, eps_ln)), "RP-in: two launches differ")
+    err_in = rel_class(qkvg_k, qkvg_p, f"RP-in {BATCH}x799x{rp_d} -> {qkvg_p.shape[2]}", 2.0**-7)
+    ctx_ln = relpos_attention.relpos_attention(qkvg_p, ln_packed[2], ln_vec, rp_heads, "exp2")
+    out_k = relpos_attention.prenorm_out(ln_x, ctx_ln, ln_packed, eps_ln)
+    out_p = relpos_attention._prenorm_out_plain(ln_x, ctx_ln, ln_packed, eps_ln, "tanh")
+    check(torch.equal(out_k, relpos_attention.prenorm_out(ln_x, ctx_ln, ln_packed, eps_ln)),
+          "RP-out: two launches differ")
+    err_out = rel_class(out_k, out_p, f"RP-out {BATCH}x799x{rp_d}", 4e-3)
+    log(f"  RP-out: {((out_k - out_p).abs().max() / (out_p - ln_x).abs().max()).item():.3e} of the layer's "
+        f"update (out - x) at its largest magnitude")
+    ln_kernels = (relpos_attention.KERNEL_IN, relpos_attention.KERNEL, relpos_attention.KERNEL_OUT)
+    before = [cuda_lib.launch_counts[k] for k in ln_kernels]
+    layer_k = relpos_attention.prenorm_layer(ln_x, ln_packed, ln_vec, rp_heads, eps_ln, "exp2", "tanh")
+    check([cuda_lib.launch_counts[k] - n for k, n in zip(ln_kernels, before)] == [1, 1, 1],
+          "the pre-LN layer: not one launch each of prenorm_in, relpos_attn, prenorm_out")
+    layer_p = relpos_attention._prenorm_out_plain(
+        ln_x, relpos_attention._relpos_attention_plain(qkvg_p, ln_packed[2], ln_vec, rp_heads, "exp2"),
+        ln_packed, eps_ln, "tanh")
+    rel_class(layer_k, layer_p, f"the pre-LN layer {BATCH}x799x{rp_d} vs the plain chain", 4e-3)
+    record("RP-in", relpos_attention.KERNEL_IN, "relpos_attn.cu", "models/hubert.py", err_in, 2.0**-7,
+           " (of the largest magnitude; no TPU kernel: the JAX package has no WavLM)")
+    record("RP-out", relpos_attention.KERNEL_OUT, "relpos_attn.cu", "models/hubert.py", err_out, 4e-3,
+           " (of the largest magnitude; no TPU kernel: the JAX package has no WavLM)")
+    results["RP-in"]["replaces"] = results["RP-out"]["replaces"] = None
+    del qkvg_k, qkvg_p, out_k, out_p, layer_k, layer_p
+
     # A15 at one 820 s pair's shape (2 x 12 x 40 999 x 64, bf16), every
     # query, in the per-row class: the plain version walks key blocks of 128
     # as the kernel does, so it never holds the (T, T) logits (161 GB in
@@ -1200,6 +1311,25 @@ def main() -> int:
             f"max diff {dev_cpu:.3e} (atol 2e-4; the CPU took {cpu_s:.1f} s); vs the A7 + A8 path on the card: "
             f"max diff {vs_block:.3e}")
         del metric, cpu_i
+
+    # SpeechBERTScore on WavLM-Large (init_params seed 0, the 14 layers of
+    # layer 14) on the 16 s batch: the relative-position route, RP, RP-in
+    # and RP-out each once per layer and row chunk (28) and none of A7 / A8 /
+    # A9 / A15; F1 against
+    # the card's float32 route (precision="highest": plain tensor ops, the
+    # bias built in blocks of queries) within the bf16 class of F1 (2e-3)
+    wavlm = pkg.SpeechBERTScore(params=wavlm_params, config=hubert.WAVLM_LARGE_CONFIG, output_layer=14)
+    f1_wavlm = f1_of(drive(lambda: wavlm(clean_np, noisy_np), "SpeechBERTScore WavLM-Large", ("RP", "RP-in", "RP-out")),
+                     BATCH)
+    only({relpos_attention.KERNEL: 28, relpos_attention.KERNEL_IN: 28, relpos_attention.KERNEL_OUT: 28,
+          **{k: 0 for k in attn_kernels}}, "SpeechBERTScore WavLM-Large")
+    wavlm_f32 = pkg.SpeechBERTScore(params=wavlm_params, config=hubert.WAVLM_LARGE_CONFIG, output_layer=14,
+                                    precision="highest", gelu="tanh")
+    dev_wavlm = float(np.max(np.abs(f1_wavlm - f1_of(wavlm_f32(clean_np, noisy_np), BATCH))))
+    check(dev_wavlm <= 2e-3, f"SpeechBERTScore WavLM-Large: relpos route vs the float32 route {dev_wavlm:.3e} (2e-3)")
+    log(f"SpeechBERTScore WavLM-Large: batch mean {f1_wavlm.mean()}; vs the card's float32 route: max diff "
+        f"{dev_wavlm:.3e} (atol 2e-3)")
+    del wavlm_f32
 
     # lsd_scores(..., dft_impl="ct") on the 16 s batch: A13 once, A1 never;
     # against A1's scores (phase 3) and the CPU plain path, rtol/atol 2e-4
@@ -1582,6 +1712,64 @@ def main() -> int:
             ops, ops, 4 * b_ * h_ * t_ * d_ * 2,
         )
 
+    # RP at the WavLM cell's row chunk (64 x 16 heads x 799 x 64) in its mode
+    # there (exp2): the least work is q k^T and p v (4 T^2 D per row and
+    # head) on the bf16 tensor cores. Library: PyTorch's SDPA with the gated
+    # bias built whole as its bf16 mask (the gather of the offset vector and
+    # the gate's multiply counted; the mask alone, prebuilt, is the partial
+    # figure), natural-base logits (scale ln 2 on the route's base-2 operands)
+    rp_vec = relpos_attention.offset_bias(rp_inputs[2], 799, 320, 800, relpos_attention.LOG2E)
+    rp_ops = 4 * BATCH * rp_heads * 799 * 799 * 64
+    rp_q, rp_k, rp_v = (rp_inputs[0][..., i * rp_d:(i + 1) * rp_d].reshape(BATCH, 799, rp_heads, rp_d // rp_heads)
+                        .transpose(1, 2).contiguous() for i in range(3))
+
+    def rp_mask():
+        g_ = relpos_attention._gate_of_logits(rp_inputs[0], rp_d, rp_heads, rp_inputs[1])
+        return (g_[..., None] * relpos_attention.position_bias(rp_vec, 0, 799, 799)[None]
+                / relpos_attention.LOG2E).to(torch.bfloat16)
+
+    def rp_library(mask=None):
+        mask = rp_mask() if mask is None else mask
+        return fn.scaled_dot_product_attention(rp_q, rp_k, rp_v, attn_mask=mask, scale=1.0 / relpos_attention.LOG2E)
+
+    timing["RP"] = (
+        lambda: relpos_attention.relpos_attention(rp_inputs[0], rp_inputs[1], rp_vec, rp_heads, "exp2"),
+        lambda: relpos_attention._relpos_attention_plain(rp_inputs[0], rp_inputs[1], rp_vec, rp_heads, "exp2"),
+        rp_library, rp_ops, rp_ops,
+        BATCH * 799 * (4 * rp_d * 2 + 2 * rp_heads * 2) + rp_heads * (2 * 896 + 1) * 4,
+    )
+    rp_mask_built = rp_mask()
+    library_partial["RP"] = lambda: rp_library(rp_mask_built)
+    # RP-in and RP-out at the same shape on phase 3's layer: the least work is
+    # their products (2 M d (3 d + G); 2 M d d + 4 M d ffn), the least bytes x,
+    # the weights and the outputs (and ctx for RP-out). Library: PyTorch's
+    # layer_norm and bf16 matmuls (cuBLAS), the GELU and residual adds as
+    # separate element-wise ops
+    ln_m, ln_n, ln_ffn = BATCH * 799, ln_packed[0].shape[1], ln_packed[7].shape[1]
+    ln_ops_in = 2 * ln_m * rp_d * ln_n
+    ln_ops_out = 2 * ln_m * rp_d * rp_d + 4 * ln_m * rp_d * ln_ffn
+
+    def ln_library_in():
+        u_ = fn.layer_norm(ln_x, (rp_d,), ln_packed[5], ln_packed[6], eps_ln).to(torch.bfloat16)
+        return torch.matmul(u_, ln_packed[0]) + ln_packed[1].to(torch.bfloat16)
+
+    def ln_library_out():
+        x1 = ln_x + torch.matmul(ctx_ln, ln_packed[3]).float() + ln_packed[4]
+        u_ = fn.layer_norm(x1, (rp_d,), ln_packed[11], ln_packed[12], eps_ln).to(torch.bfloat16)
+        h_ = fn.gelu(torch.matmul(u_, ln_packed[7]) + ln_packed[8].to(torch.bfloat16), approximate="tanh")
+        return x1 + torch.matmul(h_, ln_packed[9]).float() + ln_packed[10]
+
+    timing["RP-in"] = (
+        lambda: relpos_attention.prenorm_in(ln_x, ln_packed, eps_ln),
+        lambda: relpos_attention._prenorm_in_plain(ln_x, ln_packed, eps_ln),
+        ln_library_in, ln_ops_in, ln_ops_in, ln_m * (4 * rp_d + 2 * ln_n) + 2 * rp_d * ln_n,
+    )
+    timing["RP-out"] = (
+        lambda: relpos_attention.prenorm_out(ln_x, ctx_ln, ln_packed, eps_ln),
+        lambda: relpos_attention._prenorm_out_plain(ln_x, ctx_ln, ln_packed, eps_ln, "tanh"),
+        ln_library_out, ln_ops_out, ln_ops_out, ln_m * rp_d * (4 + 2 + 4) + 2 * (rp_d * rp_d + 2 * rp_d * ln_ffn),
+    )
+
     # A10 at both variants' shapes on the normalised signals, FFT-level
     # operations as A4; "direct" is the kernel's chunk DFT: 256 chunk rows
     # (127 windows' clean chunks, one before, 128 denoised) per group, each
@@ -1662,7 +1850,8 @@ def main() -> int:
 
     peaks = {"A7": PEAK_BF16_TC_FLOPS, "A8": PEAK_BF16_TC_FLOPS, "A9": PEAK_BF16_TC_FLOPS,
              "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS,
-             "A9-f32": PEAK_BF16_TC_FLOPS, "A15-f32": PEAK_BF16_TC_FLOPS, "FE": PEAK_BF16_TC_FLOPS}
+             "A9-f32": PEAK_BF16_TC_FLOPS, "A15-f32": PEAK_BF16_TC_FLOPS, "FE": PEAK_BF16_TC_FLOPS,
+             "RP": PEAK_BF16_TC_FLOPS, "RP-in": PEAK_BF16_TC_FLOPS, "RP-out": PEAK_BF16_TC_FLOPS}
     # the kernels' own algorithms on the bf16 tensor cores
     direct_peaks = {"A1": PEAK_BF16_TC_FLOPS, "A2": PEAK_BF16_TC_FLOPS, "A3": PEAK_BF16_TC_FLOPS,
                     "A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
@@ -1690,7 +1879,7 @@ def main() -> int:
                f"assumed {FP32_LATENCY_CYCLES} cycles an operation at {sm_clock_hz / 1e9:.2f} GHz; A5's "
                f"{chain_floor_ms(LAGS, sm_clock_hz):.4f} ms)"))
 
-    del fe_x, fe_w, fe_pieces
+    del fe_x, fe_w, fe_pieces, rp_mask_built, rp_q, rp_k, rp_v
     # the GEMM of A7 and A8 alone at the layer's four products (M = 64 x 799),
     # against bf16 F.linear on the same operands (its bias in bf16; for W_1
     # followed by F.gelu), beside the least time of 2 M N K operations on
@@ -1731,6 +1920,10 @@ def main() -> int:
     log(json.dumps({"metric": "SpeechBERTScore", "batch": BATCH, "seconds": SECONDS, "ms": ms,
                     "audio_seconds_per_s": audio_s / (ms / 1e3),
                     "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}))
+    ms = host_ms(lambda: wavlm(c, d), warmup=1, reps=3)
+    log(json.dumps({"metric": "SpeechBERTScore", "config": "WAVLM_LARGE_CONFIG", "output_layer": 14, "batch": BATCH,
+                    "seconds": SECONDS, "ms": ms, "audio_seconds_per_s": audio_s / (ms / 1e3)}))
+    del wavlm
     for impl in ("layer_block", "block_int8"):
         metric = pkg.SpeechBERTScore(params=sbs_params, attention_impl=impl)
         ms = host_ms(lambda m=metric: m(c, d), warmup=1, reps=3)

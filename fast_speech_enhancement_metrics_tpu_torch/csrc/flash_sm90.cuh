@@ -1,8 +1,11 @@
 // Non-causal attention over (rows, heads, T, D) bf16 views on Hopper: kernels
 // A9 (sdpa.cu, softmax exp2 / exp2_bf16 / exact), A15 (the same entry,
 // softmax online) and A7's attention (attn_block.cu, modes 0-2; A11 chains
-// A7). TMA brings the tiles, wgmma multiplies, the softmax stays in
-// registers.
+// A7); and, with WavLM's gated relative-position bias added to the logits
+// in registers (RelPos below), relpos_attn_kernel (relpos_attn.cu, modes
+// 0-2). Both kernels run one body, flash_body; the bias is a compile-time
+// branch, so flash_kernel's instantiations hold none of it. TMA brings the
+// tiles, wgmma multiplies, the softmax stays in registers.
 //
 // Block: 128 queries of one (row, head), 384 threads. Two consumer
 // warpgroups own 64 query rows each; one thread of a producer warpgroup
@@ -112,6 +115,15 @@ __device__ __forceinline__ float softmax_p(float s, float m) {
   }
 }
 
+// exp2 of a normal float whose result is normal: after the exp2 mode's clamp
+// to [-100, 60] it is exp2f's instruction without exp2f's subnormal handling,
+// the same bits (the relative-position kernel's exponential)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 // %ctaid.y / %ctaid.z read where used, so that no register holds them
 // through the consumers' tile loop (held from the kernel's start, the
 // exact mode ran ~2 % slower: tools/time_attention.py --against)
@@ -126,16 +138,38 @@ __device__ __forceinline__ int ctaid_z() {
   return v;
 }
 
+// WavLM's gated relative-position bias (relpos_attn_kernel, relpos_attn.cu):
+// s[i, j] += g_i B_h(j - i) before the softmax. Per (row, frame) two bf16
+// gate logits of each head at gate + row * g_row + frame * g_ld + 2 h (the
+// QKV product's extra columns), g = a (b c_h - 1) + 2 of their sigmoids
+// (a, b), c_h = gate_const[h]; B_h(o) = offsets[h * 2 tp + tp + o] for
+// |o| < tp, tp >= t_len rounded up to kBlockK, so the padded keys and
+// queries of the last tiles read inside the vector (their p and rows are
+// dropped as without the bias). The vector carries the mode's log2 e.
+struct RelPos {
+  const bf16* gate;
+  long long g_ld, g_row;
+  const float* gate_const;
+  const float* offsets;
+  int tp;
+};
+
 // Accumulator layout of m64nNk16 (thread t of the warpgroup, warp w = t / 32,
 // g = (t % 32) / 4, c = t % 4): register i = 4 j + e (e = 0..3) holds row
 // 16 w + g + 8 (e / 2) and column 8 j + 2 c + e % 2. So a thread holds two
 // rows, r = (i / 2) % 2, and the registers 8 kk .. 8 kk + 7 of S are, in
 // pairs, the four registers of the A fragment of keys 16 kk .. 16 kk + 15.
-template <int NC, int kMode>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out, int o_ld,
-                 long long o_head_stride, long long o_row_stride, int t_len, int hd, float scale, float l_pad) {
+// With the bias (kRel), register 4 j + e takes key - query offset o0 + 8 (j
+// - r) + e % 2 (o0 = the tile's first key + 2 c - the thread's first row):
+// 17 x 2 offsets a thread and tile, loaded while S is multiplied. Besides,
+// a consumer warpgroup whose 64 rows all lie past t_len only keeps the ring
+// turning (T = 799: the last query tile's second warpgroup), and the exp2
+// mode's exponential is ex2_ftz (the same bits, without exp2f's subnormal path).
+template <int NC, int kMode, bool kRel>
+__device__ __forceinline__ void flash_body(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                                           bf16* __restrict__ out, int o_ld, long long o_head_stride,
+                                           long long o_row_stride, int t_len, int hd, float scale, float l_pad,
+                                           const RelPos& rel) {
   using L = Layout<NC>;
   constexpr int kStages = L::kStages;
   constexpr int kHalf = NC * 32;  // O registers a thread: 64 rows x 64 NC columns / 128
@@ -190,6 +224,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // a consumer warpgroup: query rows wg * 64 .. + 64 of the block
   setmaxnreg_inc<kConsumerRegs>();
+  if constexpr (kRel) {
+    if (q_tile * kBlockQ + wg * 64 >= t_len) {  // no query of this warpgroup is real: keep the ring turning
+      for (int i = 0; i < n_items; ++i) {
+        mbar_wait(full(i % kStages), (i / kStages) & 1);
+        mbar_arrive(empty(i % kStages));
+      }
+      return;
+    }
+  }
   const int lane = tid % 32;
   const int g = lane / 4, cq = lane % 4;
   const uint32_t q_rows = base + wg * 64 * kRowBytes;
@@ -202,6 +245,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   float l[2] = {0.f, 0.f};          // this thread's part of the row sum
   float s_acc[64];
   uint32_t p_frag[8][4];
+
+  [[maybe_unused]] float gate[2] = {0.f, 0.f};
+  [[maybe_unused]] const float* bias_at = nullptr;
+  if constexpr (kRel) {
+    const int head = ctaid_y(), row = ctaid_z();
+    const int q_first = q_tile * kBlockQ + wg * 64 + (warp % 4) * 16 + g;
+    const float c_h = rel.gate_const[head];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = q_first + 8 * r;
+      if (q < t_len) {
+        const bf16* gl = rel.gate + row * rel.g_row + q * rel.g_ld + 2 * head;
+        const float a = 1.f / (1.f + expf(-__bfloat162float(gl[0])));
+        const float b = 1.f / (1.f + expf(-__bfloat162float(gl[1])));
+        gate[r] = a * (b * c_h - 1.f) + 2.f;
+      }
+    }
+    bias_at = rel.offsets + (long long)head * 2 * rel.tp + rel.tp + 2 * cq - q_first;
+  }
 
   mbar_wait(bar_q, 0);
   for (int i = 0; i < n_items; ++i) {
@@ -219,8 +281,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_ss_n128(s_acc, desc_sw128(q_rows + off, 16), desc_sw128(k_tile(s) + off, 16), kk > 0);
     }
     wg_commit();
+    [[maybe_unused]] float bv[kRel ? 34 : 1];  // kRel: B at offsets o0 + 8 m + b, m = -1 .. 15, b = 0, 1
+    if constexpr (kRel) {
+      const float* bt = bias_at + tile * kBlockK;
+#pragma unroll
+      for (int m = 0; m < 17; ++m) {
+        bv[2 * m] = __ldg(bt + 8 * (m - 1));
+        bv[2 * m + 1] = __ldg(bt + 8 * (m - 1) + 1);
+      }
+    }
     wg_wait();
     reg_fence(s_acc);
+    if constexpr (kRel) {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) {
+        const int r = (e / 2) % 2;
+        s_acc[e] = fmaf(gate[r], bv[2 * (e / 4 - r + 1) + e % 2], s_acc[e]);
+      }
+    }
 
     // keys of this thread: tile * 128 + 8 (e / 4) + 2 c + e % 2; only the last tile is ragged
     const int key0 = tile * kBlockK + 2 * cq;
@@ -262,8 +340,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     // P in place of S
+    if constexpr (kRel && kMode == kExp2) {
 #pragma unroll
-    for (int e = 0; e < 64; ++e) s_acc[e] = softmax_p<kMode>(s_acc[e], m[(e / 2) % 2]);
+      for (int e = 0; e < 64; ++e) s_acc[e] = ex2_ftz(fminf(fmaxf(s_acc[e], -100.f), 60.f));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 64; ++e) s_acc[e] = softmax_p<kMode>(s_acc[e], m[(e / 2) % 2]);
+    }
     if constexpr (kMode == kExp2 || kMode == kExp2Bf16) {  // masked keys: 0, not the clamp's 2^-100
       if (ragged) {
 #pragma unroll
@@ -322,6 +405,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+template <int NC, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out, int o_ld,
+                 long long o_head_stride, long long o_row_stride, int t_len, int hd, float scale, float l_pad) {
+  flash_body<NC, kMode, false>(tm_q, tm_k, tm_v, out, o_ld, o_head_stride, o_row_stride, t_len, hd, scale, l_pad,
+                               RelPos{});
+}
+
+// the same with WavLM's gated relative-position bias (modes 0-2)
+template <int NC, int kMode>
+__global__ void __launch_bounds__(kThreads, 1)
+    relpos_attn_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ out, int o_ld,
+                       long long o_head_stride, long long o_row_stride, int t_len, int hd,
+                       const __grid_constant__ RelPos rel) {
+  flash_body<NC, kMode, true>(tm_q, tm_k, tm_v, out, o_ld, o_head_stride, o_row_stride, t_len, hd, 1.f, 0.f, rel);
+}
+
 // -- host side ---------------------------------------------------------------
 // A strided (rows, heads, T, hd) bf16 view; element strides between frames,
 // heads and rows (hd is contiguous)
@@ -359,6 +461,30 @@ cudaError_t launch_mode(const CUtensorMap& q, const CUtensorMap& k, const CUtens
     case kExp2Bf16: return launch<NC, kExp2Bf16>(q, k, v, o, rows, heads, t_len, hd, scale, l_pad, stream);
     case kExact: return launch<NC, kExact>(q, k, v, o, rows, heads, t_len, hd, scale, l_pad, stream);
     case kOnline: return launch<NC, kOnline>(q, k, v, o, rows, heads, t_len, hd, scale, l_pad, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int NC, int kMode>
+cudaError_t launch_rel(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, const View& o, int rows,
+                       int heads, int t_len, int hd, const RelPos& rel, cudaStream_t stream) {
+  constexpr size_t smem = Layout<NC>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(relpos_attn_kernel<NC, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_len + kBlockQ - 1) / kBlockQ, heads, rows);
+  relpos_attn_kernel<NC, kMode><<<grid, kThreads, smem, stream>>>(
+      q, k, v, static_cast<bf16*>(const_cast<void*>(o.ptr)), (int)o.ld, o.head_stride, o.row_stride, t_len, hd, rel);
+  return cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_rel_mode(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, const View& o, int rows,
+                            int heads, int t_len, int hd, int mode, const RelPos& rel, cudaStream_t stream) {
+  switch (mode) {
+    case kExp2: return launch_rel<NC, kExp2>(q, k, v, o, rows, heads, t_len, hd, rel, stream);
+    case kExp2Bf16: return launch_rel<NC, kExp2Bf16>(q, k, v, o, rows, heads, t_len, hd, rel, stream);
+    case kExact: return launch_rel<NC, kExact>(q, k, v, o, rows, heads, t_len, hd, rel, stream);
     default: return cudaErrorInvalidValue;
   }
 }

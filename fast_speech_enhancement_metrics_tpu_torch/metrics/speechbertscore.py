@@ -1,4 +1,4 @@
-"""SpeechBERTScore: semantic similarity of mHuBERT-147 embeddings.
+"""SpeechBERTScore: semantic similarity of mHuBERT-147 (or WavLM) embeddings.
 
 Counterpart of the JAX package's ``metrics/speechbertscore.py``. Per pair,
 the layer-8 hidden states of clean and denoised audio; the cosine
@@ -13,7 +13,12 @@ attention kernel A9 (``sdpa``; bf16 at the default precision, float32 at
 ``"highest"``), and past 40 000 frames A15 (``flash``); shorter clips at
 the default precision run each post-LN layer on kernels A7 (attention
 block) and A8 (FFN block), and ``precision="highest"`` the plain float32
-tensor path. The kernels take heads of up to 128. Weights load from a
+tensor path. The kernels take heads of up to 128. A relative-bias config
+(WavLM, ``WAVLM_LARGE_CONFIG``) takes the pre-LN relative-position route at
+the default precision at every length (``"relpos_block"``: each layer on
+the ``relpos_attn`` kernel between two launches of products) and the plain
+float32 path at "highest"; A9, A15, the post-LN blocks and tensor
+parallelism carry no position bias and raise. Weights load from a
 converted ``.npz`` (``utils/convert_hubert.py``); with no checkpoint at all
 they fall back to converting ``utter-project/mHuBERT-147`` with
 ``transformers`` (local hub cache, or the network), and otherwise raise with
@@ -30,6 +35,7 @@ from fast_speech_enhancement_metrics_tpu_torch.base import BaseMetric
 from fast_speech_enhancement_metrics_tpu_torch.models.hubert import (
     ATTENTION_IMPLS,
     MHUBERT_147_CONFIG,
+    RELPOS_IMPL,
     HubertConfig,
     HubertEncoder,
     from_jax_params,
@@ -110,6 +116,9 @@ class SpeechBERTScore(BaseMetric):
             params, config = self._load_params(checkpoint, config)
         self._tp_group = None
         if self.mesh is not None and axis_size(self.mesh, "model") > 1:
+            if config.relative_position_bias:
+                raise ValueError("the relative-position route runs on one device: its layers fuse the products "
+                                 "that tensor parallelism shards; use a mesh whose 'model' axis is 1")
             # Megatron tensor parallelism over the mesh's 'model' axis
             if isinstance(params, HubertEncoder):
                 raise ValueError("tensor parallelism shards the parameter pytree: pass params as the "
@@ -159,6 +168,10 @@ class SpeechBERTScore(BaseMetric):
         naming the limit."""
         impl = self.attention_impl
         on_cuda = self._on_cuda()
+        if self.config.relative_position_bias:
+            return self._resolve_relpos(impl, on_cuda)
+        if impl == RELPOS_IMPL:
+            raise ValueError(f"'{RELPOS_IMPL}' is the route of relative-bias configs (WavLM)")
         if impl == "auto":
             if not on_cuda:
                 return "einsum"
@@ -182,6 +195,19 @@ class SpeechBERTScore(BaseMetric):
                 f"the attention kernels take heads of at most {MAX_HEAD_DIM}, this config's are "
                 f"{head_dim}; attention_impl='einsum' scores it"
             )
+        return impl
+
+    def _resolve_relpos(self, impl: str, on_cuda: bool) -> str:
+        """The path of a relative-bias config: "auto" is the pre-LN
+        relative-position route on the card at the default precision, at
+        every length, and the plain float32 path elsewhere; A9, A15 and the
+        post-LN blocks raise, naming why."""
+        if impl == "auto":
+            return RELPOS_IMPL if on_cuda and self.precision in (None, "default") else "einsum"
+        if impl not in ("einsum", RELPOS_IMPL):
+            raise ValueError(f"attention_impl={impl!r} carries no relative-position bias (A9, A15 and the "
+                             f"post-LN block kernels have none); a relative-bias config takes 'einsum' or "
+                             f"'{RELPOS_IMPL}'")
         return impl
 
     @staticmethod

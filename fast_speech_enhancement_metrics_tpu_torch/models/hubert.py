@@ -5,7 +5,11 @@ contract: Hugging Face ``HubertModel`` (SpeechBERTScore's reference loads
 ``utter-project/mHuBERT-147``): a strided conv feature encoder (group-norm
 variant), feature projection, a grouped positional conv (batch-norm
 pre-affine for mHuBERT-147), and a post-LN transformer stack of which only
-the first ``output_layer`` layers run.
+the first ``output_layer`` layers run. With ``relative_position_bias`` the
+same encoder is Hugging Face ``WavLMModel`` (``WAVLM_LARGE_CONFIG``: the
+layer-norm conv encoder, pre-LN layers whose attention logits take layer
+0's relative-position bias gated per query, ``ops/relpos_attention.py``);
+the JAX package has no WavLM.
 
 Parameters come in the JAX package's pytree layout (``init_params``,
 ``utils/convert_hubert.py``; (in, out) matmul weights, (K, in/groups, out)
@@ -28,11 +32,17 @@ JAX package does on the TPU, whose FFN kernel has no erf),
 ``"layer_block"`` (with the tanh GELU the whole layer on kernel A11, its
 softmax "exp2" or else "exact", so "exp2_bf16" runs exact there, as in the
 JAX package; with the erf GELU the ``"block_ffn"`` route) and
-``"block_int8"`` (the int8 attention block, kernel A12, then the plain FFN).
+``"block_int8"`` (the int8 attention block, kernel A12, then the plain FFN);
+``"relpos_block"`` (pre-LN layers with the gated relative-position bias:
+each layer on the ``relpos_attn`` kernel between two launches of products,
+``ops/relpos_attention.py::prenorm_layer``). A relative-bias config takes
+``"einsum"`` or ``"relpos_block"``: A9, A15 and the post-LN blocks carry no
+position bias.
 
 While a ``torch.profiler`` session records, the conv encoder, the stage from
 the feature projection through the positional conv, and each layer are
-spans (``tracing.py``).
+spans (``tracing.py``), and so is each layer's gated relative-position
+attention.
 """
 
 from __future__ import annotations
@@ -47,7 +57,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fast_speech_enhancement_metrics_tpu_torch import tracing
-from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, conv_gelu, sdpa_pallas
+from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, conv_gelu, relpos_attention, sdpa_pallas
+from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import LOG2E
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,16 +79,35 @@ class HubertConfig:
     num_conv_pos_embedding_groups: int = 16
     do_stable_layer_norm: bool = False
     layer_norm_eps: float = 1e-5
+    #: WavLM: every layer's logits take layer 0's relative-position bias, gated per query
+    relative_position_bias: bool = False
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+
+    def __repr__(self) -> str:
+        """The dataclass repr; a config without the relative-position bias
+        leaves its three fields out, and so prints as the JAX package's."""
+        shown = [f.name for f in dataclasses.fields(self)]
+        if not self.relative_position_bias:
+            shown = shown[:-3]
+        return f"HubertConfig({', '.join(f'{n}={getattr(self, n)!r}' for n in shown)})"
 
 
 #: mHuBERT-147 is HuBERT-base with a batch-norm positional conv
 MHUBERT_147_CONFIG = HubertConfig()
+#: microsoft/wavlm-large: layer-norm conv encoder, pre-LN layers, gated relative-position bias
+WAVLM_LARGE_CONFIG = HubertConfig(
+    hidden_size=1024, num_hidden_layers=24, num_attention_heads=16, intermediate_size=4096,
+    feat_extract_norm="layer", do_stable_layer_norm=True, relative_position_bias=True,
+)
 
 #: attention paths whose attention is one kernel (A9, A15) over (B, H, T, D)
 KERNEL_ATTENTION_IMPLS = ("sdpa", "sdpa_exp2", "sdpa_exp2_bf16", "flash")
 #: post-LN paths whose attention block is a kernel: A7, A11 (the whole layer), A12 (int8)
 BLOCK_IMPLS = ("block", "block_ffn", "layer_block", "block_int8")
-ATTENTION_IMPLS = ("einsum",) + KERNEL_ATTENTION_IMPLS + BLOCK_IMPLS
+#: the pre-LN layer with the gated relative-position bias on its kernels (WavLM)
+RELPOS_IMPL = "relpos_block"
+ATTENTION_IMPLS = ("einsum",) + KERNEL_ATTENTION_IMPLS + BLOCK_IMPLS + (RELPOS_IMPL,)
 
 
 def _conv_flags():
@@ -126,6 +156,8 @@ class HubertEncoder(nn.Module):
         self.layers = nn.ModuleList(
             nn.ParameterDict({k: _param(v) for k, v in layer.items()}) for layer in params["layers"]
         )
+        # WavLM: layer 0's bucket table (num_buckets, heads), which every layer's bias reads
+        self.rel_embed = _param(params["rel_embed"]) if "rel_embed" in params else None
         self._packed: dict = {}
 
     def _apply(self, fn, recurse=True):
@@ -145,6 +177,16 @@ class HubertEncoder(nn.Module):
                 attn_block_pallas.pack_ffn_block_params(p),
             )
             self._packed[key] = hit
+        return hit
+
+    def packed_prenorm(self, i: int, softmax: str) -> tuple:
+        """Layer i's operands of the pre-LN relative-position route
+        (``relpos_attention.pack_prenorm_layer``)."""
+        p = self.layers[i]
+        key = ("prenorm", i, softmax, str(p["q_w"].device))
+        hit = self._packed.get(key)
+        if hit is None:
+            hit = self._packed[key] = relpos_attention.pack_prenorm_layer(p, self.config.num_attention_heads, softmax)
         return hit
 
     def conv_pieces(self, i: int) -> torch.Tensor:
@@ -202,12 +244,17 @@ def feature_encoder(enc: HubertEncoder, audio: torch.Tensor, gelu: str = "erf") 
 
 def _attention(
     p, x: torch.Tensor, num_heads: int, softmax: str = "exact", impl: str = "einsum",
-    bf16_kernel: bool = False, tp_group=None,
+    bf16_kernel: bool = False, tp_group=None, rel: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Multi-head self-attention: plain tensor ops (``impl="einsum"``) or one
     attention kernel (``"sdpa*"``: A9, ``"flash"``: A15). ``bf16_kernel``
     (the default precision) casts q, k, v to bf16 for the kernel and its
     context back, as the JAX package does.
+
+    ``rel``: WavLM's offset vector (``relpos_attention.offset_bias``, times
+    log2 e for the exp2 softmax); the logits then take the position bias,
+    gated per query from x (the layer's normed input), in blocks of
+    queries (plain tensor ops only).
 
     One device takes the fused (d, 3d) QKV projection. Under tensor
     parallelism (``tp_group``) ``p`` holds this rank's columns of q/k/v and
@@ -231,7 +278,13 @@ def _attention(
         q, k, v = split(qkv[..., :d]), split(qkv[..., d:2 * d]), split(qkv[..., 2 * d:])
     else:
         q, k, v = (split(torch.matmul(x, p[f"{n}_w"].to(dt)) + p[f"{n}_b"].to(dt)) for n in "qkv")
-    if impl in KERNEL_ATTENTION_IMPLS:
+    if rel is not None:
+        with tracing.span("fsem.hubert.relpos_attn"):
+            g = relpos_attention.gate(x, p["gate_w"], p["gate_b"], p["gate_const"], num_heads)
+            scale = scaling * LOG2E if softmax == "exp2" else scaling
+            ctx = relpos_attention.attention_plain(q * scale, k, v, g, rel,
+                                                   "exp2" if softmax == "exp2" else "exact")
+    elif impl in KERNEL_ATTENTION_IMPLS:
         if impl == "flash":  # the flash kernel's softmax is always the exact one
             kernel = sdpa_pallas.flash_sdpa
         else:
@@ -280,6 +333,7 @@ def _ffn(p, x: torch.Tensor, gelu: str, tp_group=None) -> torch.Tensor:
 def _encoder_layer(
     enc: HubertEncoder, i: int, x: torch.Tensor, attention_impl: str = "einsum",
     gelu: str = "erf", softmax: str = "exact", bf16_kernel: bool = False, tp_group=None,
+    rel: torch.Tensor | None = None,
 ) -> torch.Tensor:
     config = enc.config
     p = enc.layers[i]
@@ -287,15 +341,24 @@ def _encoder_layer(
     heads = config.num_attention_heads
     if attention_impl not in ATTENTION_IMPLS:
         raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
-    if tp_group is not None and attention_impl in BLOCK_IMPLS:
+    if tp_group is not None and attention_impl in BLOCK_IMPLS + (RELPOS_IMPL,):
         raise ValueError(f"the block paths fuse the sharded products; under tensor parallelism take "
                          f"'einsum', 'sdpa*' or 'flash', got {attention_impl!r}")
+    if (attention_impl == RELPOS_IMPL and rel is None) or (rel is not None and attention_impl not in (
+            "einsum", RELPOS_IMPL)) or (rel is not None and tp_group is not None):
+        raise ValueError(f"'{RELPOS_IMPL}' is the route of relative-bias configs, which take it or 'einsum' on one "
+                         f"device; got {attention_impl!r} (relative_position_bias={config.relative_position_bias}"
+                         f"{', under tensor parallelism' if tp_group is not None else ''})")
     if config.do_stable_layer_norm:
+        if attention_impl == RELPOS_IMPL:
+            return relpos_attention.prenorm_layer(x, enc.packed_prenorm(i, softmax), rel, heads, eps, softmax, gelu)
         if attention_impl in BLOCK_IMPLS:
             raise ValueError(f"pre-LN layers have no block path, got {attention_impl!r}")
         h = _layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
-        x = x + _attention(p, h, heads, softmax, attention_impl, bf16_kernel, tp_group)
+        x = x + _attention(p, h, heads, softmax, attention_impl, bf16_kernel, tp_group, rel)
         return x + _ffn(p, _layer_norm(x, p["ln2_s"], p["ln2_b"], eps), gelu, tp_group)
+    if rel is not None:
+        raise ValueError("the relative-position bias is WavLM's, whose layers are pre-LN")
     if attention_impl == "layer_block" and gelu == "tanh":
         mode = "exp2" if softmax == "exp2" else "exact"
         attn_ops, ffn_ops = enc.packed_blocks(i, mode)
@@ -371,10 +434,17 @@ def hubert_hidden_state(
         if not config.do_stable_layer_norm:
             # post-LN stack: the encoder LayerNorm applies before the layers
             x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
+    rel = None
+    if config.relative_position_bias:
+        # WavLM: the offset vector of layer 0's bucket table, made once for
+        # this T and read by every layer; base-2 logits take it times log2 e
+        base2 = softmax == "exp2" or (attention_impl == RELPOS_IMPL and softmax == "exp2_bf16")
+        rel = relpos_attention.offset_bias(enc.rel_embed, x.shape[1], config.num_buckets,
+                                           config.max_bucket_distance, LOG2E if base2 else 1.0)
     for i in range(min(output_layer, len(enc.layers))):
         with tracing.span("fsem.hubert.layer"):
             x = _encoder_layer(enc, i, x, attention_impl, gelu=gelu, softmax=softmax,
-                               bf16_kernel=precision in (None, "default"), tp_group=tp_group)
+                               bf16_kernel=precision in (None, "default"), tp_group=tp_group, rel=rel)
     if config.do_stable_layer_norm and output_layer == config.num_hidden_layers:
         # pre-LN stack: the encoder LayerNorm applies after the final layer
         x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
@@ -428,4 +498,9 @@ def init_params(generator: torch.Generator, config: HubertConfig = MHUBERT_147_C
         }
         for _ in range(config.num_hidden_layers)
     ]
+    if config.relative_position_bias:
+        heads = config.num_attention_heads
+        for layer in params["layers"]:
+            layer.update(gate_w=nxt(d // heads, 8, scale=d**-0.5), gate_b=zeros(8), gate_const=ones(heads))
+        params["rel_embed"] = nxt(config.num_buckets, heads, scale=1.0)
     return params

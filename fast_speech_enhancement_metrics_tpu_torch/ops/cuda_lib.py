@@ -39,6 +39,7 @@ SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
     "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu", "layer_block.cu",
     "attn_block_int8.cu", "levinson_flat.cu", "levinson_dotreduce.cu", "levinson_double.cu", "conv_gelu.cu",
+    "relpos_attn.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,6 +102,15 @@ _SIGNATURES = {
     # (x, bf16 weight pieces, out, batch, input channels, output channels,
     #  input frames, width, gelu, stream)
     "fsem_conv_gelu": (_P,) * 3 + (_I,) * 6 + (_P,),
+    # (qkvg, gate constants, offset bias, ctx, rows, frames, width, heads,
+    #  qkvg columns, offset half-length, softmax mode, stream)
+    "fsem_relpos_attention": (_P,) * 4 + (_I,) * 7 + (_P,),
+    # (x, ln1 scale, ln1 shift, wqkvg, bqkvg, bf16 u, qkvg, rows, width,
+    #  qkvg columns, eps, stream)
+    "fsem_prenorm_in": (_P,) * 7 + (_I,) * 3 + (_F, _P),
+    # (x, ctx, wo, bo, ln2 scale, ln2 shift, w1, b1, w2, b2, y, bf16 u,
+    #  hidden, out, rows, width, ffn, eps, stream)
+    "fsem_prenorm_out": (_P,) * 14 + (_I,) * 3 + (_F, _P),
 }
 
 _lock = threading.Lock()

@@ -24,7 +24,11 @@ opened and the benchmark metric (``portbench/readers/``) that reads it:
   (``conv_encoder_ms``); ``fsem.hubert.pos_conv``, ``hubert_hidden_state``
   from the feature projection through the encoder LayerNorm before layer 0
   (``pos_conv_ms``); ``fsem.hubert.layer``, each ``_encoder_layer`` call
-  (``encoder_layers_ms``).
+  (``encoder_layers_ms``); ``fsem.hubert.relpos_attn``,
+  each WavLM layer's gated relative-position attention: on the kernel route
+  the ``relpos_attn`` launch (its gate logits come out of the QKV product
+  before it), on the plain route the gate, the bias and the attention
+  (``relpos_attn_ms``).
 * model, DNSMOS (``models/dnsmos_net.py``): ``fsem.dnsmos.features``, the
   body of ``_log_power_features`` (``dnsmos_features_ms``);
   ``fsem.dnsmos.trunk``, the conv stack on the whole signal with pool 3 and
@@ -38,6 +42,10 @@ Counters:
   that ``base.py::BaseMetric.prepare_audio`` copies from the host to a CUDA
   device. Counted under the spans' gate, so it covers exactly the recorded
   calls.
+* ``counts["relpos_bias_bytes"]`` (model; ``relpos_bias_mib_per_call``):
+  bytes of WavLM's gated position bias built as a tensor, rows x heads x
+  queries x keys, by the plain paths (``ops/relpos_attention.py``); the
+  kernel route adds 0 for each layer, since the kernel builds none.
 * ``launch_counts`` (kernels): launches per hand-written kernel, one added by
   each wrapper in ``ops/`` where it launches; always on (``chip_smoke.py``,
   the card tests and ``benchmarking/`` read it, also as

@@ -13,6 +13,10 @@ so one converted file serves both packages. ``from_jax_params``
 ``utter-project/mHuBERT-147``, from a local directory or the hub cache; a
 hub name not yet cached needs the network), folds it and writes the npz
 that ``SpeechBERTScore`` loads offline (``checkpoints/mhubert147.npz``).
+An HF ``WavLMModel`` (``model_type`` "wavlm", e.g. ``microsoft/wavlm-large``)
+converts the same way, with its gate leaves and layer 0's bucket table;
+score it with ``SpeechBERTScore(checkpoint=..., config=WAVLM_LARGE_CONFIG,
+output_layer=14)``.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 from fast_speech_enhancement_metrics_tpu_torch.models.hubert import MHUBERT_147_CONFIG, HubertConfig
 
 MHUBERT_147 = "utter-project/mHuBERT-147"
+WAVLM_LARGE = "microsoft/wavlm-large"
 
 
 def save_params(params, path: str) -> None:
@@ -67,7 +72,11 @@ def load_params(path: str) -> dict:
 
 
 def config_from_hf(hf_config) -> HubertConfig:
-    """HF ``HubertConfig`` (any object with its attributes) -> ``HubertConfig``."""
+    """HF ``HubertConfig`` or ``WavLMConfig`` (any object with its
+    attributes; ``model_type`` "wavlm" for WavLM) -> ``HubertConfig``."""
+    wavlm = getattr(hf_config, "model_type", "hubert") == "wavlm"
+    extra = dict(relative_position_bias=True, num_buckets=hf_config.num_buckets,
+                 max_bucket_distance=hf_config.max_bucket_distance) if wavlm else {}
     return HubertConfig(
         hidden_size=hf_config.hidden_size,
         num_hidden_layers=hf_config.num_hidden_layers,
@@ -78,20 +87,24 @@ def config_from_hf(hf_config) -> HubertConfig:
         conv_stride=tuple(hf_config.conv_stride),
         conv_bias=hf_config.conv_bias,
         feat_extract_norm=hf_config.feat_extract_norm,
-        feat_proj_layer_norm=hf_config.feat_proj_layer_norm,
+        feat_proj_layer_norm=getattr(hf_config, "feat_proj_layer_norm", True),  # WavLM's always has one
         num_conv_pos_embeddings=hf_config.num_conv_pos_embeddings,
         num_conv_pos_embedding_groups=hf_config.num_conv_pos_embedding_groups,
         do_stable_layer_norm=hf_config.do_stable_layer_norm,
         layer_norm_eps=hf_config.layer_norm_eps,
+        **extra,
     )
 
 
 def convert_hf_hubert(state_dict, config: HubertConfig = MHUBERT_147_CONFIG) -> dict:
-    """Map an HF ``HubertModel`` state dict to the parameter pytree.
+    """Map an HF ``HubertModel`` (or, with ``config.relative_position_bias``,
+    ``WavLMModel``) state dict to the parameter pytree.
 
     Folds the positional conv's parametrizations (plain, weight-norm in old
     or new naming, batch-norm) in float64 on the host; the leaves come out
-    float32.
+    float32. WavLM's layers also carry ``gate_w`` (hd, 8) (in, out),
+    ``gate_b`` (8,) and ``gate_const`` (heads,), and the tree layer 0's
+    ``rel_embed`` (num_buckets, heads).
     """
 
     def g(key):
@@ -159,7 +172,14 @@ def convert_hf_hubert(state_dict, config: HubertConfig = MHUBERT_147_CONFIG) -> 
         for ours, theirs in names.items():
             v = g(f"encoder.layers.{i}.{theirs}")
             layer[ours] = v.T if ours.endswith(("_w", "_w1", "_w2")) else v
+        if config.relative_position_bias:
+            prefix = f"encoder.layers.{i}.attention"
+            layer["gate_w"] = g(f"{prefix}.gru_rel_pos_linear.weight").T
+            layer["gate_b"] = g(f"{prefix}.gru_rel_pos_linear.bias")
+            layer["gate_const"] = g(f"{prefix}.gru_rel_pos_const").reshape(-1)
         params["layers"].append(layer)
+    if config.relative_position_bias:
+        params["rel_embed"] = g("encoder.layers.0.attention.rel_attn_embed.weight")
 
     def to_f32(node):
         if isinstance(node, dict):
@@ -172,7 +192,8 @@ def convert_hf_hubert(state_dict, config: HubertConfig = MHUBERT_147_CONFIG) -> 
 
 
 def convert_pretrained(name_or_path: str = MHUBERT_147) -> tuple[dict, HubertConfig]:
-    """Load an HF ``HubertModel`` (hub cache or local dir) -> (params, config)."""
+    """Load an HF ``HubertModel`` or ``WavLMModel`` (hub cache or local dir;
+    the config's ``model_type`` picks the layout) -> (params, config)."""
     from transformers import AutoModel
 
     model = AutoModel.from_pretrained(name_or_path)

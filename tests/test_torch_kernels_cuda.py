@@ -24,12 +24,14 @@ from fast_speech_enhancement_metrics_tpu_torch.ops import (
     cuda_lib,
     levinson_pallas,
     lsd_fused,
+    relpos_attention,
     sdpa_pallas,
     sdr_corr_fused,
     sdr_corr_gram,
     stoi_fused,
     toeplitz,
 )
+from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import LOG2E
 from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_data
 
 pytestmark = pytest.mark.cuda
@@ -937,3 +939,113 @@ def test_feature_encoder_takes_conv_gelu_in_float32_only(dev, monkeypatch):
         want = hubert.feature_encoder(enc, audio, gelu="tanh")
     assert cuda_lib.launch_counts[conv_gelu.KERNEL] == before + 6
     assert ((got - want).abs().max() / want.abs().max()).item() < 1e-5
+
+
+#: WavLM-Large's attention: d 1024, 16 heads of 64, 320 buckets up to 800
+RP_D, RP_HEADS = 1024, 16
+
+
+def _relpos_inputs(dev, rows, t, softmax, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    qkvg = 0.7 * torch.randn(rows, t, 3 * RP_D + relpos_attention.gate_columns(RP_HEADS), generator=g)
+    qkvg[..., :RP_D] *= (RP_D // RP_HEADS) ** -0.5  # q pre-scaled, as the route's packing folds it
+    qkvg = qkvg.to(torch.bfloat16)
+    const = 1 + 0.1 * torch.randn(RP_HEADS, generator=g)
+    vec = relpos_attention.offset_bias(torch.randn(320, RP_HEADS, generator=g), t, 320, 800,
+                                       1.0 if softmax == "exact" else LOG2E)
+    return qkvg.to(dev), const.to(dev), vec.to(dev)
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exact", "exp2_bf16"])
+@pytest.mark.parametrize("rows,t", [(64, 799), (32, 2999), (3, 300)])
+def test_relpos_kernel_matches_plain(dev, rows, t, softmax):
+    """The gated relative-position attention at WavLM's width on the cell's
+    row chunk (64 x 799), on 32 x 2999 (offsets past 800: saturated
+    buckets) and at a T that is no multiple of 128, against its plain
+    version (run on the card) in A9's per-row class; two launches
+    bit-equal. exp2_bf16 rounds each logit to bf16, a step function: the
+    error beyond the tie allowance (``_exp2_bf16_tie_allowance``, the jump
+    of p where the two float32 sums of a logit straddle a step) is held to
+    the class."""
+    qkvg, const, vec = _relpos_inputs(dev, rows, t, softmax)
+    before = cuda_lib.launch_counts[relpos_attention.KERNEL]
+    got = relpos_attention.relpos_attention(qkvg, const, vec, RP_HEADS, softmax)
+    assert cuda_lib.launch_counts[relpos_attention.KERNEL] == before + 1
+    want = relpos_attention._relpos_attention_plain(qkvg, const, vec, RP_HEADS, softmax)
+    if softmax == "exp2_bf16":
+        allowance = relpos_attention._exp2_bf16_tie_allowance(qkvg, const, vec, RP_HEADS, want)
+        excess = torch.clamp((got.double() - want.double()).abs() - allowance, min=0.0)
+        got = (want.double() + excess).float()
+    _context_class(got, want)
+    assert torch.equal(relpos_attention.relpos_attention(qkvg, const, vec, RP_HEADS, softmax),
+                       relpos_attention.relpos_attention(qkvg, const, vec, RP_HEADS, softmax))
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exact", "exp2_bf16"])
+@pytest.mark.parametrize("t", [799, 300])
+def test_relpos_kernel_with_zero_bias_is_a9(dev, t, softmax):
+    """With a zero bias the kernel is A9's (so A7's) attention bit for bit on
+    the same pre-scaled q, k, v: one body in flash_sm90.cuh, the bias a
+    compile-time branch."""
+    qkvg, const, vec = _relpos_inputs(dev, 2, t, softmax, seed=1)
+    hd = RP_D // RP_HEADS
+    q, k, v = (qkvg[..., i * RP_D:(i + 1) * RP_D].reshape(2, t, RP_HEADS, hd).transpose(1, 2).contiguous()
+               for i in range(3))
+    a9 = sdpa_pallas._launch(sdpa_pallas.KERNEL_A9, q, k, v, sdpa_pallas.SOFTMAX_MODES.index(softmax), t, 1.0, 0.0)
+    got = relpos_attention.relpos_attention(qkvg, const, torch.zeros_like(vec), RP_HEADS, softmax)
+    assert torch.equal(got, a9.transpose(1, 2).reshape(2, t, RP_D))
+
+
+def _prenorm_params(d, heads, ffn, seed):
+    p = _block_params(d, ffn, seed, qk_scale=0.04)
+    rs = np.random.RandomState(seed + 1)
+    p.update(gate_w=torch.tensor(rs.randn(d // heads, 8) / 8, dtype=torch.float32),
+             gate_b=torch.tensor(rs.randn(8) * 0.1, dtype=torch.float32),
+             gate_const=torch.tensor(1 + 0.1 * rs.randn(heads), dtype=torch.float32))
+    return p
+
+
+@pytest.mark.parametrize("softmax", ["exp2", "exact"])
+@pytest.mark.parametrize("rows,t", [(2, 799), (3, 130)])
+def test_prenorm_layer_kernels_match_plain(dev, softmax, rows, t):
+    """One pre-LN WavLM-Large layer on its three launches (LN1 + the QKV
+    and gate product, the attention, W_o + residual + LN2 + the FFN +
+    residual) against the plain version. The output is the residual
+    stream, not a LayerNorm's (|x| up to ~10 here), so the bf16 class is
+    taken relative to its largest magnitude: max 4e-3 (one bf16 step
+    there), median 4e-4 (measured 1.4e-3 / 1.4e-4 on the card)."""
+    p = _prenorm_params(RP_D, RP_HEADS, 4096, seed=t)
+    packed = relpos_attention.pack_prenorm_layer(p, RP_HEADS, softmax)
+    vec = relpos_attention.offset_bias(torch.tensor(np.random.RandomState(2).randn(320, RP_HEADS),
+                                                    dtype=torch.float32), t, 320, 800,
+                                       1.0 if softmax == "exact" else LOG2E)
+    x = torch.tensor(np.random.RandomState(3).randn(rows, t, RP_D), dtype=torch.float32)
+    counts = [cuda_lib.launch_counts[k] for k in (relpos_attention.KERNEL_IN, relpos_attention.KERNEL,
+                                                   relpos_attention.KERNEL_OUT)]
+    got = relpos_attention.prenorm_layer(x.to(dev), tuple(a.to(dev) for a in packed), vec.to(dev), RP_HEADS, 1e-5,
+                                         softmax)
+    assert [cuda_lib.launch_counts[k] for k in (relpos_attention.KERNEL_IN, relpos_attention.KERNEL,
+                                                relpos_attention.KERNEL_OUT)] == [n + 1 for n in counts]
+    want = relpos_attention.prenorm_layer(x, packed, vec, RP_HEADS, 1e-5, softmax)
+    rel = (got.cpu() - want).abs() / want.abs().max()
+    assert rel.max().item() <= 4e-3 and rel.median().item() <= 4e-4, (rel.max().item(), rel.median().item())
+
+
+def test_wavlm_public_call_takes_the_relpos_kernel(dev):
+    """SpeechBERTScore on WavLM-Large (layer 14) through the public call:
+    one relpos launch a layer, none of A7 / A8 / A9 / A15, and F1 within
+    2e-3 of the float32 route on the card."""
+    params = init_params(torch.Generator().manual_seed(0), hubert.WAVLM_LARGE_CONFIG)
+    params["layers"] = params["layers"][:14]
+    clean, noisy, _ = load_audio_data(2, 2, 16000)
+    metric = SpeechBERTScore(params=params, config=hubert.WAVLM_LARGE_CONFIG, output_layer=14, device=dev)
+    cuda_lib.launch_counts.clear()
+    got = np.array([r["SpeechBERTScore"] for r in metric(clean, noisy)])
+    counts = dict(cuda_lib.launch_counts)
+    assert counts.get(relpos_attention.KERNEL) == 14
+    assert not any(counts.get(k) for k in (attn_block_pallas.KERNEL_A7, attn_block_pallas.KERNEL_A8,
+                                           sdpa_pallas.KERNEL_A9, sdpa_pallas.KERNEL_A15))
+    exact = SpeechBERTScore(params=params, config=hubert.WAVLM_LARGE_CONFIG, output_layer=14, device=dev,
+                            precision="highest", gelu="tanh")
+    want = np.array([r["SpeechBERTScore"] for r in exact(clean, noisy)])
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)

@@ -41,7 +41,7 @@ LAYERS = 2
 #: the span names the program opens, as tracing.py lists them
 SPANS = {
     "fsem.entry", "fsem.exit", "fsem.ragged_group",
-    "fsem.hubert.conv_encoder", "fsem.hubert.pos_conv", "fsem.hubert.layer",
+    "fsem.hubert.conv_encoder", "fsem.hubert.pos_conv", "fsem.hubert.layer", "fsem.hubert.relpos_attn",
     "fsem.dnsmos.features", "fsem.dnsmos.trunk", "fsem.dnsmos.edges",
 }
 
