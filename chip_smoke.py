@@ -20,7 +20,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    and TMA, SDR's correlation kernels (A4's Gram in splits x4, x3, x1 and
    A10's chunk DFT) and LSD's frame-tile kernel (A1-A3) bf16 wgmma and
    TMA, so must the conv encoder's convs 1-6 (``conv_gelu.cu``, both
-   widths and GELUs) bf16 wgmma and TMA,
+   widths and GELUs) bf16 wgmma and TMA, and the positional conv stage
+   (``pos_conv.cu``, 48 and 64 channels a group) bf16 wgmma and TMA bulk
+   copies,
    and none may spill a register, nor may the Levinson warp kernels
    (A5 and the A14 variants, all 32 orders each) or A6's segment kernel,
 3. each kernel against its plain PyTorch version on the card, at the main
@@ -51,6 +53,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    mHuBERT-147's conv encoder on ``conv_gelu.cu``, at 64 x 16 s against
    their plain version (cuDNN float32, TF32 off, then the GELU), conv 1
    on two rows also against a float64 conv, within twice cuDNN's distance);
+   PC, the positional conv stage (BN affine, grouped conv of width 128,
+   bias, GELU, residual) on ``pos_conv.cu`` at the SpeechBERTScore cells'
+   row chunks, 64 x 799 x 768 with the BN affine (mHuBERT-147), 64 x 799 x
+   1024 (WavLM-Large) and 16 x 2999 x 768, against its plain version
+   (cuDNN float32, TF32 off, and the stage's passes), on two rows of each
+   also against a float64 stage, within twice cuDNN's distance;
    RP, WavLM's gated relative-position attention, at 64 x 799 and 32 x 2999
    in its three softmax modes, with a zero bias bit for bit A9; RP-in and
    RP-out, the pre-LN layer's other launches, and the whole layer, on
@@ -61,8 +69,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``STOI(sample_rate=16000)`` through ``__call__`` on the 16 s batch;
    ``LSD()`` on the two unaligned batches; ``SpeechBERTScore`` at
    mHuBERT-147's full width with seeded random weights on the 16 s batch
-   (A7, A8, and FE six launches a row chunk; ``attention_impl="layer_block"``: A11, its F1 equal to A7 +
-   A8's; ``"block_int8"``: A12),
+   (A7, A8, FE six launches a row chunk; PC one a row chunk, here and on
+   WavLM-Large and 16 x 60 s; ``attention_impl="layer_block"``: A11, its
+   F1 equal to A7 + A8's; ``"block_int8"``: A12),
    on 16 x 60 s (A9) and on one pair of 820 s clips (A15), and each at
    ``precision="highest"`` (one 60 s pair: A9's float32 arm; the 820 s
    pair: A15's, within 2e-3 of the bf16 path);
@@ -101,7 +110,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    alone at the layer's four products against bf16 ``F.linear``, A12's
    int8 GEMM alone at QKV and W_o against ``torch._int_mm`` and the
    dequantization; FE's six convs in a chain from a 64 x 16 s conv 0
-   output, against the same chain on cuDNN; A9's and A15's float32 arms (``precision="highest"``)
+   output, against the same chain on cuDNN; PC at its three shapes, against
+   cuDNN float32 and the stage's passes; A9's and A15's float32 arms (``precision="highest"``)
    on their float32 inputs, against scaled_dot_product_attention's
    memory-efficient backend, and their split pass; and each metric end to
    end (SpeechBERTScore also on
@@ -459,6 +469,27 @@ def fe_inputs(dev: torch.device) -> tuple[torch.Tensor, list, list]:
     return x, ws, [conv_gelu.split_pieces(w) for w in ws]
 
 
+#: PC's shapes, the SpeechBERTScore cells' row chunks: (rows, frames,
+#: channels, BN affine) of mHuBERT-147 at 16 s, WavLM-Large, mHuBERT-147 at 60 s
+PC_SHAPES = ((BATCH, 799, 768, True), (BATCH, 799, 1024, False), (LONG_BATCH, 2999, 768, True))
+
+
+def pc_inputs(dev: torch.device, rows: int, frames: int, channels: int, bn: bool) -> tuple:
+    """PC's operands: N(0, 1) activations, weights N(0, 1 / (128 c_g)) in 16
+    groups, bias N(0, 0.01), BN scale 1 + N(0, 0.09) and shift N(0, 0.09),
+    and the weights' bf16 pieces; the same from every call."""
+    from fast_speech_enhancement_metrics_tpu_torch.ops import pos_conv
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    cg = channels // 16
+    x = torch.randn(rows, frames, channels, device=dev, generator=g)
+    w = torch.randn(channels, cg, pos_conv.WIDTH, device=dev, generator=g) * (cg * pos_conv.WIDTH) ** -0.5
+    b = 0.1 * torch.randn(channels, device=dev, generator=g)
+    scale = 1 + 0.3 * torch.randn(channels, device=dev, generator=g) if bn else None
+    shift = 0.3 * torch.randn(channels, device=dev, generator=g) if bn else None
+    return x, w, b, scale, shift, pos_conv.split_pieces(w, 16)
+
+
 def conv0_times(sbs, smi: str, clean: torch.Tensor) -> None:
     """Phase 5, for the record: conv 0 and the whole feature encoder of the
     ``sbs`` encoder on ``clean``."""
@@ -495,6 +526,7 @@ def main() -> int:
         cuda_lib,
         levinson_pallas,
         lsd_fused,
+        pos_conv,
         relpos_attention,
         sdpa_pallas,
         sdr_corr_fused,
@@ -552,7 +584,8 @@ def main() -> int:
     # attn_block.cu; A12: its int8 arm, gemm_kernel<3>, in attn_block_int8.cu)
     # and A12's int8 attention (4 head-width classes x 3 modes); SDR's
     # correlations: A4's Gram (splits x4, x3, x1) and A10's chunk DFT;
-    # LSD's frame-tile kernel (A1, A2, A3)
+    # LSD's frame-tile kernel (A1, A2, A3); the positional conv stage (PC:
+    # c_g 48, 64), whose weight stages are plain TMA bulk copies (UBLKCP)
     cuobjdump = shutil.which("cuobjdump") or str(Path(cuda_lib._nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
     int8_gemm = "gemm_kernelILi3E"
@@ -567,11 +600,13 @@ def main() -> int:
         ("lsd_tile_kernel", "lsd_fused", 1, "HGMMA", lambda name: True),
         ("conv_gelu_kernel", "conv_gelu", 4, "HGMMA", lambda name: True),
         ("relpos_attn_kernel", "relpos_attn", 6, "HGMMA", lambda name: True),
+        ("pos_conv_kernel", "pos_conv", 2, "HGMMA", lambda name: True),
     ):
         funcs = [f for f in sass.split("Function : ")[1:]
                  if kernel in f.split("\n", 1)[0] and keep(f.split("\n", 1)[0])]
-        counts = [(f.count(product), f.count("UTMALDG")) for f in funcs]
-        log(f"SASS: {len(funcs)} {kernel} instantiations of {source}.cu; {product} and UTMALDG in each: {counts}")
+        copy = "UBLKCP" if kernel == "pos_conv_kernel" else "UTMALDG"
+        counts = [(f.count(product), f.count(copy)) for f in funcs]
+        log(f"SASS: {len(funcs)} {kernel} instantiations of {source}.cu; {product} and {copy} in each: {counts}")
         check(len(funcs) == n and all(h > 0 and t > 0 for h, t in counts),
               f"{kernel} ({source}.cu): not {n} instantiations, each built on {product} and TMA")
         # ... and spill nothing: ptxas's spill line follows each entry function
@@ -1175,6 +1210,32 @@ def main() -> int:
            f"cuDNN float32 {lib64:.3e})")
     del fe_x, fe_w, fe_pieces, got, x_, want64
 
+    # PC: the positional conv stage at the three cells' row chunks, each
+    # launch against the plain version (cuDNN float32 and the stage's
+    # passes) over max|plain|, twice bit-equal; on two rows of each against
+    # a float64 stage within twice cuDNN float32's distance
+    worst, notes = 0.0, []
+    for rows_, frames_, channels_, bn_ in PC_SHAPES:
+        x_, w_, b_, sc_, sh_, p_ = pc_inputs(dev, rows_, frames_, channels_, bn_)
+        got = pos_conv.pos_conv(x_, w_, b_, 16, sc_, sh_, pieces=p_)
+        check(torch.equal(got, pos_conv.pos_conv(x_, w_, b_, 16, sc_, sh_, pieces=p_)),
+              f"PC at {rows_} x {frames_} x {channels_}: two launches differ")
+        plain_ = pos_conv._pos_conv_plain(x_, w_, b_, 16, sc_, sh_)
+        worst = max(worst, ((got - plain_).abs().max() / plain_.abs().max()).item())
+        x2 = x_[:2].contiguous()
+        pos_in = x2 if sc_ is None else x2 * sc_ + sh_
+        conv64 = torch.nn.functional.conv1d(pos_in.double().transpose(1, 2), w_.double(),
+                                             padding=pos_conv.WIDTH // 2, groups=16).transpose(1, 2)[:, :-1]
+        want64 = x2.double() + torch.nn.functional.gelu(conv64 + b_.double())
+        pc64, lib64 = (((y.double() - want64).abs().max() / want64.abs().max()).item()
+                       for y in (got[:2], plain_[:2]))
+        check(pc64 <= 2 * lib64, f"PC at {rows_} x {frames_} x {channels_}: from float64 {pc64:.3e}, over twice "
+                                 f"cuDNN float32's {lib64:.3e}")
+        notes.append(f"{rows_} x {frames_} x {channels_}{' BN' if bn_ else ''}: {pc64:.3e} (cuDNN {lib64:.3e})")
+    record("PC", pos_conv.KERNEL, "pos_conv.cu", "models/hubert.py:385", worst, 1e-5,
+           f" (the stage at the cells' row chunks, over max|plain|; on 2 rows from float64: {'; '.join(notes)})")
+    del x_, w_, b_, sc_, sh_, p_, got, plain_, x2, pos_in, conv64, want64
+
     # A10 on the normalised signals, as SDR(corr_impl="fused") feeds it: the
     # raw variant at 64 x 16 s, the padded one at 64 x (16 s + 100); atol
     # 2e-4 * max|r_auto|, as A4
@@ -1251,8 +1312,8 @@ def main() -> int:
     # 8 layers x 2 row chunks of the doubled batch -> 16 launches each of A7, A8
     sbs_params = hubert.init_params(torch.Generator().manual_seed(0), cfg)
     sbs = pkg.SpeechBERTScore(params=sbs_params)
-    sbs_rows = drive(lambda: sbs(clean_np, noisy_np), "SpeechBERTScore", ("A7", "A8", "FE"))
-    for kid, want in (("A7", sbs.output_layer * 2), ("A8", sbs.output_layer * 2), ("FE", 6 * 2)):
+    sbs_rows = drive(lambda: sbs(clean_np, noisy_np), "SpeechBERTScore", ("A7", "A8", "FE", "PC"))
+    for kid, want in (("A7", sbs.output_layer * 2), ("A8", sbs.output_layer * 2), ("FE", 6 * 2), ("PC", 2)):
         check(results[kid]["launches"] == want,
               f"{kid}: {results[kid]['launches']} launches, expected {want}")
     f1 = np.array([r["SpeechBERTScore"] for r in sbs_rows])
@@ -1322,7 +1383,7 @@ def main() -> int:
     f1_wavlm = f1_of(drive(lambda: wavlm(clean_np, noisy_np), "SpeechBERTScore WavLM-Large", ("RP", "RP-in", "RP-out")),
                      BATCH)
     only({relpos_attention.KERNEL: 28, relpos_attention.KERNEL_IN: 28, relpos_attention.KERNEL_OUT: 28,
-          **{k: 0 for k in attn_kernels}}, "SpeechBERTScore WavLM-Large")
+          pos_conv.KERNEL: 2, **{k: 0 for k in attn_kernels}}, "SpeechBERTScore WavLM-Large")
     wavlm_f32 = pkg.SpeechBERTScore(params=wavlm_params, config=hubert.WAVLM_LARGE_CONFIG, output_layer=14,
                                     precision="highest", gelu="tanh")
     dev_wavlm = float(np.max(np.abs(f1_wavlm - f1_of(wavlm_f32(clean_np, noisy_np), BATCH))))
@@ -1364,7 +1425,8 @@ def main() -> int:
     f1_60 = f1_of(drive(lambda: sbs(c60_np, d60_np), f"SpeechBERTScore {LONG_BATCH} x {LONG_SECONDS} s", ("A9",)),
                   LONG_BATCH)
     first_s = time.perf_counter() - t0
-    only(dict(zip(attn_kernels, (0, 0, 2 * sbs.output_layer, 0))), "SpeechBERTScore 16 x 60 s")
+    only({**dict(zip(attn_kernels, (0, 0, 2 * sbs.output_layer, 0))), pos_conv.KERNEL: 2},
+         "SpeechBERTScore 16 x 60 s")
     t0 = time.perf_counter()
     cpu60 = pkg.SpeechBERTScore(params=sbs_params, device="cpu", attention_impl="sdpa")
     cpu_f1 = f1_of(cpu60(c60_np[:1], d60_np[:1]), 1)
@@ -1848,10 +1910,25 @@ def main() -> int:
     timing["FE"] = (lambda: fe_chain(lambda y, w_, p_: conv_gelu.conv_gelu(y, w_, "tanh", pieces=p_)),
                     fe_plain, fe_plain, fe_ops, fe_ops, fe_bytes)
 
+    # PC at mHuBERT-147's row chunk (the table's row; its other two shapes
+    # logged below): the least work is the float32 class on the bf16
+    # tensor cores, six bf16 products of 2 T d c_g 128 per row; the bytes x
+    # read and out written; the yardstick (and the plain version) cuDNN
+    # float32 with TF32 off and the stage's passes
+    def pc_timing(rows_, frames_, channels_, bn_):
+        x_, w_, b_, sc_, sh_, p_ = pc_inputs(dev, rows_, frames_, channels_, bn_)
+        ops_ = 6 * 2 * rows_ * frames_ * channels_ * (channels_ // 16) * pos_conv.WIDTH
+        plain_ = lambda: pos_conv._pos_conv_plain(x_, w_, b_, 16, sc_, sh_)  # noqa: E731
+        return (lambda: pos_conv.pos_conv(x_, w_, b_, 16, sc_, sh_, pieces=p_), plain_, plain_, ops_, ops_,
+                8 * rows_ * frames_ * channels_)
+
+    timing["PC"] = pc_timing(*PC_SHAPES[0])
+
     peaks = {"A7": PEAK_BF16_TC_FLOPS, "A8": PEAK_BF16_TC_FLOPS, "A9": PEAK_BF16_TC_FLOPS,
              "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS,
              "A9-f32": PEAK_BF16_TC_FLOPS, "A15-f32": PEAK_BF16_TC_FLOPS, "FE": PEAK_BF16_TC_FLOPS,
-             "RP": PEAK_BF16_TC_FLOPS, "RP-in": PEAK_BF16_TC_FLOPS, "RP-out": PEAK_BF16_TC_FLOPS}
+             "RP": PEAK_BF16_TC_FLOPS, "RP-in": PEAK_BF16_TC_FLOPS, "RP-out": PEAK_BF16_TC_FLOPS,
+             "PC": PEAK_BF16_TC_FLOPS}
     # the kernels' own algorithms on the bf16 tensor cores
     direct_peaks = {"A1": PEAK_BF16_TC_FLOPS, "A2": PEAK_BF16_TC_FLOPS, "A3": PEAK_BF16_TC_FLOPS,
                     "A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
@@ -1880,6 +1957,14 @@ def main() -> int:
                f"{chain_floor_ms(LAGS, sm_clock_hz):.4f} ms)"))
 
     del fe_x, fe_w, fe_pieces, rp_mask_built, rp_q, rp_k, rp_v
+    del timing, kern, plain, library  # their closures hold the kernels' operands
+    # PC at its other two shapes, one log line each
+    for shape in PC_SHAPES[1:]:
+        kern, plain, _, ops, _, nbytes = pc_timing(*shape)
+        log(f"PC {pos_conv.KERNEL} at {' x '.join(map(str, shape[:3]))}: {cuda_ms(kern):.4f} ms, device alone "
+            f"{cuda_ms(kern, warmup=0, busy=True):.4f} ms (bound {bound(ops, nbytes, PEAK_BF16_TC_FLOPS)[0]:.4f} "
+            f"ms by operations), plain (cuDNN float32 and the stage's passes) {cuda_ms(plain, warmup=1):.4f} ms")
+        del kern, plain
     # the GEMM of A7 and A8 alone at the layer's four products (M = 64 x 799),
     # against bf16 F.linear on the same operands (its bias in bf16; for W_1
     # followed by F.gelu), beside the least time of 2 M N K operations on
@@ -1963,6 +2048,9 @@ def main() -> int:
     # -- 6. the bench harness, 7. the mesh ------------------------------------------
     single = {"LSD": metrics["LSD"], "SDR": metrics["SDR"], "STOI": metrics["STOI"], "PESQ": pesq_m,
               "DNSMOS": dnsmos_m, "SpeechBERTScore": sbs}
+    # a graph capture allocates from a private pool, which cannot take the
+    # blocks the phases before left cached: release them to CUDA
+    torch.cuda.empty_cache()
     bench_harness_phase(results, single, clean_np, noisy_np)
     mesh_phase(pkg, results, single, sbs_params, clean_np, noisy_np)
 

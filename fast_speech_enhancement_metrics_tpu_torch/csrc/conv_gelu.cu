@@ -112,14 +112,6 @@ __device__ __forceinline__ void split3(float lo, float hi, uint32_t& w0, uint32_
   w2 = bits(__floats2bfloat162_rn(lo, hi));
 }
 
-// one contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from global to shared memory, counted on an mbarrier
-__device__ __forceinline__ void bulk_load(uint32_t dst, const float* src, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-               : "memory");
-}
-
 // torch's float GELUs: x / 2 (1 + erf(x / sqrt 2)) and x / 2 (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3)))
 template <int kGelu>
 __device__ __forceinline__ float gelu(float v) {

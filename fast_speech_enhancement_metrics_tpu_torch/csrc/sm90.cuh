@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the TMA / wgmma kernels (flash_sm90.cuh,
-// gemm_sm90.cuh, attn_block_int8.cu): mbarriers, TMA tensor loads and the host-side encoding
+// gemm_sm90.cuh, attn_block_int8.cu, conv_gelu.cu, pos_conv.cu): mbarriers, TMA tensor loads and
+// bulk copies, the host-side encoding
 // of their tensor maps, wgmma shared-memory descriptors and products, and
 // the setmaxnreg register hand-over of warp-specialized blocks.
 //
@@ -78,6 +79,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%2];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// one contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, counted on an mbarrier (TMA's bulk
+// copy: no tensor map)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+               ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
 }
 
 // -- warp specialization -----------------------------------------------------
@@ -198,6 +208,8 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, 
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
+// kTransB 0: B K-major (pos_conv.cu's weights), 1: MN-major (the default)
+template <int kTransB = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n"
@@ -206,13 +218,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
 // kTransB 0: B K-major (conv_gelu.cu's weights), 1: MN-major (the default)

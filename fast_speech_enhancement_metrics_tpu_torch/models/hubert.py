@@ -16,10 +16,12 @@ Parameters come in the JAX package's pytree layout (``init_params``,
 conv weights) and ``from_jax_params`` carries them into ``HubertEncoder``,
 which holds the conv weights transposed once to PyTorch's (out, in/groups,
 K). Every float32 conv runs with cuDNN's TF32 off and every float32 matmul
-without TF32, on the card as on the CPU, except the feature encoder's
-convs 1-6 on the card in float32: conv and GELU on one kernel
-(``ops/conv_gelu.py``, bf16x6 on the tensor cores, the float32 class),
-its weights' bf16 pieces cached beside the block operands.
+without TF32, on the card as on the CPU, except two stages on the card in
+float32, each on one kernel in bf16x6 on the tensor cores (the float32
+class), their weights' bf16 pieces cached beside the block operands: the
+feature encoder's convs 1-6, conv and GELU (``ops/conv_gelu.py``), and
+the positional conv with its BN affine, bias, GELU and residual
+(``ops/pos_conv.py``).
 
 ``attention_impl``: ``"einsum"`` (plain tensor ops, either softmax);
 ``"sdpa"``, ``"sdpa_exp2"``, ``"sdpa_exp2_bf16"`` (the attention itself on
@@ -57,7 +59,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from fast_speech_enhancement_metrics_tpu_torch import tracing
-from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, conv_gelu, relpos_attention, sdpa_pallas
+from fast_speech_enhancement_metrics_tpu_torch.ops import (
+    attn_block_pallas,
+    conv_gelu,
+    pos_conv,
+    relpos_attention,
+    sdpa_pallas,
+)
 from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import LOG2E
 
 
@@ -136,8 +144,8 @@ class HubertEncoder(nn.Module):
     """The encoder's parameters in the port's layout, built by
     ``from_jax_params``; run it with ``hubert_hidden_state``. Packed block
     operands for kernels A7/A8 and the conv weights' pieces for
-    ``conv_gelu`` are made on first use and kept per layer (and softmax
-    mode) and device."""
+    ``conv_gelu`` and ``pos_conv`` are made on first use and kept per layer
+    (and softmax mode) and device."""
 
     def __init__(self, params: dict, config: HubertConfig = MHUBERT_147_CONFIG):
         super().__init__()
@@ -197,6 +205,16 @@ class HubertEncoder(nn.Module):
         hit = self._packed.get(key)
         if hit is None:
             hit = self._packed[key] = conv_gelu.split_pieces(w)
+        return hit
+
+    def pos_pieces(self) -> torch.Tensor:
+        """The three bf16 pieces of the positional conv's weights, as the
+        pos_conv kernel reads them (``pos_conv.split_pieces``)."""
+        w = self.pos_conv["w"]
+        key = ("pos", str(w.device))
+        hit = self._packed.get(key)
+        if hit is None:
+            hit = self._packed[key] = pos_conv.split_pieces(w, self.config.num_conv_pos_embedding_groups)
         return hit
 
 
@@ -416,19 +434,15 @@ def hubert_hidden_state(
             x = _layer_norm(x, fp["ln_s"], fp["ln_b"], config.layer_norm_eps)
         x = torch.matmul(x, fp["w"].to(dt)) + fp["b"].to(dt)
 
+        # x + gelu(conv(bn(x)) + b), exact GELU, always: on the card in
+        # float32 one kernel where pos_conv.engages, else the plain steps
         pc = enc.pos_conv
-        pos_in = x
-        if "bn_scale" in pc:
-            pos_in = x * pc["bn_scale"].to(dt) + pc["bn_shift"].to(dt)
-        with _conv_flags():
-            pos = F.conv1d(
-                pos_in.transpose(1, 2), pc["w"].to(dt),
-                padding=config.num_conv_pos_embeddings // 2,
-                groups=config.num_conv_pos_embedding_groups,
-            ).transpose(1, 2)
-        if config.num_conv_pos_embeddings % 2 == 0:
-            pos = pos[:, :-1, :]
-        x = x + _gelu(pos + pc["b"].to(dt), "erf")  # exact GELU, always
+        groups = config.num_conv_pos_embedding_groups
+        bn = (pc["bn_scale"], pc["bn_shift"]) if "bn_scale" in pc else (None, None)
+        if pos_conv.engages(x.device.type, x.dtype, pos_conv.STRIDE, pc["w"].shape[2], x.shape[2], groups):
+            x = pos_conv.pos_conv(x, pc["w"], pc["b"], groups, *bn, pieces=enc.pos_pieces())
+        else:
+            x = pos_conv._pos_conv_plain(x, pc["w"], pc["b"], groups, *bn)
 
         enc_ln = enc.encoder_ln
         if not config.do_stable_layer_norm:

@@ -39,7 +39,7 @@ SOURCES = (
     "runtime.cu", "lsd_fused.cu", "sdr_corr_gram.cu", "levinson.cu", "stoi_fused.cu",
     "attn_block.cu", "sdpa.cu", "sdpa_f32.cu", "sdr_corr_fused.cu", "layer_block.cu",
     "attn_block_int8.cu", "levinson_flat.cu", "levinson_dotreduce.cu", "levinson_double.cu", "conv_gelu.cu",
-    "relpos_attn.cu",
+    "relpos_attn.cu", "pos_conv.cu",
 )
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -111,6 +111,9 @@ _SIGNATURES = {
     # (x, ctx, wo, bo, ln2 scale, ln2 shift, w1, b1, w2, b2, y, bf16 u,
     #  hidden, out, rows, width, ffn, eps, stream)
     "fsem_prenorm_out": (_P,) * 14 + (_I,) * 3 + (_F, _P),
+    # (x, bf16 weight pieces, bn scale or null, bn shift or null, bias, out,
+    #  batch, frames, channels, groups, stream)
+    "fsem_pos_conv": (_P,) * 6 + (_I,) * 4 + (_P,),
 }
 
 _lock = threading.Lock()

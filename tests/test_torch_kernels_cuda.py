@@ -24,6 +24,7 @@ from fast_speech_enhancement_metrics_tpu_torch.ops import (
     cuda_lib,
     levinson_pallas,
     lsd_fused,
+    pos_conv,
     relpos_attention,
     sdpa_pallas,
     sdr_corr_fused,
@@ -938,6 +939,105 @@ def test_feature_encoder_takes_conv_gelu_in_float32_only(dev, monkeypatch):
         monkeypatch.setattr(conv_gelu, "engages", lambda *args: False)
         want = hubert.feature_encoder(enc, audio, gelu="tanh")
     assert cuda_lib.launch_counts[conv_gelu.KERNEL] == before + 6
+    assert ((got - want).abs().max() / want.abs().max()).item() < 1e-5
+
+
+# -- the positional conv stage (pos_conv.cu) --
+
+
+def _pos_inputs(dev, rows, frames, channels, bn, seed=0):
+    """N(0, 1) activations, weights N(0, 1 / (128 c_g)) in 16 groups, bias
+    N(0, 0.01), BN scale 1 + N(0, 0.09) and shift N(0, 0.09) (or none)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cg = channels // 16
+    x = torch.randn(rows, frames, channels, device=dev, generator=g)
+    w = torch.randn(channels, cg, pos_conv.WIDTH, device=dev, generator=g) * (cg * pos_conv.WIDTH) ** -0.5
+    b = 0.1 * torch.randn(channels, device=dev, generator=g)
+    scale = 1 + 0.3 * torch.randn(channels, device=dev, generator=g) if bn else None
+    shift = 0.3 * torch.randn(channels, device=dev, generator=g) if bn else None
+    return x, w, b, scale, shift
+
+
+def _check_pos_conv(dev, rows, frames, channels, bn):
+    """Against a float64 stage, max |err| over max |ref| at most twice
+    cuDNN float32's (TF32 off, the stage's passes) on the same inputs; a
+    second launch bit-equal; one launch counted each."""
+    x, w, b, scale, shift = _pos_inputs(dev, rows, frames, channels, bn)
+    pieces = pos_conv.split_pieces(w, 16)
+    before = cuda_lib.launch_counts[pos_conv.KERNEL]
+    got = pos_conv.pos_conv(x, w, b, 16, scale, shift, pieces=pieces)
+    again = pos_conv.pos_conv(x, w, b, 16, scale, shift, pieces=pieces)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts[pos_conv.KERNEL] == before + 2
+    assert got.shape == x.shape and torch.equal(got, again)
+    pos_in = x if scale is None else x * scale + shift
+    conv = torch.nn.functional.conv1d(pos_in.double().transpose(1, 2), w.double(), padding=pos_conv.WIDTH // 2,
+                                      groups=16)
+    want = x.double() + torch.nn.functional.gelu(conv.transpose(1, 2)[:, :-1] + b.double())
+    library = pos_conv._pos_conv_plain(x, w, b, 16, scale, shift)
+    top = want.abs().max()
+    err = ((got.double() - want).abs().max() / top).item()
+    err_library = ((library.double() - want).abs().max() / top).item()
+    assert err <= 2 * err_library, (err, err_library)
+
+
+@pytest.mark.parametrize("frames", [1, 2, 37, 64, 65, 256, 257, 300])
+@pytest.mark.parametrize("bn", [True, False])
+@pytest.mark.parametrize("channels", [768, 1024])
+def test_pos_conv_kernel_against_float64(dev, channels, bn, frames):
+    _check_pos_conv(dev, 2, frames, channels, bn)
+
+
+@pytest.mark.parametrize("rows,frames,channels,bn", [(64, 799, 768, True), (64, 799, 1024, False),
+                                                     (16, 2999, 768, True), (3, 799, 1024, True)])
+def test_pos_conv_kernel_main_shapes(dev, rows, frames, channels, bn):
+    """The SpeechBERTScore cells' row chunks: mHuBERT-147 at 16 s (BN),
+    WavLM-Large, mHuBERT-147 at 60 s."""
+    _check_pos_conv(dev, rows, frames, channels, bn)
+
+
+@pytest.mark.parametrize("which,seconds", [("mhubert", 1.0), ("wavlm", 1.0), ("mhubert", 60.0)])
+def test_speechbertscore_launches_pos_conv_once_a_row_chunk(dev, monkeypatch, which, seconds):
+    """Each SpeechBERTScore configuration through the public call: one PC
+    launch a row chunk (two chunks here), F1 within 1e-4 of the cuDNN stage;
+    bf16 activations launch none."""
+    config = hubert.WAVLM_LARGE_CONFIG if which == "wavlm" else hubert.MHUBERT_147_CONFIG
+    layer = 14 if which == "wavlm" else 8
+    params = init_params(torch.Generator().manual_seed(0), config)
+    params["layers"] = params["layers"][:layer]
+    pairs = 2 if seconds > 1 else 4
+    clean, noisy, _ = load_audio_data(seconds, pairs, 16000)
+    kw = dict(params=params, config=config, output_layer=layer, device=dev, batch_chunk=pairs)
+    before = cuda_lib.launch_counts[pos_conv.KERNEL]
+    got = np.array([r["SpeechBERTScore"] for r in SpeechBERTScore(**kw)(clean, noisy)])
+    assert cuda_lib.launch_counts[pos_conv.KERNEL] == before + 2
+    SpeechBERTScore(act_dtype=torch.bfloat16, **kw)(clean, noisy)
+    assert cuda_lib.launch_counts[pos_conv.KERNEL] == before + 2
+    monkeypatch.setattr(pos_conv, "engages", lambda *args: False)
+    want = np.array([r["SpeechBERTScore"] for r in SpeechBERTScore(**kw)(clean, noisy)])
+    assert cuda_lib.launch_counts[pos_conv.KERNEL] == before + 2
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_hidden_state_takes_pos_conv_in_float32_only(dev, monkeypatch):
+    """mHuBERT-147's encoder output before the layers on the card: one
+    launch in float32, within its float32 class of the cuDNN stage; none
+    with bf16 activations."""
+    params = init_params(torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    params["pos_conv"]["bn_scale"] = (1 + 0.3 * rs.randn(768)).astype(np.float32)
+    params["pos_conv"]["bn_shift"] = (0.3 * rs.randn(768)).astype(np.float32)
+    enc = hubert.from_jax_params(params).to(dev)
+    audio = _audio(dev, rows=2, t=16000)[0]
+    before = cuda_lib.launch_counts[pos_conv.KERNEL]
+    with torch.inference_mode():
+        got = hubert.hubert_hidden_state(enc, audio, output_layer=0)
+        assert cuda_lib.launch_counts[pos_conv.KERNEL] == before + 1
+        hubert.hubert_hidden_state(enc, audio, output_layer=0, act_dtype=torch.bfloat16)
+        assert cuda_lib.launch_counts[pos_conv.KERNEL] == before + 1
+        monkeypatch.setattr(pos_conv, "engages", lambda *args: False)
+        want = hubert.hubert_hidden_state(enc, audio, output_layer=0)
+    assert cuda_lib.launch_counts[pos_conv.KERNEL] == before + 1
     assert ((got - want).abs().max() / want.abs().max()).item() < 1e-5
 
 
