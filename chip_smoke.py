@@ -526,6 +526,7 @@ def main() -> int:
         cuda_lib,
         levinson_pallas,
         lsd_fused,
+        numerics,
         pos_conv,
         relpos_attention,
         sdpa_pallas,
@@ -1197,7 +1198,7 @@ def main() -> int:
         got = conv_gelu.conv_gelu(x_, w_, "tanh", pieces=p_)
         x_ = conv_gelu._conv_gelu_plain(x_, w_, "tanh")
         worst = max(worst, ((got - x_).abs().max() / x_.abs().max()).item())
-    want64 = conv_gelu._gelu(torch.nn.functional.conv1d(fe_x[:2].double(), fe_w[0].double(), stride=2), "tanh")
+    want64 = numerics.gelu(torch.nn.functional.conv1d(fe_x[:2].double(), fe_w[0].double(), stride=2), "tanh")
 
     def from64(y):
         return ((y.double() - want64).abs().max() / want64.abs().max()).item()

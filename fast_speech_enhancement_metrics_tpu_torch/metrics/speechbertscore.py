@@ -41,7 +41,7 @@ from fast_speech_enhancement_metrics_tpu_torch.models.hubert import (
     from_jax_params,
     hubert_hidden_state,
 )
-from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import MAX_HEAD_DIM
+from fast_speech_enhancement_metrics_tpu_torch.ops.numerics import MAX_HEAD_DIM
 from fast_speech_enhancement_metrics_tpu_torch.parallel.mesh import axis_size
 from fast_speech_enhancement_metrics_tpu_torch.parallel.sharding import shard_params
 

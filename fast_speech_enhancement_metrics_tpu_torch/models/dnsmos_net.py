@@ -9,7 +9,7 @@ three 2x2 max-pools, global max over all (time, freq) positions, and a
 Activations are NCHW with H = time and W = frequency (the JAX package's are
 NHWC), so its time-axis slices ``x[:, t0:t1, :, :]`` are ``x[:, :, t0:t1, :]``
 here. Convolutions are ``F.conv2d`` with ``padding=1`` ("SAME" for 3x3),
-under cuDNN with TF32 off (``models/hubert.py::_conv_flags``): a float32
+under cuDNN with TF32 off (``ops/numerics.py::conv_flags``): a float32
 conv is float32 on the card as on the CPU. The learned STFT and the output
 MLP always run in float32.
 
@@ -38,8 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from fast_speech_enhancement_metrics_tpu_torch import tracing
-from fast_speech_enhancement_metrics_tpu_torch.models.hubert import _conv_flags
+from fast_speech_enhancement_metrics_tpu_torch.ops import numerics
 from fast_speech_enhancement_metrics_tpu_torch.utils.convert_dnsmos import npz_to_torch_layout
+
+#: cuDNN's flags around the trunk's convs (TF32 off), looked up at each use
+_conv_flags = numerics.conv_flags
 
 DEFAULT_CHECKPOINT = Path(__file__).parent.parent / "checkpoints" / "dnsmos_sig_bak_ovr.npz"
 

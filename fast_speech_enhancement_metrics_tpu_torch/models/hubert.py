@@ -62,11 +62,12 @@ from fast_speech_enhancement_metrics_tpu_torch import tracing
 from fast_speech_enhancement_metrics_tpu_torch.ops import (
     attn_block_pallas,
     conv_gelu,
+    numerics,
     pos_conv,
     relpos_attention,
     sdpa_pallas,
 )
-from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import LOG2E
+from fast_speech_enhancement_metrics_tpu_torch.ops.numerics import LOG2E
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,22 +119,8 @@ RELPOS_IMPL = "relpos_block"
 ATTENTION_IMPLS = ("einsum",) + KERNEL_ATTENTION_IMPLS + BLOCK_IMPLS + (RELPOS_IMPL,)
 
 
-def _conv_flags():
-    """cuDNN on, TF32 off: float32 convs stay float32 on the card."""
-    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
-
-
-def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
-    """LayerNorm over the last axis: fp32 statistics, result in x's dtype."""
-    xf = x.float()
-    mean = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
-    out = (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
-    return out.to(x.dtype)
-
-
-def _gelu(x: torch.Tensor, gelu: str) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh" if gelu == "tanh" else "none")
+#: cuDNN's flags around every float32 conv (TF32 off), looked up at each use
+_conv_flags = numerics.conv_flags
 
 
 def _param(a) -> nn.Parameter:
@@ -172,50 +159,41 @@ class HubertEncoder(nn.Module):
         self._packed.clear()  # packed operands follow the parameters' device
         return super()._apply(fn, recurse)
 
+    def _cached(self, key: tuple, make):
+        """``self._packed[key]``, made by ``make()`` on first use."""
+        hit = self._packed.get(key)
+        if hit is None:
+            hit = self._packed[key] = make()
+        return hit
+
     def packed_blocks(self, i: int, softmax: str, quant: str | None = None) -> tuple:
         """(attention-block operands, A8 operands) of layer i; ``quant="int8"``
         gives A12's int8 attention operands."""
         p = self.layers[i]
-        key = (i, softmax, quant, str(p["q_w"].device))
-        hit = self._packed.get(key)
-        if hit is None:
-            heads = self.config.num_attention_heads
-            hit = (
-                attn_block_pallas.pack_attn_block_params(p, heads, softmax, quant),
-                attn_block_pallas.pack_ffn_block_params(p),
-            )
-            self._packed[key] = hit
-        return hit
+        return self._cached((i, softmax, quant, str(p["q_w"].device)), lambda: (
+            attn_block_pallas.pack_attn_block_params(p, self.config.num_attention_heads, softmax, quant),
+            attn_block_pallas.pack_ffn_block_params(p),
+        ))
 
     def packed_prenorm(self, i: int, softmax: str) -> tuple:
         """Layer i's operands of the pre-LN relative-position route
         (``relpos_attention.pack_prenorm_layer``)."""
         p = self.layers[i]
-        key = ("prenorm", i, softmax, str(p["q_w"].device))
-        hit = self._packed.get(key)
-        if hit is None:
-            hit = self._packed[key] = relpos_attention.pack_prenorm_layer(p, self.config.num_attention_heads, softmax)
-        return hit
+        return self._cached(("prenorm", i, softmax, str(p["q_w"].device)),
+                            lambda: relpos_attention.pack_prenorm_layer(p, self.config.num_attention_heads, softmax))
 
     def conv_pieces(self, i: int) -> torch.Tensor:
         """The three bf16 pieces of conv layer i's weights, as the conv_gelu
         kernel reads them (``conv_gelu.split_pieces``)."""
         w = self.feature_encoder[i]["w"]
-        key = ("conv", i, str(w.device))
-        hit = self._packed.get(key)
-        if hit is None:
-            hit = self._packed[key] = conv_gelu.split_pieces(w)
-        return hit
+        return self._cached(("conv", i, str(w.device)), lambda: conv_gelu.split_pieces(w))
 
     def pos_pieces(self) -> torch.Tensor:
         """The three bf16 pieces of the positional conv's weights, as the
         pos_conv kernel reads them (``pos_conv.split_pieces``)."""
         w = self.pos_conv["w"]
-        key = ("pos", str(w.device))
-        hit = self._packed.get(key)
-        if hit is None:
-            hit = self._packed[key] = pos_conv.split_pieces(w, self.config.num_conv_pos_embedding_groups)
-        return hit
+        return self._cached(("pos", str(w.device)),
+                            lambda: pos_conv.split_pieces(w, self.config.num_conv_pos_embedding_groups))
 
 
 def from_jax_params(params_np: dict, config: HubertConfig = MHUBERT_147_CONFIG) -> HubertEncoder:
@@ -254,9 +232,9 @@ def feature_encoder(enc: HubertEncoder, audio: torch.Tensor, gelu: str = "erf") 
                 xf = (xf - mean) * torch.rsqrt(var + config.layer_norm_eps)
                 x = (xf * layer["norm_scale"].float()[:, None] + layer["norm_bias"].float()[:, None]).to(x.dtype)
             elif config.feat_extract_norm == "layer":
-                x = _layer_norm(x.transpose(1, 2), layer["norm_scale"], layer["norm_bias"],
-                                config.layer_norm_eps).transpose(1, 2)
-            x = _gelu(x, gelu)
+                x = numerics.layer_norm(x.transpose(1, 2), layer["norm_scale"], layer["norm_bias"],
+                                        config.layer_norm_eps).transpose(1, 2)
+            x = numerics.gelu(x, gelu)
         return x.transpose(1, 2)
 
 
@@ -344,7 +322,7 @@ def _ffn(p, x: torch.Tensor, gelu: str, tp_group=None) -> torch.Tensor:
     """The FFN; under ``tp_group``, this rank's ``ff_w1`` columns and
     ``ff_w2`` rows, all-reduced before ``ff_b2``."""
     dt = x.dtype
-    h = _gelu(torch.matmul(x, p["ff_w1"].to(dt)) + p["ff_b1"].to(dt), gelu)
+    h = numerics.gelu(torch.matmul(x, p["ff_w1"].to(dt)) + p["ff_b1"].to(dt), gelu)
     return _row_sharded(h, p["ff_w2"], p["ff_b2"], tp_group)
 
 
@@ -372,9 +350,9 @@ def _encoder_layer(
             return relpos_attention.prenorm_layer(x, enc.packed_prenorm(i, softmax), rel, heads, eps, softmax, gelu)
         if attention_impl in BLOCK_IMPLS:
             raise ValueError(f"pre-LN layers have no block path, got {attention_impl!r}")
-        h = _layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
+        h = numerics.layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
         x = x + _attention(p, h, heads, softmax, attention_impl, bf16_kernel, tp_group, rel)
-        return x + _ffn(p, _layer_norm(x, p["ln2_s"], p["ln2_b"], eps), gelu, tp_group)
+        return x + _ffn(p, numerics.layer_norm(x, p["ln2_s"], p["ln2_b"], eps), gelu, tp_group)
     if rel is not None:
         raise ValueError("the relative-position bias is WavLM's, whose layers are pre-LN")
     if attention_impl == "layer_block" and gelu == "tanh":
@@ -390,9 +368,9 @@ def _encoder_layer(
         if attention_impl == "block_ffn" and (gelu == "tanh" or x.device.type == "cpu"):
             return attn_block_pallas.ffn_block(x, ffn_ops, eps, gelu=gelu)
     else:
-        x = _layer_norm(x + _attention(p, x, heads, softmax, attention_impl, bf16_kernel, tp_group),
-                        p["ln1_s"], p["ln1_b"], eps)
-    return _layer_norm(x + _ffn(p, x, gelu, tp_group), p["ln2_s"], p["ln2_b"], eps)
+        x = numerics.layer_norm(x + _attention(p, x, heads, softmax, attention_impl, bf16_kernel, tp_group),
+                                p["ln1_s"], p["ln1_b"], eps)
+    return numerics.layer_norm(x + _ffn(p, x, gelu, tp_group), p["ln2_s"], p["ln2_b"], eps)
 
 
 def hubert_hidden_state(
@@ -431,7 +409,7 @@ def hubert_hidden_state(
     with tracing.span("fsem.hubert.pos_conv"):
         fp = enc.feature_projection
         if config.feat_proj_layer_norm:
-            x = _layer_norm(x, fp["ln_s"], fp["ln_b"], config.layer_norm_eps)
+            x = numerics.layer_norm(x, fp["ln_s"], fp["ln_b"], config.layer_norm_eps)
         x = torch.matmul(x, fp["w"].to(dt)) + fp["b"].to(dt)
 
         # x + gelu(conv(bn(x)) + b), exact GELU, always: on the card in
@@ -447,7 +425,7 @@ def hubert_hidden_state(
         enc_ln = enc.encoder_ln
         if not config.do_stable_layer_norm:
             # post-LN stack: the encoder LayerNorm applies before the layers
-            x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
+            x = numerics.layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
     rel = None
     if config.relative_position_bias:
         # WavLM: the offset vector of layer 0's bucket table, made once for
@@ -461,7 +439,7 @@ def hubert_hidden_state(
                                bf16_kernel=precision in (None, "default"), tp_group=tp_group, rel=rel)
     if config.do_stable_layer_norm and output_layer == config.num_hidden_layers:
         # pre-LN stack: the encoder LayerNorm applies after the final layer
-        x = _layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
+        x = numerics.layer_norm(x, enc_ln["s"], enc_ln["b"], config.layer_norm_eps)
     return x.float() if act_dtype is not None else x
 
 

@@ -39,11 +39,13 @@ from __future__ import annotations
 
 import torch
 
-from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
-from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import (
+from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib, numerics
+from fast_speech_enhancement_metrics_tpu_torch.ops.numerics import (
     LOG2E,
     MAX_HEAD_DIM,
     SOFTMAX_MODES,
+    dot,
+    layer_norm,
     round_bf16,
     softmax_p,
 )
@@ -57,11 +59,6 @@ KERNEL_GEMM_I8 = "gemm_i8"
 #: epilogues of ``gemm``: bf16(acc + bias), bf16(gelu_tanh(acc + bias)), acc + bias in fp32
 GEMM_EPILOGUES = ("bf16", "gelu_bf16", "f32")
 QUANT_MODES = (None, "int8")
-
-
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16-valued operands, fp32 accumulation (exact products, fp32 sums)."""
-    return torch.matmul(round_bf16(a), round_bf16(b))
 
 
 #: 1 / 127 rounded to fp32. Inside the JAX kernel XLA's algebraic
@@ -157,27 +154,19 @@ def pack_ffn_block_params(p: dict) -> tuple:
     )
 
 
-def _residual_ln(y: torch.Tensor, xb: torch.Tensor, s: torch.Tensor, b: torch.Tensor, eps: float):
-    r = y + xb
-    mean = torch.mean(r, dim=-1, keepdim=True)
-    cen = r - mean
-    var = torch.mean(cen * cen, dim=-1, keepdim=True)
-    return cen * torch.rsqrt(var + eps) * s + b
-
-
 def _attn_block_plain(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softmax: str) -> torch.Tensor:
     """Plain PyTorch version of kernel A7."""
     wqkv, bqkv, wo, bo, lns, lnb = packed
     b, t, d = x.shape
     hd = d // num_heads
     xb = round_bf16(x)
-    qkv = round_bf16(_dot(xb, wqkv.float()) + bqkv)  # (b, t, 3d)
+    qkv = round_bf16(dot(xb, wqkv.float()) + bqkv)  # (b, t, 3d)
     q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, t, num_heads, hd).transpose(1, 2) for i in range(3))
     p = softmax_p(torch.matmul(q, k.transpose(-1, -2)), softmax)  # of the (b, h, t, t) fp32 logits
     l = torch.sum(p, dim=-1, keepdim=True)
     ctx = round_bf16(torch.matmul(round_bf16(p), v) / l)  # (b, h, t, hd)
     ctx = ctx.transpose(1, 2).reshape(b, t, d)
-    return _residual_ln(_dot(ctx, wo.float()) + bo, xb, lns, lnb, eps).to(x.dtype)
+    return layer_norm(dot(ctx, wo.float()) + bo + xb, lns, lnb, eps).to(x.dtype)
 
 
 def _v_scales(v: torch.Tensor, b_v: torch.Tensor, t: int) -> torch.Tensor:
@@ -222,19 +211,15 @@ def _attn_block_int8_plain(x: torch.Tensor, packed: tuple, num_heads: int, eps: 
     ctx = _dot_i8(pq, torch.round(v / sv)) * INV_127 * sv  # (b, h, t, hd)
     cq, sc = _quant_rows(ctx.transpose(1, 2).reshape(b, t, d))
     out = _dot_i8(cq, wo_t.t().float()) * sc * bo2[1] + bo2[0]
-    return _residual_ln(out, xb, lns, lnb, eps).to(x.dtype)
-
-
-def _gelu(h: torch.Tensor, gelu: str) -> torch.Tensor:
-    return torch.nn.functional.gelu(h, approximate="tanh" if gelu == "tanh" else "none")
+    return layer_norm(out + xb, lns, lnb, eps).to(x.dtype)
 
 
 def _ffn_block_plain(x: torch.Tensor, packed: tuple, eps: float, gelu: str) -> torch.Tensor:
     """Plain PyTorch version of kernel A8 (either GELU)."""
     w1, b1, w2, b2, lns, lnb = packed
     xb = round_bf16(x)
-    h = round_bf16(_gelu(_dot(xb, w1.float()) + b1, gelu))
-    return _residual_ln(_dot(h, w2.float()) + b2, xb, lns, lnb, eps).to(x.dtype)
+    h = round_bf16(numerics.gelu(dot(xb, w1.float()) + b1, gelu))
+    return layer_norm(dot(h, w2.float()) + b2 + xb, lns, lnb, eps).to(x.dtype)
 
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
@@ -292,7 +277,6 @@ def _attn_block_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: float,
         _head_pad(x, rows, t, num_heads, hd), out,
         rows, t, d, num_heads, SOFTMAX_MODES.index(softmax), bf, eps,
     )
-    cuda_lib.launch_counts[KERNEL_A7] += 1
     return out
 
 
@@ -313,15 +297,14 @@ def _ffn_block_cuda(x: torch.Tensor, packed: tuple, eps: float, gelu: str) -> to
     bf = int(x.dtype == torch.bfloat16)
     cuda_lib.launch(KERNEL_A8, dev, x, w1, b1, w2, b2, lns, lnb, _bf16_copy(x, m, d), hidden, y, out, m, d, ffn, bf,
                     eps)
-    cuda_lib.launch_counts[KERNEL_A8] += 1
     return out
 
 
 def _gemm_plain(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, epilogue: str) -> torch.Tensor:
     """Plain PyTorch version of the GEMM kernel of A7 and A8."""
-    c = _dot(a, b.float()) + bias
+    c = dot(a, b.float()) + bias
     if epilogue == "gelu_bf16":
-        c = _gelu(c, "tanh")
+        c = numerics.gelu(c, "tanh")
     return c if epilogue == "f32" else c.to(torch.bfloat16)
 
 
@@ -332,10 +315,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, epilogue: str = "
     fp32; on the card K and N multiples of 8."""
     if epilogue not in GEMM_EPILOGUES:
         raise ValueError(f"epilogue must be one of {GEMM_EPILOGUES}, got {epilogue!r}")
-    if a.device.type == "cpu":
-        return _gemm_plain(a, b, bias, epilogue)
-    if a.device.type != "cuda":
-        raise ValueError(f"no GEMM kernel for device {a.device}")
+    return cuda_lib.dispatch("GEMM kernel", a.device, _gemm_plain, _gemm_cuda, a, b, bias, epilogue)
+
+
+def _gemm_cuda(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, epilogue: str) -> torch.Tensor:
     cuda_lib.check_operand(a, "a", a.device, torch.bfloat16, 2)
     cuda_lib.check_operand(b, "b", a.device, torch.bfloat16, 2)
     cuda_lib.check_operand(bias, "bias", a.device, torch.float32, 1)
@@ -346,7 +329,6 @@ def gemm(a: torch.Tensor, b: torch.Tensor, bias: torch.Tensor, epilogue: str = "
                          f"got {tuple(a.shape)} x {tuple(b.shape)}, bias {tuple(bias.shape)}")
     c = torch.empty(m, n, device=a.device, dtype=torch.float32 if epilogue == "f32" else torch.bfloat16)
     cuda_lib.launch(KERNEL_GEMM, a.device, a, b, bias, c, m, n, k, GEMM_EPILOGUES.index(epilogue))
-    cuda_lib.launch_counts[KERNEL_GEMM] += 1
     return c
 
 
@@ -379,7 +361,6 @@ def _attn_block_int8_cuda(x: torch.Tensor, packed: tuple, num_heads: int, eps: f
         KERNEL_A12, dev, x, wq_t, bq2, wo_t, bo2, lns, lnb, xq, s_row, qkv, qk_q, s_qk, s_v, vt, ctx, y, out,
         rows, t, d, num_heads, SOFTMAX_MODES.index(softmax), bf, eps,
     )
-    cuda_lib.launch_counts[KERNEL_A12] += 1
     return out
 
 
@@ -395,10 +376,11 @@ def gemm_i8(a: torch.Tensor, b_t: torch.Tensor, sa: torch.Tensor, sb: torch.Tens
     sb[n] + bias[n], each step rounded to fp32 in that order. a (M, K) and
     b_t (N, K) int8 (the (out, in) layout of the int8 packing), sa (M,), sb
     and bias (N,) fp32; on the card K % 16 == 0 and N % 8 == 0."""
-    if a.device.type == "cpu":
-        return _gemm_i8_plain(a, b_t, sa, sb, bias)
-    if a.device.type != "cuda":
-        raise ValueError(f"no int8 GEMM kernel for device {a.device}")
+    return cuda_lib.dispatch("int8 GEMM kernel", a.device, _gemm_i8_plain, _gemm_i8_cuda, a, b_t, sa, sb, bias)
+
+
+def _gemm_i8_cuda(a: torch.Tensor, b_t: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor,
+                  bias: torch.Tensor) -> torch.Tensor:
     for t_, what, dtype, ndim in ((a, "a", torch.int8, 2), (b_t, "b_t", torch.int8, 2), (sa, "sa", torch.float32, 1),
                                   (sb, "sb", torch.float32, 1), (bias, "bias", torch.float32, 1)):
         cuda_lib.check_operand(t_, what, a.device, dtype, ndim)
@@ -410,7 +392,6 @@ def gemm_i8(a: torch.Tensor, b_t: torch.Tensor, sa: torch.Tensor, sb: torch.Tens
                          f"bias {tuple(bias.shape)}")
     c = torch.empty(m, n, device=a.device, dtype=torch.float32)
     cuda_lib.launch(KERNEL_GEMM_I8, a.device, a, b_t, sa, sb, bias, c, m, n, k)
-    cuda_lib.launch_counts[KERNEL_GEMM_I8] += 1
     return c
 
 
@@ -423,24 +404,16 @@ def attn_block(x: torch.Tensor, packed: tuple, num_heads: int, eps: float, softm
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
     if quant not in QUANT_MODES:
         raise ValueError(f"quant must be one of {QUANT_MODES}, got {quant!r}")
-    if x.device.type == "cpu":
-        plain = _attn_block_int8_plain if quant == "int8" else _attn_block_plain
-        return plain(x, packed, num_heads, eps, softmax)
-    if x.device.type != "cuda":
-        raise ValueError(f"no attention-block kernel for device {x.device}")
-    cuda = _attn_block_int8_cuda if quant == "int8" else _attn_block_cuda
-    return cuda(x, packed, num_heads, eps, softmax)
+    int8 = quant == "int8"
+    return cuda_lib.dispatch("attention-block kernel", x.device, _attn_block_int8_plain if int8 else _attn_block_plain,
+                             _attn_block_int8_cuda if int8 else _attn_block_cuda, x, packed, num_heads, eps, softmax)
 
 
 def ffn_block(x: torch.Tensor, packed: tuple, eps: float, gelu: str = "tanh") -> torch.Tensor:
     """Kernel A8 wrapper: y = LN(x + FFN(x)) over (rows, T, d), in x's dtype.
     ``packed`` is ``pack_ffn_block_params(p)``. The kernel is tanh-GELU only;
     the plain version also takes ``gelu="erf"``."""
-    if x.device.type == "cpu":
-        return _ffn_block_plain(x, packed, eps, gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"no FFN-block kernel for device {x.device}")
-    return _ffn_block_cuda(x, packed, eps, gelu)
+    return cuda_lib.dispatch("FFN-block kernel", x.device, _ffn_block_plain, _ffn_block_cuda, x, packed, eps, gelu)
 
 
 def _layer_block_plain(x: torch.Tensor, attn_packed: tuple, ffn_packed: tuple, num_heads: int, eps: float,
@@ -476,7 +449,6 @@ def _layer_block_cuda(x: torch.Tensor, attn_packed: tuple, ffn_packed: tuple, nu
         _head_pad(x, rows, t, num_heads, d // num_heads), out,
         rows, t, d, num_heads, ffn, SOFTMAX_MODES.index(softmax), int(x.dtype == bf), eps,
     )
-    cuda_lib.launch_counts[KERNEL_A11] += 1
     return out
 
 
@@ -489,8 +461,5 @@ def layer_block(x: torch.Tensor, attn_packed: tuple, ffn_packed: tuple, num_head
     version also takes ``gelu="erf"``."""
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
-    if x.device.type == "cpu":
-        return _layer_block_plain(x, attn_packed, ffn_packed, num_heads, eps, softmax, gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"no layer kernel for device {x.device}")
-    return _layer_block_cuda(x, attn_packed, ffn_packed, num_heads, eps, softmax, gelu)
+    return cuda_lib.dispatch("layer kernel", x.device, _layer_block_plain, _layer_block_cuda, x, attn_packed,
+                             ffn_packed, num_heads, eps, softmax, gelu)

@@ -8,9 +8,11 @@ flags, so an edited source is rebuilt and a built one is reused. The build
 directory (``_build/`` in the package) is generated and not tracked.
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; ``launch`` raises if that is not 0. Each wrapper in
-``ops/`` counts its launches in ``launch_counts`` under its own name: the
-counter lives with the port's other spans and counters in ``tracing.py``.
+``cudaGetLastError()``; ``launch`` raises if that is not 0, and else adds
+one to ``launch_counts`` under the kernel's name (the counter lives with
+the port's other spans and counters in ``tracing.py``). ``dispatch`` is the
+wrappers' device rule: a CPU tensor takes the plain version, a CUDA tensor
+the kernel, and any other device raises.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from fast_speech_enhancement_metrics_tpu_torch.tracing import launch_counts  # noqa: F401  (the wrappers' counter)
+from fast_speech_enhancement_metrics_tpu_torch.tracing import launch_counts
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -206,12 +208,14 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call C entry point ``fsem_<name>`` on ``device``'s current stream.
+def launch(name: str, device: torch.device, *args, count: str | None = None) -> None:
+    """Call C entry point ``fsem_<name>`` on ``device``'s current stream and
+    add one to ``launch_counts[count]`` (``count`` defaults to ``name``; a
+    wrapper passes it where one entry point serves several kernels).
 
     ``args`` are the entry point's arguments before the stream: tensors
     (passed as device pointers), ints and floats. Raises ``RuntimeError``
-    when the launch reports an error.
+    when the launch reports an error, and then counts nothing.
     """
     lib = _library()
     fn = getattr(lib, f"fsem_{name}")
@@ -222,6 +226,18 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.fsem_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+    launch_counts[count or name] += 1
+
+
+def dispatch(what: str, device: torch.device, plain, kernel, *args):
+    """The wrappers' device rule: ``plain(*args)`` on a CPU device,
+    ``kernel(*args)`` on a CUDA device; any other device raises
+    ``ValueError("no <what> for device <device>")``."""
+    if device.type == "cpu":
+        return plain(*args)
+    if device.type != "cuda":
+        raise ValueError(f"no {what} for device {device}")
+    return kernel(*args)
 
 
 def check_operand(t: torch.Tensor, what: str, device: torch.device, dtype: torch.dtype, ndim: int) -> None:

@@ -240,8 +240,7 @@ def _levinson_solve_cuda(r0: torch.Tensor, b: torch.Tensor, variant: str) -> tor
     if batch == 0:
         raise ValueError("need at least one row")
     x = torch.empty_like(r0)
-    cuda_lib.launch("levinson_solve", dev, r0, b, x, batch, n, VARIANTS.index(variant))
-    cuda_lib.launch_counts[KERNELS[variant]] += 1
+    cuda_lib.launch(KERNEL, dev, r0, b, x, batch, n, VARIANTS.index(variant), count=KERNELS[variant])
     return x
 
 
@@ -255,8 +254,5 @@ def levinson_solve_fused(r0: torch.Tensor, b: torch.Tensor, variant: str = "vpu"
     assert r0.ndim == 2 and b.shape == r0.shape
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
-    if r0.device.type == "cpu":
-        return _plain(variant)(r0, b)
-    if r0.device.type != "cuda":
-        raise ValueError(f"no Levinson kernel for device {r0.device}")
-    return _levinson_solve_cuda(r0, b, variant)
+    return cuda_lib.dispatch("Levinson kernel", r0.device, lambda: _plain(variant)(r0, b),
+                             lambda: _levinson_solve_cuda(r0, b, variant))

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
 from fast_speech_enhancement_metrics_tpu_torch.ops.dft import _chunk_rdft_matrix_packed
+from fast_speech_enhancement_metrics_tpu_torch.ops.numerics import split3
 from fast_speech_enhancement_metrics_tpu_torch.ops.stft import device_table
 
 KERNEL = "lsd_wholesig_raw"  # A1
@@ -380,16 +381,6 @@ def _lsd_wholesig_ct_plain(
     return torch.mean(_frame_lsd(_ct_frame_powers(c), _ct_frame_powers(d), eps), dim=-1)
 
 
-def _pieces(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Three bf16 pieces of a float32 tensor, rounded to nearest even: x0 =
-    bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) (both differences
-    exact in float32)."""
-    x0 = x.to(torch.bfloat16)
-    r = x - x0.float()
-    x1 = r.to(torch.bfloat16)
-    return x0, x1, (r - x1.float()).to(torch.bfloat16)
-
-
 @functools.lru_cache(maxsize=None)
 def _tile_table() -> np.ndarray:
     """(5 x 128, 256) float32: the frame-tile kernel's chunk-DFT table, built
@@ -408,7 +399,7 @@ def _tile_table() -> np.ndarray:
 @functools.lru_cache(maxsize=None)
 def _tile_table_pieces_bits() -> np.ndarray:
     """(3, 640, 256) int16: the bits of ``_tile_table``'s three bf16 pieces."""
-    return torch.stack(_pieces(torch.from_numpy(_tile_table()))).contiguous().view(torch.int16).numpy()
+    return torch.stack(split3(torch.from_numpy(_tile_table()))).contiguous().view(torch.int16).numpy()
 
 
 def _tile_table_pieces(device: torch.device | str = "cpu") -> torch.Tensor:
@@ -446,7 +437,7 @@ def _split_pieces_plain(
         denoised = denoised * scale
     planes = []
     for x in (clean, denoised):
-        planes += _pieces(F.pad(x.float(), (0, row_len - x.shape[-1])))
+        planes += split3(F.pad(x.float(), (0, row_len - x.shape[-1])))
     return torch.stack(planes)
 
 
@@ -460,21 +451,27 @@ def split_pieces(
     tensors take the plain version; on a CUDA tensor the kernel
     (``csrc/sdr_halves.cuh``, ``halves::split<3>``)."""
     assert clean.ndim == 2 and clean.shape == denoised.shape and row_len >= clean.shape[1] and row_len % 8 == 0
-    if clean.device.type == "cpu":
+
+    def plain():
         partial = None if eps is None else _scale_partials_plain(clean, denoised)
         scale = None if partial is None else _scale_from_partials(partial, eps)
         return _split_pieces_plain(clean, denoised, row_len, scale), partial
-    if clean.device.type != "cuda":
-        raise ValueError(f"no split kernel for device {clean.device}")
+
+    return cuda_lib.dispatch("split kernel", clean.device, plain,
+                             lambda: _split_pieces_cuda(clean, denoised, row_len, eps))
+
+
+def _split_pieces_cuda(
+    clean: torch.Tensor, denoised: torch.Tensor, row_len: int, eps: float | None
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     dev = clean.device
     cuda_lib.check_operand(clean, "clean", dev, torch.float32, 2)
     cuda_lib.check_operand(denoised, "denoised", dev, torch.float32, 2)
     batch = clean.shape[0]
     out = torch.empty(6, batch, row_len, device=dev, dtype=torch.bfloat16)
     partial = None if eps is None else torch.empty(batch, _SCALE_SPLITS, 2, device=dev, dtype=torch.float32)
-    cuda_lib.launch("lsd_split", dev, clean, denoised, partial, out, batch, clean.shape[1], row_len,
+    cuda_lib.launch(KERNEL_SPLIT, dev, clean, denoised, partial, out, batch, clean.shape[1], row_len,
                     0.0 if eps is None else eps)
-    cuda_lib.launch_counts[KERNEL_SPLIT] += 1
     return out, partial
 
 
@@ -497,7 +494,7 @@ def _lsd_tiles_reference(pieces: torch.Tensor, t_len: int, eps: float) -> torch.
     # padded chunk row i is chunk i - 1: group g reads rows 127 g .. 127 g + 127
     x = F.pad(x, (0, 0, 1, n_groups * _GROUP_FRAMES + 1 - n_chunks))
     w = _tile_table_pieces(pieces.device).float()  # (3, 640, 256)
-    products = ((0, 1), (1, 0), (0, 2), (1, 1), (2, 0), (0, 0))
+    products = ((0, 1), (1, 0), (0, 2), (1, 1), (2, 0), (0, 0))  # this kernel's order, not numerics.PRODUCTS
     j = torch.arange(_TILE_BINS, device=pieces.device)
     sign = torch.where(j % 2 == 1, 1.0, -1.0)  # (-1)^(62 t - 1 + j): 62 t is even
     partial = torch.zeros(batch, n_groups * _GROUP_FRAMES, _TILES, device=pieces.device)
@@ -538,7 +535,6 @@ def _lsd_wholesig_raw_cuda(
     out = torch.empty(batch, device=dev, dtype=torch.float32)
     cuda_lib.launch(KERNEL, dev, clean, denoised, pieces, _tile_table_pieces(dev), scale_partial, partial, out,
                     batch, nc, eps)
-    cuda_lib.launch_counts[KERNEL] += 1
     return out
 
 
@@ -561,9 +557,7 @@ def _lsd_wholesig_ct_cuda(
     scale_partial = torch.empty(batch, _SCALE_SPLITS, 2, device=dev, dtype=torch.float32)
     partial = torch.empty(batch, n_tiles, device=dev, dtype=torch.float32)
     out = torch.empty(batch, device=dev, dtype=torch.float32)
-    cuda_lib.launch("lsd_wholesig_ct", dev, clean, denoised, scale, tw, w0, scale_partial, partial, out,
-                    batch, nc, eps)
-    cuda_lib.launch_counts[KERNEL_A13] += 1
+    cuda_lib.launch(KERNEL_A13, dev, clean, denoised, scale, tw, w0, scale_partial, partial, out, batch, nc, eps)
     return out
 
 
@@ -592,37 +586,20 @@ def _lsd_wholesig_cuda(
     partial = torch.empty(batch, 1 + t // hop, _TILES, device=dev, dtype=torch.float32)
     out = torch.empty(batch, device=dev, dtype=torch.float32)
     cuda_lib.launch("lsd_wholesig", dev, clean, denoised, pieces, _tile_table_pieces(dev), partial, out, batch, t,
-                    eps)
-    cuda_lib.launch_counts[kernel] += 1
+                    eps, count=kernel)
     return out
-
-
-def _dispatch(clean: torch.Tensor, plain, cuda):
-    """CPU tensors take the plain version, CUDA tensors the kernel; any
-    other device raises."""
-    if clean.device.type == "cpu":
-        return plain()
-    if clean.device.type != "cuda":
-        raise ValueError(f"no LSD kernel for device {clean.device}")
-    return cuda()
 
 
 def lsd_wholesig(clean: torch.Tensor, denoised: torch.Tensor, hop: int, eps: float) -> torch.Tensor:
     """Kernel A2 wrapper: pre-scaled (B, T) float32 pairs, any T -> (B,) LSD."""
-    return _dispatch(
-        clean,
-        lambda: _lsd_wholesig_plain(clean, denoised, hop, eps),
-        lambda: _lsd_wholesig_cuda(clean, denoised, hop, eps, KERNEL_A2),
-    )
+    return cuda_lib.dispatch("LSD kernel", clean.device, lambda: _lsd_wholesig_plain(clean, denoised, hop, eps),
+                             lambda: _lsd_wholesig_cuda(clean, denoised, hop, eps, KERNEL_A2))
 
 
 def lsd_framed(clean: torch.Tensor, denoised: torch.Tensor, hop: int, eps: float) -> torch.Tensor:
     """Kernel A3 wrapper: A2's function for long clips (F + 1 > 1024 frames)."""
-    return _dispatch(
-        clean,
-        lambda: _lsd_framed_plain(clean, denoised, hop, eps),
-        lambda: _lsd_wholesig_cuda(clean, denoised, hop, eps, KERNEL_A3),
-    )
+    return cuda_lib.dispatch("LSD kernel", clean.device, lambda: _lsd_framed_plain(clean, denoised, hop, eps),
+                             lambda: _lsd_wholesig_cuda(clean, denoised, hop, eps, KERNEL_A3))
 
 
 def lsd_wholesig_raw(
@@ -633,11 +610,8 @@ def lsd_wholesig_raw(
     CPU tensors take the plain version; CUDA tensors launch the kernel (or
     raise); any other device raises.
     """
-    return _dispatch(
-        clean,
-        lambda: _lsd_wholesig_raw_plain(clean, denoised, hop, eps),
-        lambda: _lsd_wholesig_raw_cuda(clean, denoised, hop, eps),
-    )
+    return cuda_lib.dispatch("LSD kernel", clean.device, _lsd_wholesig_raw_plain, _lsd_wholesig_raw_cuda, clean,
+                             denoised, hop, eps)
 
 
 def lsd_wholesig_ct(
@@ -646,11 +620,8 @@ def lsd_wholesig_ct(
     """Kernel A13 wrapper: (B, T) float32 pairs with T % hop == 0 -> (B,)
     LSD, the projection scale computed by the kernel (``scale=None``) or
     given ((B,) or (B, 1)). The factorized chunk DFT is built for hop 256."""
-    return _dispatch(
-        clean,
-        lambda: _lsd_wholesig_ct_plain(clean, denoised, hop, eps, scale),
-        lambda: _lsd_wholesig_ct_cuda(clean, denoised, hop, eps, scale),
-    )
+    return cuda_lib.dispatch("LSD kernel", clean.device, _lsd_wholesig_ct_plain, _lsd_wholesig_ct_cuda, clean,
+                             denoised, hop, eps, scale)
 
 
 def _takes_ct(t: int, n_fft: int, hop: int) -> bool:

@@ -23,8 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
-from fast_speech_enhancement_metrics_tpu_torch.ops.conv_gelu import _split3
+from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib, numerics
 
 KERNEL = "pos_conv"
 STRIDE = 1
@@ -32,8 +31,6 @@ STRIDE = 1
 WIDTH = 128
 #: channels a group the kernel is built for: mHuBERT-147 / HuBERT base 48, HuBERT large / WavLM-Large 64
 GROUP_CHANNELS = (48, 64)
-#: the order of the six piece products, (x piece, w piece): small terms first
-PRODUCTS = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
 #: input channels of one partial: one k16 step of the tensor cores
 STEP_CHANNELS = 16
 
@@ -55,7 +52,7 @@ def split_pieces(w: torch.Tensor, groups: int) -> torch.Tensor:
     c, cg, k = w.shape
     per_tap = w.reshape(groups, cg, cg, k).permute(0, 3, 2, 1)  # (g, j, c, o)
     per_tap = per_tap.reshape(groups, k, cg // 8, 8, cg).transpose(3, 4)  # (g, j, p, o, e)
-    return torch.stack(_split3(per_tap), dim=2).contiguous()
+    return torch.stack(numerics.split3(per_tap), dim=2).contiguous()
 
 
 def _pos_conv_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int,
@@ -68,7 +65,7 @@ def _pos_conv_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: i
     if bn_scale is not None:
         pos_in = x * bn_scale.to(dt) + bn_shift.to(dt)
     k = w.shape[2]
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with numerics.conv_flags():
         pos = F.conv1d(pos_in.transpose(1, 2), w.to(dt), padding=k // 2, groups=groups).transpose(1, 2)
     if k % 2 == 0:
         pos = pos[:, :-1, :]
@@ -87,13 +84,13 @@ def _pos_conv_pieces_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     bsz, t, c = x.shape
     cg, k = w.shape[1], w.shape[2]
     pos_in = x if bn_scale is None else x * bn_scale + bn_shift
-    xp = [F.pad(p.double(), (0, 0, k // 2, k // 2)).reshape(bsz, t + k, groups, cg) for p in _split3(pos_in)]
-    wp = [p.double().reshape(groups, cg, cg, k) for p in _split3(w)]  # (g, o, c, j)
+    xp = [F.pad(p.double(), (0, 0, k // 2, k // 2)).reshape(bsz, t + k, groups, cg) for p in numerics.split3(pos_in)]
+    wp = [p.double().reshape(groups, cg, cg, k) for p in numerics.split3(w)]  # (g, o, c, j)
     acc = torch.zeros(bsz, t, groups, cg, dtype=torch.float32)
     for j in range(k):
         for c0 in range(0, cg, STEP_CHANNELS):
             part = sum(torch.einsum("btgc,goc->btgo", xp[a][:, j:j + t, :, c0:c0 + STEP_CHANNELS],
-                                    wp[q][:, :, c0:c0 + STEP_CHANNELS, j]) for a, q in PRODUCTS)
+                                    wp[q][:, :, c0:c0 + STEP_CHANNELS, j]) for a, q in numerics.PRODUCTS)
             acc = acc + part.float()
     return x + F.gelu(acc.reshape(bsz, t, c) + b)
 
@@ -108,8 +105,12 @@ def pos_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int,
     here when not given) is what the kernel reads; ``engages`` must hold."""
     if (bn_scale is None) != (bn_shift is None):
         raise ValueError("bn_scale and bn_shift come together")
-    if x.device.type == "cpu":
-        return _pos_conv_plain(x, w, b, groups, bn_scale, bn_shift)
+    return cuda_lib.dispatch("pos_conv kernel", x.device, lambda: _pos_conv_plain(x, w, b, groups, bn_scale, bn_shift),
+                             lambda: _pos_conv_cuda(x, w, b, groups, bn_scale, bn_shift, pieces))
+
+
+def _pos_conv_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int, bn_scale: torch.Tensor | None,
+                   bn_shift: torch.Tensor | None, pieces: torch.Tensor | None) -> torch.Tensor:
     c, cg, k = w.shape
     if not engages(x.device.type, x.dtype, STRIDE, k, c, groups):
         raise ValueError(f"no pos_conv kernel for {x.dtype} on {x.device} with weights {tuple(w.shape)} in {groups} "
@@ -133,5 +134,4 @@ def pos_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int,
     bsz, t, _ = x.shape
     out = torch.empty_like(x)
     cuda_lib.launch(KERNEL, x.device, x, pieces, bn_scale, bn_shift, b, out, bsz, t, c, groups)
-    cuda_lib.launch_counts[KERNEL] += 1
     return out

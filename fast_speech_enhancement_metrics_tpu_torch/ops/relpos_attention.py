@@ -45,12 +45,13 @@ import math
 import torch
 
 from fast_speech_enhancement_metrics_tpu_torch import tracing
-from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
-from fast_speech_enhancement_metrics_tpu_torch.ops.attn_block_pallas import _dot
-from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import (
+from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib, numerics
+from fast_speech_enhancement_metrics_tpu_torch.ops.numerics import (
     LOG2E,
     MAX_HEAD_DIM,
     SOFTMAX_MODES,
+    dot,
+    layer_norm,
     round_bf16,
     softmax_p,
 )
@@ -181,12 +182,6 @@ def pack_prenorm_layer(p: dict, heads: int, softmax: str) -> tuple:
     )
 
 
-def _ln(x: torch.Tensor, s: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
-    mean = torch.mean(x, dim=-1, keepdim=True)
-    cen = x - mean
-    return cen * torch.rsqrt(torch.mean(cen * cen, dim=-1, keepdim=True) + eps) * s + b
-
-
 def _gate_of_logits(qkvg: torch.Tensor, d: int, heads: int, gate_const: torch.Tensor) -> torch.Tensor:
     """(b, heads, t) gate from the product's bf16 gate columns, in fp32."""
     b, t, _ = qkvg.shape
@@ -252,10 +247,12 @@ def relpos_attention(qkvg: torch.Tensor, gate_const: torch.Tensor, vec: torch.Te
     the exp2 modes). Returns the context (rows, T, d) bf16."""
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
-    if qkvg.device.type == "cpu":
-        return _relpos_attention_plain(qkvg, gate_const, vec, heads, softmax)
-    if qkvg.device.type != "cuda":
-        raise ValueError(f"no relative-position attention kernel for device {qkvg.device}")
+    return cuda_lib.dispatch("relative-position attention kernel", qkvg.device, _relpos_attention_plain,
+                             _relpos_attention_cuda, qkvg, gate_const, vec, heads, softmax)
+
+
+def _relpos_attention_cuda(qkvg: torch.Tensor, gate_const: torch.Tensor, vec: torch.Tensor, heads: int,
+                           softmax: str) -> torch.Tensor:
     dev = qkvg.device
     cuda_lib.check_operand(qkvg, "qkvg", dev, torch.bfloat16, 3)
     cuda_lib.check_operand(gate_const, "gate_const", dev, torch.float32, 1)
@@ -269,23 +266,21 @@ def relpos_attention(qkvg: torch.Tensor, gate_const: torch.Tensor, vec: torch.Te
                          f"bias {tuple(vec.shape)} for T = {t}")
     ctx = torch.empty(rows, t, d, device=dev, dtype=torch.bfloat16)
     cuda_lib.launch("relpos_attention", dev, qkvg, gate_const, vec, ctx, rows, t, d, heads, n, tp,
-                    SOFTMAX_MODES.index(softmax))
-    cuda_lib.launch_counts[KERNEL] += 1
+                    SOFTMAX_MODES.index(softmax), count=KERNEL)
     return ctx
 
 
 def _prenorm_in_plain(x: torch.Tensor, packed: tuple, eps: float) -> torch.Tensor:
     wqkvg, bqkvg, _, _, _, ln1s, ln1b = packed[:7]
-    return (_dot(_ln(x.float(), ln1s, ln1b, eps), wqkvg.float()) + bqkvg).to(torch.bfloat16)
+    return (dot(layer_norm(x.float(), ln1s, ln1b, eps), wqkvg.float()) + bqkvg).to(torch.bfloat16)
 
 
 def _prenorm_out_plain(x: torch.Tensor, ctx: torch.Tensor, packed: tuple, eps: float, gelu: str) -> torch.Tensor:
     _, _, _, wo, bo, _, _, w1, b1, w2, b2, ln2s, ln2b = packed
-    x1 = x.float() + (_dot(ctx.float(), wo.float()) + bo)
-    u = round_bf16(_ln(x1, ln2s, ln2b, eps))
-    approximate = "tanh" if gelu == "tanh" else "none"
-    hidden = round_bf16(torch.nn.functional.gelu(_dot(u, w1.float()) + b1, approximate=approximate))
-    return x1 + (_dot(hidden, w2.float()) + b2)
+    x1 = x.float() + (dot(ctx.float(), wo.float()) + bo)
+    u = round_bf16(layer_norm(x1, ln2s, ln2b, eps))
+    hidden = round_bf16(numerics.gelu(dot(u, w1.float()) + b1, gelu))
+    return x1 + (dot(hidden, w2.float()) + b2)
 
 
 def _check_packed(x: torch.Tensor, packed: tuple) -> None:
@@ -304,10 +299,10 @@ def prenorm_in(x: torch.Tensor, packed: tuple, eps: float) -> torch.Tensor:
     """Kernel ``prenorm_in``: LN1 of x (rows, T, d) fp32 to bf16, then the
     QKV + gate product: the (rows, T, 3 d + G) bf16 operand of
     ``relpos_attention``. CPU tensors take the plain version."""
-    if x.device.type == "cpu":
-        return _prenorm_in_plain(x, packed, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no pre-LN layer kernels for device {x.device}")
+    return cuda_lib.dispatch("pre-LN layer kernels", x.device, _prenorm_in_plain, _prenorm_in_cuda, x, packed, eps)
+
+
+def _prenorm_in_cuda(x: torch.Tensor, packed: tuple, eps: float) -> torch.Tensor:
     x = x.contiguous()
     _check_packed(x, packed)
     wqkvg, bqkvg, _, _, _, ln1s, ln1b = packed[:7]
@@ -316,7 +311,6 @@ def prenorm_in(x: torch.Tensor, packed: tuple, eps: float) -> torch.Tensor:
     u = torch.empty(m, d, device=x.device, dtype=torch.bfloat16)  # LN1's output
     qkvg = torch.empty(rows, t, n, device=x.device, dtype=torch.bfloat16)
     cuda_lib.launch(KERNEL_IN, x.device, x, ln1s, ln1b, wqkvg, bqkvg, u, qkvg, m, d, n, eps)
-    cuda_lib.launch_counts[KERNEL_IN] += 1
     return qkvg
 
 
@@ -325,10 +319,11 @@ def prenorm_out(x: torch.Tensor, ctx: torch.Tensor, packed: tuple, eps: float, g
     with the tanh GELU; x (rows, T, d) fp32, ctx (rows, T, d) bf16 as
     ``relpos_attention`` gives it. The kernel's FFN is tanh-GELU only; the
     plain version (CPU tensors) also takes ``gelu="erf"``."""
-    if x.device.type == "cpu":
-        return _prenorm_out_plain(x, ctx, packed, eps, gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"no pre-LN layer kernels for device {x.device}")
+    return cuda_lib.dispatch("pre-LN layer kernels", x.device, _prenorm_out_plain, _prenorm_out_cuda, x, ctx, packed,
+                             eps, gelu)
+
+
+def _prenorm_out_cuda(x: torch.Tensor, ctx: torch.Tensor, packed: tuple, eps: float, gelu: str) -> torch.Tensor:
     if gelu != "tanh":
         raise ValueError(f"the pre-LN layer's FFN kernel is tanh-GELU only, got gelu={gelu!r}")
     x = x.contiguous()
@@ -344,7 +339,6 @@ def prenorm_out(x: torch.Tensor, ctx: torch.Tensor, packed: tuple, eps: float, g
     hidden = torch.empty(m, ffn, device=dev, dtype=torch.bfloat16)
     out = torch.empty_like(x)
     cuda_lib.launch(KERNEL_OUT, dev, x, ctx, wo, bo, ln2s, ln2b, w1, b1, w2, b2, y, u, hidden, out, m, d, ffn, eps)
-    cuda_lib.launch_counts[KERNEL_OUT] += 1
     return out
 
 

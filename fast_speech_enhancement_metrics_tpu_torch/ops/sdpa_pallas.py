@@ -45,11 +45,13 @@ import functools
 import torch
 
 from fast_speech_enhancement_metrics_tpu_torch.ops import cuda_lib
-from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import (
+from fast_speech_enhancement_metrics_tpu_torch.ops.numerics import (
     LOG2E,
     MAX_HEAD_DIM,
+    PRODUCTS,
     SOFTMAX_MODES,
     softmax_p,
+    split3,
 )
 
 KERNEL_A9 = "sdpa"
@@ -66,10 +68,8 @@ KERNEL_BLOCK_Q = 128
 F32_BLOCK_K = 64
 #: the bf16 kernel's head widths are multiples of this (16-byte TMA rows)
 _BF16_HEAD_QUANTUM = 8
-#: the float32 arm's pieces per operand and its six products of order <= 2,
-#: (piece of q or p, piece of k or v), small terms first
+#: the float32 arm's pieces per operand (``numerics.split3``)
 _PIECES = 3
-_PRODUCTS = ((1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0))
 _ONLINE = 3
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -154,15 +154,9 @@ def _flash_sdpa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling
     return acc.to(q.dtype)
 
 
-def _split3(x: torch.Tensor) -> list[torch.Tensor]:
-    """The three bf16 pieces of a float32 tensor, as float32: x0 = bf16(x),
-    x1 = bf16(x - x0), x2 = bf16(x - x0 - x1) (each difference exact)."""
-    pieces = []
-    for _ in range(_PIECES):
-        piece = x.to(torch.bfloat16).float()
-        pieces.append(piece)
-        x = x - piece
-    return pieces
+def _split3_f32(x: torch.Tensor) -> list[torch.Tensor]:
+    """``split3``'s pieces as float32, the operands of the torch dataflow."""
+    return [p.float() for p in split3(x)]
 
 
 def _head_box(d: int) -> int:
@@ -175,9 +169,8 @@ def _split_pieces_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     tensors, 3 pieces, B H T, D_p) bf16, D_p = ``_head_box(D)``, the padded
     columns zeros."""
     d = q.shape[-1]
-    return torch.stack([torch.stack(_split3(torch.nn.functional.pad(x.reshape(-1, d).float(),
-                                                                    (0, _head_box(d) - d))))
-                        for x in (q, k, v)]).to(torch.bfloat16)
+    return torch.stack([torch.stack(split3(torch.nn.functional.pad(x.reshape(-1, d).float(), (0, _head_box(d) - d))))
+                        for x in (q, k, v)])
 
 
 def split_pieces(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -185,10 +178,10 @@ def split_pieces(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     scaled) -> their bf16 pieces, as ``_split_pieces_plain``. CPU tensors
     take the plain version; on a CUDA tensor the kernel
     (``csrc/sdr_halves.cuh``, ``halves::split_rows<3>``)."""
-    if q.device.type == "cpu":
-        return _split_pieces_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"no split kernel for device {q.device}")
+    return cuda_lib.dispatch("split kernel", q.device, _split_pieces_plain, _split_pieces_cuda, q, k, v)
+
+
+def _split_pieces_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     for name, a in (("q", q), ("k", k), ("v", v)):
         cuda_lib.check_operand(a, name, q.device, torch.float32, 4)
         if a.shape != q.shape or a.data_ptr() % 16:
@@ -196,15 +189,14 @@ def split_pieces(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Ten
     d = q.shape[-1]
     rows = q.numel() // d
     out = torch.empty(3, _PIECES, rows, _head_box(d), dtype=torch.bfloat16, device=q.device)
-    cuda_lib.launch("sdpa_f32_split", q.device, q, k, v, out, rows, d, _head_box(d))
-    cuda_lib.launch_counts[KERNEL_SPLIT] += 1
+    cuda_lib.launch(KERNEL_SPLIT, q.device, q, k, v, out, rows, d, _head_box(d))
     return out
 
 
 def _six_products(a: list[torch.Tensor], b: list[torch.Tensor]) -> torch.Tensor:
-    """sum a_i b_j over ``_PRODUCTS``, in float32, small terms first."""
-    acc = torch.matmul(a[_PRODUCTS[0][0]], b[_PRODUCTS[0][1]])
-    for i, j in _PRODUCTS[1:]:
+    """sum a_i b_j over ``PRODUCTS``, in float32, small terms first."""
+    acc = torch.matmul(a[PRODUCTS[0][0]], b[PRODUCTS[0][1]])
+    for i, j in PRODUCTS[1:]:
         acc = acc + torch.matmul(a[i], b[j])
     return acc
 
@@ -221,7 +213,7 @@ def _sdpa_f32_pieces_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     t = q.shape[2]
     online = mode == "online"
     qs = q.float() if online else _scaled_q(q.float(), scaling, mode)
-    qp, kp, vp = _split3(qs), _split3(k.float()), _split3(v.float())
+    qp, kp, vp = _split3_f32(qs), _split3_f32(k), _split3_f32(v)
     s = _six_products(qp, [x.transpose(-1, -2) for x in kp])
     if online:
         s = s * scaling
@@ -242,7 +234,7 @@ def _sdpa_f32_pieces_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         else:
             p = p_all[..., k0:k0 + F32_BLOCK_K]
         l = l * corr + torch.sum(p, dim=-1, keepdim=True)
-        o = o * corr + _six_products(_split3(p), [x[:, :, k0:k0 + F32_BLOCK_K] for x in vp])
+        o = o * corr + _six_products(_split3_f32(p), [x[:, :, k0:k0 + F32_BLOCK_K] for x in vp])
     return o / (l if online else l + _pad_keys_l(t, mode))
 
 
@@ -280,16 +272,14 @@ def _launch(kernel: str, q, k, v, mode: int, n_keys: int, scale: float, l_pad: f
     if q.dtype == torch.float32:
         pieces = split_pieces(*(_aligned(a) for a in (q, k, v)))
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        cuda_lib.launch("sdpa_f32", q.device, pieces, out, b, h, t, n_keys, d, mode, scale, l_pad)
-        cuda_lib.launch_counts[kernel] += 1
+        cuda_lib.launch("sdpa_f32", q.device, pieces, out, b, h, t, n_keys, d, mode, scale, l_pad, count=kernel)
         return out
     pad = -d % _BF16_HEAD_QUANTUM
     q, k, v = (_aligned(torch.nn.functional.pad(a, (0, pad)) if pad else a) for a in (q, k, v))
     for name, a in (("k", k), ("v", v)):
         cuda_lib.check_operand(a, name, q.device, q.dtype, 4)
     out = torch.empty_like(q)
-    cuda_lib.launch("sdpa", q.device, q, k, v, out, b, h, t, n_keys, d + pad, mode, scale, l_pad)
-    cuda_lib.launch_counts[kernel] += 1
+    cuda_lib.launch("sdpa", q.device, q, k, v, out, b, h, t, n_keys, d + pad, mode, scale, l_pad, count=kernel)
     return out[..., :d].contiguous() if pad else out
 
 
@@ -304,10 +294,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling: float, bloc
     if softmax not in SOFTMAX_MODES:
         raise ValueError(f"softmax must be one of {SOFTMAX_MODES}, got {softmax!r}")
     _check_qkv(q, k, v)
-    if q.device.type == "cpu":
-        return _sdpa_plain(q, k, v, scaling, softmax)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
+    return cuda_lib.dispatch("attention kernel", q.device, _sdpa_plain, _sdpa_cuda, q, k, v, scaling, softmax)
+
+
+def _sdpa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling: float, softmax: str) -> torch.Tensor:
     t = q.shape[2]
     return _launch(KERNEL_A9, _scaled_q(q, scaling, softmax), k, v, SOFTMAX_MODES.index(softmax), t, 1.0,
                    _pad_keys_l(t, softmax))
@@ -317,10 +307,9 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling: float
     """Kernel A15 wrapper: the flash kernel's exact online softmax over
     (B, H, T, D), bf16 or float32, in q's dtype."""
     _check_qkv(q, k, v)
-    if q.device.type == "cpu":
-        return _flash_sdpa_plain(q, k, v, scaling)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
-    t = q.shape[2]
-    n_keys = -(-t // FLASH_KEY_QUANTUM) * FLASH_KEY_QUANTUM
+    return cuda_lib.dispatch("attention kernel", q.device, _flash_sdpa_plain, _flash_sdpa_cuda, q, k, v, scaling)
+
+
+def _flash_sdpa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scaling: float) -> torch.Tensor:
+    n_keys = -(-q.shape[2] // FLASH_KEY_QUANTUM) * FLASH_KEY_QUANTUM
     return _launch(KERNEL_A15, q, k, v, _ONLINE, n_keys, float(scaling), 0.0)

@@ -157,8 +157,8 @@ def _corr_partials_cuda(c: torch.Tensor, d: torch.Tensor, h: int) -> torch.Tenso
     halves = torch.empty(4, batch, n_chunks * h, device=dev, dtype=torch.bfloat16)
     partial = torch.empty(batch, n_groups, 6, h, device=dev, dtype=torch.float32)
     table = _table_halves(h, dev)
-    cuda_lib.launch("corr_fused", dev, c, d, halves, table, partial, batch, t, h, n_groups)
-    cuda_lib.launch_counts[KERNEL_A10_RAW if t % h == 0 else KERNEL_A10] += 1
+    cuda_lib.launch("corr_fused", dev, c, d, halves, table, partial, batch, t, h, n_groups,
+                    count=KERNEL_A10_RAW if t % h == 0 else KERNEL_A10)
     return partial
 
 
@@ -194,6 +194,10 @@ def _correlation_lags_fused_plain(
     return _lags_from_partials(_corr_partials_plain(c.float(), d.float(), n_lags, chunk_block), n_lags)
 
 
+def _correlation_lags_fused_cuda(c: torch.Tensor, d: torch.Tensor, n_lags: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _lags_from_partials(_corr_partials_cuda(c.float().contiguous(), d.float().contiguous(), n_lags), n_lags)
+
+
 def correlation_lags_fused(
     c: torch.Tensor, d: torch.Tensor, n_lags: int, chunk_block: int = 128
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -205,9 +209,6 @@ def correlation_lags_fused(
     # the packed (-1)^f window combine reuses one sign vector across both
     # column blocks, which needs the Nyquist bin (col h, sign (-1)^h) even
     assert n_lags % 2 == 0, f"fused correlations require even n_lags, got {n_lags}"
-    if c.device.type == "cpu":
-        return _correlation_lags_fused_plain(c, d, n_lags, chunk_block)
-    if c.device.type != "cuda":
-        raise ValueError(f"no correlation kernel for device {c.device}")
-    partial = _corr_partials_cuda(c.float().contiguous(), d.float().contiguous(), n_lags)
-    return _lags_from_partials(partial, n_lags)
+    return cuda_lib.dispatch("correlation kernel", c.device,
+                             lambda: _correlation_lags_fused_plain(c, d, n_lags, chunk_block),
+                             lambda: _correlation_lags_fused_cuda(c, d, n_lags))

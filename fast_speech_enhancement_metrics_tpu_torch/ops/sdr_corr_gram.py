@@ -89,16 +89,16 @@ def split_halves(c: torch.Tensor, d: torch.Tensor, row_len: int, lo: bool = True
     (``csrc/sdr_halves.cuh``), which with ``lo=False`` leaves the lo planes
     unwritten."""
     assert c.ndim == 2 and c.shape == d.shape and row_len >= c.shape[1] and row_len % 8 == 0
-    if c.device.type == "cpu":
-        return _split_halves_plain(c, d, row_len)
-    if c.device.type != "cuda":
-        raise ValueError(f"no split kernel for device {c.device}")
+    return cuda_lib.dispatch("split kernel", c.device, lambda: _split_halves_plain(c, d, row_len),
+                             lambda: _split_halves_cuda(c, d, row_len, lo))
+
+
+def _split_halves_cuda(c: torch.Tensor, d: torch.Tensor, row_len: int, lo: bool) -> torch.Tensor:
     dev = c.device
     cuda_lib.check_operand(c, "c", dev, torch.float32, 2)
     cuda_lib.check_operand(d, "d", dev, torch.float32, 2)
     out = torch.empty(4, c.shape[0], row_len, device=dev, dtype=torch.bfloat16)
-    cuda_lib.launch("split_halves", dev, c, d, out, c.shape[0], c.shape[1], row_len, int(lo))
-    cuda_lib.launch_counts[KERNEL_SPLIT] += 1
+    cuda_lib.launch(KERNEL_SPLIT, dev, c, d, out, c.shape[0], c.shape[1], row_len, int(lo))
     return out
 
 
@@ -213,8 +213,7 @@ def _correlation_lags_cuda(
     r_auto = torch.empty(batch, n_lags, device=dev, dtype=torch.float32)
     r_cross = torch.empty(batch, n_lags, device=dev, dtype=torch.float32)
     cuda_lib.launch(KERNEL, dev, c, d, halves, partial, r_auto, r_cross, batch, t, _SPLIT_TERMS[split],
-                    split_frames, n_ranges)
-    cuda_lib.launch_counts[KERNELS[split]] += 1
+                    split_frames, n_ranges, count=KERNELS[split])
     return r_auto, r_cross
 
 
@@ -229,8 +228,5 @@ def correlation_lags_gram(
     assert n_lags % _HB == 0, f"lag count must be a multiple of {_HB}, got {n_lags}"
     if split not in KERNELS:
         raise ValueError(f"split must be one of {tuple(KERNELS)}, got {split!r}")
-    if c.device.type == "cpu":
-        return _correlation_lags_plain(c, d, n_lags, split)
-    if c.device.type != "cuda":
-        raise ValueError(f"no correlation kernel for device {c.device}")
-    return _correlation_lags_cuda(c, d, n_lags, split)
+    return cuda_lib.dispatch("correlation kernel", c.device, _correlation_lags_plain, _correlation_lags_cuda, c, d,
+                             n_lags, split)

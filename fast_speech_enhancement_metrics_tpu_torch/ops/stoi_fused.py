@@ -191,7 +191,6 @@ def _stoi_segment_sums_cuda(
     partial = torch.empty(batch, max(n_tiles, 1), 2, device=dev, dtype=torch.float32)
     out = torch.empty(batch, 2, device=dev, dtype=torch.float32)
     cuda_lib.launch(KERNEL, dev, tob_clean, tob_denoised, nseg, partial, out, batch, f)
-    cuda_lib.launch_counts[KERNEL] += 1
     return out[:, 0], out[:, 1]
 
 
@@ -211,8 +210,5 @@ def stoi_segment_sums(
     take the plain version; CUDA tensors launch the kernel (or raise); any
     other device raises.
     """
-    if tob_clean.device.type == "cpu":
-        return _stoi_segment_sums_plain(tob_clean, tob_denoised, num_segments, n, num_bands)
-    if tob_clean.device.type != "cuda":
-        raise ValueError(f"no STOI kernel for device {tob_clean.device}")
-    return _stoi_segment_sums_cuda(tob_clean, tob_denoised, num_segments, n, num_bands)
+    return cuda_lib.dispatch("STOI kernel", tob_clean.device, _stoi_segment_sums_plain, _stoi_segment_sums_cuda,
+                             tob_clean, tob_denoised, num_segments, n, num_bands)

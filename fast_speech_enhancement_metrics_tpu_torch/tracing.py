@@ -47,9 +47,9 @@ Counters:
   queries x keys, by the plain paths (``ops/relpos_attention.py``); the
   kernel route adds 0 for each layer, since the kernel builds none.
 * ``launch_counts`` (kernels): launches per hand-written kernel, one added by
-  each wrapper in ``ops/`` where it launches; always on (``chip_smoke.py``,
-  the card tests and ``benchmarking/`` read it, also as
-  ``ops/cuda_lib.py::launch_counts``).
+  ``ops/cuda_lib.py::launch`` for each launch that returns without error,
+  under the name the wrapper gives; always on (``chip_smoke.py``, the card
+  tests and ``benchmarking/`` read it, also as ``cuda_lib.launch_counts``).
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ _OFF = contextlib.nullcontext()
 #: counts taken while a profiler records, by name
 counts: collections.Counter = collections.Counter()
 
-#: launches per kernel wrapper; a wrapper adds one where it launches
+#: launches per kernel; ``ops/cuda_lib.py::launch`` adds one for each
 launch_counts: collections.Counter = collections.Counter()
 
 

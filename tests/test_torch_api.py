@@ -22,7 +22,7 @@ MEASURED_NEGATIVE = "measured negative on TPU and H100"
 ALLOWED = {
     "benchmarking/runner.py": {"configure_cache": NO_JIT, "V5E_PEAK_TFLOPS": NO_JIT},
     "models/hubert.py": {"convert_hf_hubert": "utils/convert_hubert.py", "FE_CONV0_PACK": MEASURED_NEGATIVE},
-    "ops/attn_block_pallas.py": {"LOG2E": "ops/attention_core.py"},
+    "ops/attn_block_pallas.py": {"LOG2E": "ops/numerics.py"},
 }
 
 JAX_MODULES = sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from fast_speech_enhancement_metrics_tpu.ops import attn_block_pallas as jax_blocks
-from fast_speech_enhancement_metrics_tpu_torch.ops import attention_core, attn_block_pallas
+from fast_speech_enhancement_metrics_tpu_torch.ops import attn_block_pallas, numerics
 
 D, HEADS, FFN, T = 64, 4, 256, 43  # T deliberately not a multiple of 8 or 16
 
@@ -138,7 +138,7 @@ def test_gemm_plain_composes_the_ffn_block(x_dtype):
     hidden = attn_block_pallas.gemm(xb, w1, b1, "gelu_bf16")
     y = attn_block_pallas.gemm(hidden, w2, b2, "f32")
     assert hidden.dtype == torch.bfloat16 and y.dtype == torch.float32 and y.shape == (2 * T, D)
-    got = attn_block_pallas._residual_ln(y, xb.float(), lns, lnb, 1e-5).reshape(x.shape).to(x_dtype)
+    got = numerics.layer_norm(y + xb.float(), lns, lnb, 1e-5).reshape(x.shape).to(x_dtype)
     assert torch.equal(got, attn_block_pallas.ffn_block(x, (w1, b1, w2, b2, lns, lnb), 1e-5))
     with pytest.raises(ValueError, match="epilogue"):
         attn_block_pallas.gemm(xb, w1, b1, "gelu")
@@ -192,8 +192,8 @@ def test_attn_block_int8_plain_matches_pallas(softmax, d, heads, monkeypatch):
         return
     diff = np.abs(ours() - np.asarray(theirs, dtype=np.float32))
     assert diff.max() < 0.5 and np.median(diff) < 0.05, (diff.max(), np.median(diff))
-    monkeypatch.setattr(attention_core, "exp2_bf16", lambda s: torch.exp(
-        attention_core.round_bf16(attention_core.round_bf16(s) * attention_core.LN2_BF16)))
+    monkeypatch.setattr(numerics, "exp2_bf16", lambda s: torch.exp(
+        numerics.round_bf16(numerics.round_bf16(s) * numerics.LN2_BF16)))
     _bf16_class(ours(), theirs)
 
 

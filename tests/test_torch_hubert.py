@@ -29,7 +29,7 @@ from fast_speech_enhancement_metrics_tpu.ops import sdpa_pallas as jax_sdpa
 from fast_speech_enhancement_metrics_tpu.utils import convert_hubert as jax_convert_hubert
 from fast_speech_enhancement_metrics_tpu.utils.convert_hubert import save_params as jax_save_params
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert
-from fast_speech_enhancement_metrics_tpu_torch.ops import conv_gelu
+from fast_speech_enhancement_metrics_tpu_torch.ops import conv_gelu, numerics
 from fast_speech_enhancement_metrics_tpu_torch.utils import convert_hubert
 
 SMALL = dict(
@@ -290,9 +290,9 @@ def _feature_encoder_before_kernel(enc, audio, gelu):
             xf = (xf - mean) * torch.rsqrt(var + config.layer_norm_eps)
             x = (xf * layer["norm_scale"].float()[:, None] + layer["norm_bias"].float()[:, None]).to(x.dtype)
         elif config.feat_extract_norm == "layer":
-            x = hubert._layer_norm(x.transpose(1, 2), layer["norm_scale"], layer["norm_bias"],
-                                   config.layer_norm_eps).transpose(1, 2)
-        x = hubert._gelu(x, gelu)
+            x = numerics.layer_norm(x.transpose(1, 2), layer["norm_scale"], layer["norm_bias"],
+                                    config.layer_norm_eps).transpose(1, 2)
+        x = numerics.gelu(x, gelu)
     return x.transpose(1, 2)
 
 
@@ -347,7 +347,7 @@ def test_conv_gelu_pieces_arithmetic_is_float32_class(gelu):
     rs = np.random.RandomState(4)
     x = torch.from_numpy(rs.randn(2, 64, 101).astype(np.float32))
     w = torch.from_numpy((rs.randn(64, 64, 3) / 14).astype(np.float32))
-    want = conv_gelu._gelu(torch.nn.functional.conv1d(x.double(), w.double(), stride=2), gelu)
+    want = numerics.gelu(torch.nn.functional.conv1d(x.double(), w.double(), stride=2), gelu)
     bound = torch.nn.functional.conv1d(x.double().abs(), w.double().abs(), stride=2)
     got = conv_gelu._conv_gelu_pieces_reference(x, w, gelu)
     assert bool(torch.all((got - want).abs() <= 2.0**-22 * bound))

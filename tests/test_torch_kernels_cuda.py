@@ -24,6 +24,7 @@ from fast_speech_enhancement_metrics_tpu_torch.ops import (
     cuda_lib,
     levinson_pallas,
     lsd_fused,
+    numerics,
     pos_conv,
     relpos_attention,
     sdpa_pallas,
@@ -32,7 +33,7 @@ from fast_speech_enhancement_metrics_tpu_torch.ops import (
     stoi_fused,
     toeplitz,
 )
-from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import LOG2E
+from fast_speech_enhancement_metrics_tpu_torch.ops.numerics import LOG2E
 from fast_speech_enhancement_metrics_tpu_torch.utils.audio import load_audio_data
 
 pytestmark = pytest.mark.cuda
@@ -899,7 +900,7 @@ def _check_conv_gelu(dev, rows, c_in, c_out, width, t_in, gelu):
     torch.cuda.synchronize()
     assert cuda_lib.launch_counts[conv_gelu.KERNEL] == before + 2
     assert got.shape == (rows, c_out, (t_in - width) // 2 + 1) and torch.equal(got, again)
-    want = conv_gelu._gelu(torch.nn.functional.conv1d(x.double(), w.double(), stride=2), gelu)
+    want = numerics.gelu(torch.nn.functional.conv1d(x.double(), w.double(), stride=2), gelu)
     library = conv_gelu._conv_gelu_plain(x, w, gelu)
     scale = want.abs().max()
     err = ((got.double() - want).abs().max() / scale).item()

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert
-from fast_speech_enhancement_metrics_tpu_torch.ops import pos_conv
+from fast_speech_enhancement_metrics_tpu_torch.ops import numerics, pos_conv
 
 # hidden 96 / 128 in 2 groups: 48 / 64 channels a group, the kernel's two
 # instantiations, at the kernel's width of 128
@@ -151,7 +151,7 @@ def _pos_stage_before_kernel(enc, x):
 def _stage_input(enc, audio):
     fp, config = enc.feature_projection, enc.config
     x = hubert.feature_encoder(enc, audio)
-    x = hubert._layer_norm(x, fp["ln_s"], fp["ln_b"], config.layer_norm_eps)
+    x = numerics.layer_norm(x, fp["ln_s"], fp["ln_b"], config.layer_norm_eps)
     return torch.matmul(x, fp["w"]) + fp["b"]
 
 
@@ -163,8 +163,8 @@ def test_hidden_state_on_cpu_is_the_pre_kernel_path(cg, bn):
     enc = _encoder(cg, bn)
     audio = torch.from_numpy(AUDIO)
     enc_ln, config = enc.encoder_ln, enc.config
-    want = hubert._layer_norm(_pos_stage_before_kernel(enc, _stage_input(enc, audio)), enc_ln["s"], enc_ln["b"],
-                              config.layer_norm_eps)
+    want = numerics.layer_norm(_pos_stage_before_kernel(enc, _stage_input(enc, audio)), enc_ln["s"], enc_ln["b"],
+                               config.layer_norm_eps)
     assert torch.equal(hubert.hubert_hidden_state(enc, audio, output_layer=0), want)
 
 

@@ -43,7 +43,7 @@ import pytest
 import torch
 
 from fast_speech_enhancement_metrics_tpu.ops import sdpa_pallas as jax_sdpa
-from fast_speech_enhancement_metrics_tpu_torch.ops import attention_core, sdpa_pallas
+from fast_speech_enhancement_metrics_tpu_torch.ops import numerics, sdpa_pallas
 
 CASES = [(70, 16), (128, 64), (259, 80), (259, 16), (70, 80)]
 #: the float32 arm's dataflow: T under one 64-key tile, ragged, and many tiles
@@ -120,7 +120,7 @@ def test_sdpa_plain_matches_pallas_float32(t, d, softmax, strict_exp2_bf16):
 def test_exp2_bf16_is_jnp_exp2_of_bf16():
     x = np.linspace(-100.0, 60.0, 40001).astype(np.float32)
     want = np.asarray(jnp.exp2(jnp.asarray(x).astype(jnp.bfloat16)).astype(jnp.float32))
-    np.testing.assert_array_equal(attention_core.softmax_p(torch.from_numpy(x)[None], "exp2_bf16")[0].numpy(), want)
+    np.testing.assert_array_equal(numerics.softmax_p(torch.from_numpy(x)[None], "exp2_bf16")[0].numpy(), want)
 
 
 @pytest.mark.parametrize("softmax", ["exact", "exp2", "exp2_bf16"])
@@ -256,8 +256,9 @@ def test_split_pieces_reassemble_exactly(d):
     x = (rs.choice([-1.0, 1.0], shape) * rs.uniform(1.0, 2.0, shape) * np.exp2(rs.randint(-100, 100, shape)))
     x = x.astype(np.float32)
     x = torch.from_numpy(x)
-    x0, x1, x2 = sdpa_pallas._split3(x)
-    assert all(torch.equal(a.to(torch.bfloat16).float(), a) for a in (x0, x1, x2))
+    x0, x1, x2 = numerics.split3(x)
+    assert all(a.dtype == torch.bfloat16 for a in (x0, x1, x2))
+    x0, x1, x2 = (a.float() for a in (x0, x1, x2))
     assert torch.equal((x0 + x1) + x2, x)
     pieces = sdpa_pallas.split_pieces(x, 2 * x, -x)
     d_p = 64 if d <= 64 else 128

@@ -42,7 +42,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert  # noqa: E402
 from fast_speech_enhancement_metrics_tpu_torch.ops import sdpa_pallas  # noqa: E402
-from fast_speech_enhancement_metrics_tpu_torch.ops.attention_core import LN2_BF16  # noqa: E402
+from fast_speech_enhancement_metrics_tpu_torch.ops.numerics import LN2_BF16  # noqa: E402
 from time_attention import kernel_library  # noqa: E402
 
 SHAPE = (16, 12, 2999, 64)
