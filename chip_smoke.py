@@ -20,11 +20,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    and TMA, SDR's correlation kernels (A4's Gram in splits x4, x3, x1 and
    A10's chunk DFT) and LSD's frame-tile kernel (A1-A3) bf16 wgmma and
    TMA, so must the conv encoder's convs 1-6 (``conv_gelu.cu``, both
-   widths and GELUs) bf16 wgmma and TMA, and the positional conv stage
-   (``pos_conv.cu``, 48 and 64 channels a group) bf16 wgmma and TMA bulk
-   copies,
+   widths and GELUs, without and with the LayerNorm) bf16 wgmma and TMA,
+   and the positional conv stage (``pos_conv.cu``, 48 and 64 channels a
+   group) bf16 wgmma and TMA bulk copies,
    and none may spill a register, nor may the Levinson warp kernels
-   (A5 and the A14 variants, all 32 orders each) or A6's segment kernel,
+   (A5 and the A14 variants, all 32 orders each), A6's segment kernel or
+   the layer-norm encoder's conv 0 kernel (``conv0_ln_gelu_kernel``),
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes (64 x 16 s x 16 kHz from the package's synthetic
    generator; 64 x (16 s + 100) and 64 x (20 s + 100) samples for LSD's
@@ -53,6 +54,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    mHuBERT-147's conv encoder on ``conv_gelu.cu``, at 64 x 16 s against
    their plain version (cuDNN float32, TF32 off, then the GELU), conv 1
    on two rows also against a float64 conv, within twice cuDNN's distance);
+   C0-LN and FE-LN, WavLM-Large's layer-norm encoder on ``conv_gelu.cu``
+   (conv 0 on the clean rows, then convs 1-6, each with its LayerNorm over
+   channels and GELU), at 64 x 16 s against their plain version (cuDNN
+   float32, TF32 off, ``numerics.layer_norm``, the GELU), each launch twice
+   bit-equal, conv 0 and conv 1 on two rows also against a float64 chain,
+   within twice the plain version's distance (then WavLM-Large's public
+   call in phase 4: 2 and 12 launches);
    PC, the positional conv stage (BN affine, grouped conv of width 128,
    bias, GELU, residual) on ``pos_conv.cu`` at the SpeechBERTScore cells'
    row chunks, 64 x 799 x 768 with the BN affine (mHuBERT-147), 64 x 799 x
@@ -110,7 +118,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    alone at the layer's four products against bf16 ``F.linear``, A12's
    int8 GEMM alone at QKV and W_o against ``torch._int_mm`` and the
    dequantization; FE's six convs in a chain from a 64 x 16 s conv 0
-   output, against the same chain on cuDNN; PC at its three shapes, against
+   output, against the same chain on cuDNN, FE-LN's on the same chain with
+   each conv's LayerNorm and C0-LN on the clean rows, against cuDNN
+   float32, ``numerics.layer_norm`` and the GELU; PC at its three shapes, against
    cuDNN float32 and the stage's passes; A9's and A15's float32 arms (``precision="highest"``)
    on their float32 inputs, against scaled_dot_product_attention's
    memory-efficient backend, and their split pass; and each metric end to
@@ -469,6 +479,21 @@ def fe_inputs(dev: torch.device) -> tuple[torch.Tensor, list, list]:
     return x, ws, [conv_gelu.split_pieces(w) for w in ws]
 
 
+def ln_inputs(dev: torch.device) -> tuple[torch.Tensor, list]:
+    """The layer-norm encoder's operands besides FE's (``fe_inputs``;
+    WavLM-Large's conv widths are mHuBERT-147's): conv 0's He-scaled
+    weights (512, 1, 10) and each conv's LayerNorm scale 1 + N(0, 0.01) and
+    shift N(0, 0.01); the same from every call."""
+    from fast_speech_enhancement_metrics_tpu_torch.models import hubert
+
+    cfg = hubert.WAVLM_LARGE_CONFIG
+    g = torch.Generator(device=dev).manual_seed(24)
+    k = cfg.conv_kernel[0]
+    w0 = torch.randn(cfg.conv_dim[0], 1, k, device=dev, generator=g) * (2.0 / k) ** 0.5
+    return w0, [(1 + 0.1 * torch.randn(c, device=dev, generator=g), 0.1 * torch.randn(c, device=dev, generator=g))
+                for c in cfg.conv_dim]
+
+
 #: PC's shapes, the SpeechBERTScore cells' row chunks: (rows, frames,
 #: channels, BN affine) of mHuBERT-147 at 16 s, WavLM-Large, mHuBERT-147 at 60 s
 PC_SHAPES = ((BATCH, 799, 768, True), (BATCH, 799, 1024, False), (LONG_BATCH, 2999, 768, True))
@@ -599,7 +624,7 @@ def main() -> int:
         ("gram_kernel", "sdr_corr_gram", 3, "HGMMA", lambda name: True),
         ("corr_dft_kernel", "sdr_corr_fused", 1, "HGMMA", lambda name: True),
         ("lsd_tile_kernel", "lsd_fused", 1, "HGMMA", lambda name: True),
-        ("conv_gelu_kernel", "conv_gelu", 4, "HGMMA", lambda name: True),
+        ("conv_gelu_kernel", "conv_gelu", 8, "HGMMA", lambda name: True),
         ("relpos_attn_kernel", "relpos_attn", 6, "HGMMA", lambda name: True),
         ("pos_conv_kernel", "pos_conv", 2, "HGMMA", lambda name: True),
     ):
@@ -626,7 +651,8 @@ def main() -> int:
     for kernel, source, n in (("levinson_warp_kernel", "levinson", 32), ("levinson_flat_warp_kernel", "levinson_flat", 96),
                               ("levinson_dotreduce_warp_kernel", "levinson_dotreduce", 32),
                               ("levinson_double_warp_kernel", "levinson_double", 32),
-                              ("stoi_segments_kernel", "stoi_fused", 1)):
+                              ("stoi_segments_kernel", "stoi_fused", 1),
+                              ("conv0_ln_gelu_kernel", "conv_gelu", 2)):
         spills, entry = [], ""
         for line in (cuda_lib.BUILD_DIR / f"{source}.log").read_text().splitlines():
             if "Compiling entry function" in line:
@@ -1209,7 +1235,49 @@ def main() -> int:
     record("FE", conv_gelu.KERNEL, "conv_gelu.cu", "models/hubert.py:120", worst, 1e-5,
            f" (convs 1-6 at 64 x 16 s, over max|plain|; conv 1 on 2 rows from float64: {fe64:.3e}, "
            f"cuDNN float32 {lib64:.3e})")
-    del fe_x, fe_w, fe_pieces, got, x_, want64
+    del fe_x, got, x_, want64
+
+    # FE-LN and C0-LN: WavLM-Large's layer-norm encoder at its row chunk of
+    # 64 x 16 s, conv 0 on the clean rows, then convs 1-6 on FE's weights;
+    # each launch against the plain version (cuDNN float32, TF32 off,
+    # ``numerics.layer_norm`` over channels, the GELU) on the same input,
+    # the plain chain's, over max|plain|, and twice bit-equal; conv 0 and
+    # conv 1 on two rows also against a float64 chain, within twice the
+    # plain version's distance
+    ln_w0, ln_norms = ln_inputs(dev)
+    ln_eps = hubert.WAVLM_LARGE_CONFIG.layer_norm_eps
+
+    def ln64(x, w, norm, stride):
+        y = torch.nn.functional.conv1d(x.double(), w.double(), stride=stride)
+        mean = y.mean(dim=1, keepdim=True)
+        y = (y - mean) * torch.rsqrt(((y - mean) ** 2).mean(dim=1, keepdim=True) + ln_eps)
+        return numerics.gelu(y * norm[0].double()[:, None] + norm[1].double()[:, None], "tanh")
+
+    ln_convs = [("C0-LN", ln_w0, 5, lambda x, n: conv_gelu.conv0_ln_gelu(x, ln_w0, *n, ln_eps, "tanh"))] + [
+        ("FE-LN", w_, 2, lambda x, n, w_=w_, p_=p_: conv_gelu.conv_ln_gelu(x, w_, *n, ln_eps, "tanh", pieces=p_))
+        for w_, p_ in zip(fe_w, fe_pieces)]
+    worst, notes, x_ = {"C0-LN": 0.0, "FE-LN": 0.0}, {}, c[:, None]
+    for i, ((kid, w_, stride, kern), norm) in enumerate(zip(ln_convs, ln_norms)):
+        got = kern(x_, norm)
+        check(torch.equal(got, kern(x_, norm)), f"{kid} conv {i} at 64 x 16 s: two launches differ")
+        plain_ = conv_gelu._conv_ln_gelu_plain(x_, w_, *norm, ln_eps, "tanh", stride)
+        worst[kid] = max(worst[kid], ((got - plain_).abs().max() / plain_.abs().max()).item())
+        if i < 2:
+            want64 = ln64(x_[:2], w_, norm, stride)
+            k64, lib64 = (((y[:2].double() - want64).abs().max() / want64.abs().max()).item() for y in (got, plain_))
+            check(k64 <= 2 * lib64, f"{kid} conv {i} from float64 {k64:.3e}, over twice cuDNN float32 + "
+                                    f"layer_norm's {lib64:.3e}")
+            notes[kid] = f"conv {i} on 2 rows from float64: {k64:.3e}, cuDNN float32 + layer_norm {lib64:.3e}"
+            del want64
+        del got
+        x_ = plain_
+    record("C0-LN", conv_gelu.KERNEL_CONV0, "conv_gelu.cu", "models/hubert.py", worst["C0-LN"], 1e-5,
+           f" (conv 0 of the layer-norm encoder at 64 x 16 s, over max|plain|; {notes['C0-LN']})")
+    record("FE-LN", conv_gelu.KERNEL_LN, "conv_gelu.cu", "models/hubert.py", worst["FE-LN"], 1e-5,
+           f" (convs 1-6 of the layer-norm encoder at 64 x 16 s, over max|plain|; {notes['FE-LN']})")
+    results["C0-LN"]["replaces"] = results["FE-LN"]["replaces"] = None  # the JAX package has no WavLM
+    del fe_w, fe_pieces, x_, plain_, ln_convs
+    torch.cuda.empty_cache()
 
     # PC: the positional conv stage at the three cells' row chunks, each
     # launch against the plain version (cuDNN float32 and the stage's
@@ -1377,14 +1445,16 @@ def main() -> int:
     # SpeechBERTScore on WavLM-Large (init_params seed 0, the 14 layers of
     # layer 14) on the 16 s batch: the relative-position route, RP, RP-in
     # and RP-out each once per layer and row chunk (28) and none of A7 / A8 /
-    # A9 / A15; F1 against
+    # A9 / A15; the conv encoder's conv 0 and convs 1-6 on the LayerNorm
+    # kernels (2 and 12), none on FE's plain epilogue; F1 against
     # the card's float32 route (precision="highest": plain tensor ops, the
     # bias built in blocks of queries) within the bf16 class of F1 (2e-3)
     wavlm = pkg.SpeechBERTScore(params=wavlm_params, config=hubert.WAVLM_LARGE_CONFIG, output_layer=14)
-    f1_wavlm = f1_of(drive(lambda: wavlm(clean_np, noisy_np), "SpeechBERTScore WavLM-Large", ("RP", "RP-in", "RP-out")),
-                     BATCH)
+    f1_wavlm = f1_of(drive(lambda: wavlm(clean_np, noisy_np), "SpeechBERTScore WavLM-Large",
+                           ("RP", "RP-in", "RP-out", "C0-LN", "FE-LN")), BATCH)
     only({relpos_attention.KERNEL: 28, relpos_attention.KERNEL_IN: 28, relpos_attention.KERNEL_OUT: 28,
-          pos_conv.KERNEL: 2, **{k: 0 for k in attn_kernels}}, "SpeechBERTScore WavLM-Large")
+          pos_conv.KERNEL: 2, conv_gelu.KERNEL_CONV0: 2, conv_gelu.KERNEL_LN: 12, conv_gelu.KERNEL: 0,
+          **{k: 0 for k in attn_kernels}}, "SpeechBERTScore WavLM-Large")
     wavlm_f32 = pkg.SpeechBERTScore(params=wavlm_params, config=hubert.WAVLM_LARGE_CONFIG, output_layer=14,
                                     precision="highest", gelu="tanh")
     dev_wavlm = float(np.max(np.abs(f1_wavlm - f1_of(wavlm_f32(clean_np, noisy_np), BATCH))))
@@ -1911,6 +1981,32 @@ def main() -> int:
     timing["FE"] = (lambda: fe_chain(lambda y, w_, p_: conv_gelu.conv_gelu(y, w_, "tanh", pieces=p_)),
                     fe_plain, fe_plain, fe_ops, fe_ops, fe_bytes)
 
+    # FE-LN: the same chain with each conv's LayerNorm (the same least
+    # work and bytes); C0-LN: conv 0 of the layer-norm encoder on the clean
+    # rows, ten float32 FMAs an output, bound by the samples read and the
+    # output written; the yardstick (and the plain version) cuDNN float32,
+    # TF32 off, then numerics.layer_norm over channels and the GELU
+    ln_w0, ln_norms = ln_inputs(dev)
+    ln_eps = hubert.WAVLM_LARGE_CONFIG.layer_norm_eps
+
+    def fe_ln_chain(conv):
+        y = fe_x
+        for w_, p_, n_ in zip(fe_w, fe_pieces, ln_norms[1:]):
+            y = conv(y, w_, p_, n_)
+        return y
+
+    fe_ln_plain = lambda: fe_ln_chain(  # noqa: E731
+        lambda y, w_, p_, n_: conv_gelu._conv_ln_gelu_plain(y, w_, *n_, ln_eps, "tanh", 2))
+    timing["FE-LN"] = (lambda: fe_ln_chain(lambda y, w_, p_, n_: conv_gelu.conv_ln_gelu(y, w_, *n_, ln_eps, "tanh",
+                                                                                          pieces=p_)),
+                       fe_ln_plain, fe_ln_plain, fe_ops, fe_ops, fe_bytes)
+    c0_in = c[:, None]
+    c0_out = (c0_in.shape[2] - ln_w0.shape[2]) // 5 + 1
+    c0_ops = 2 * ln_w0.shape[2] * BATCH * ln_w0.shape[0] * c0_out
+    c0_plain = lambda: conv_gelu._conv_ln_gelu_plain(c0_in, ln_w0, *ln_norms[0], ln_eps, "tanh", 5)  # noqa: E731
+    timing["C0-LN"] = (lambda: conv_gelu.conv0_ln_gelu(c0_in, ln_w0, *ln_norms[0], ln_eps, "tanh"), c0_plain,
+                       c0_plain, c0_ops, c0_ops, 4 * BATCH * (c0_in.shape[2] + ln_w0.shape[0] * c0_out))
+
     # PC at mHuBERT-147's row chunk (the table's row; its other two shapes
     # logged below): the least work is the float32 class on the bf16
     # tensor cores, six bf16 products of 2 T d c_g 128 per row; the bytes x
@@ -1929,7 +2025,7 @@ def main() -> int:
              "A11": PEAK_BF16_TC_FLOPS, "A15": PEAK_BF16_TC_FLOPS, "A12": PEAK_INT8_TC_OPS,
              "A9-f32": PEAK_BF16_TC_FLOPS, "A15-f32": PEAK_BF16_TC_FLOPS, "FE": PEAK_BF16_TC_FLOPS,
              "RP": PEAK_BF16_TC_FLOPS, "RP-in": PEAK_BF16_TC_FLOPS, "RP-out": PEAK_BF16_TC_FLOPS,
-             "PC": PEAK_BF16_TC_FLOPS}
+             "PC": PEAK_BF16_TC_FLOPS, "FE-LN": PEAK_BF16_TC_FLOPS}
     # the kernels' own algorithms on the bf16 tensor cores
     direct_peaks = {"A1": PEAK_BF16_TC_FLOPS, "A2": PEAK_BF16_TC_FLOPS, "A3": PEAK_BF16_TC_FLOPS,
                     "A4": PEAK_BF16_TC_FLOPS, "A4-x3": PEAK_BF16_TC_FLOPS, "A4-x1": PEAK_BF16_TC_FLOPS,
@@ -1957,7 +2053,7 @@ def main() -> int:
                f"assumed {FP32_LATENCY_CYCLES} cycles an operation at {sm_clock_hz / 1e9:.2f} GHz; A5's "
                f"{chain_floor_ms(LAGS, sm_clock_hz):.4f} ms)"))
 
-    del fe_x, fe_w, fe_pieces, rp_mask_built, rp_q, rp_k, rp_v
+    del fe_x, fe_w, fe_pieces, ln_w0, ln_norms, c0_in, rp_mask_built, rp_q, rp_k, rp_v
     del timing, kern, plain, library  # their closures hold the kernels' operands
     # PC at its other two shapes, one log line each
     for shape in PC_SHAPES[1:]:

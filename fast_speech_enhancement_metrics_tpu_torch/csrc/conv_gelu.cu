@@ -1,5 +1,9 @@
 // HuBERT's conv feature encoder, convs 1-6: out = gelu(conv1d(x, w, stride 2))
-// in float32 on the bf16 tensor cores, the GELU in the epilogue.
+// in float32 on the bf16 tensor cores, the GELU in the epilogue; in the
+// layer-norm encoder (WavLM) out = gelu(LN_channels(conv1d(x, w, stride 2))),
+// the LayerNorm in the epilogue too. Conv 0 of the layer-norm encoder, whose
+// shape the tensor-core kernel does not take, is a direct float32 kernel with
+// the same epilogue (conv0_ln_gelu_kernel, at the end).
 //
 // Replaces no Pallas kernel: the JAX package leaves these convs to XLA
 // (models/hubert.py::feature_encoder, lax.conv_general_dilated at
@@ -56,8 +60,28 @@
 // 32-byte runs. Frames at or past T_out and channels at or past C_out are
 // not stored.
 //
+// The layer-norm epilogue (kNorm = kLayer): a frame's C_out channels lie in
+// C_out / 128 blocks, so those blocks run as one thread block cluster, each
+// on the channel tile of its rank, the cluster walking frame tiles (the
+// grid a whole number of clusters; the tile order is the one above). Per
+// frame, numerics.layer_norm's two-pass float32 statistics, the mean first,
+// then the centred squares: the thread's 32 channels, then its quad by
+// shuffles (a frame's 128 channels of the block are one quad's), then the
+// cluster: each quad's first thread stores the block's partial into slot
+// (rank, quad) of every block of the cluster (distributed shared memory by
+// st.async, whose bytes count on the receiving block's mbarrier as a TMA
+// copy's: a release-ordered remote arrival waited for the thread's output
+// stores of the tile before, and cost 6 % of conv 1's time); each block
+// adds the C_out / 128 partials in rank order, so every block finds the
+// same statistics, and the same from every launch. Then (v - mean)
+// rsqrt(var + eps) scale + shift and the GELU, stored as above. Frames at
+// or past T_out have statistics of their own and are not stored. A block
+// reads only its own shared memory, and receives a tile's partials before
+// it ends the tile, so none is written after it exits.
+//
 // Shared memory: two stages of the float32 tile (32 x 264 x 4 = 33 KB) and
-// the weight pieces (k x 3 x 8 KB), 210 KB at k = 3.
+// the weight pieces (k x 3 x 8 KB), 210 KB at k = 3; the layer-norm
+// epilogue's partials 8 KB more.
 #include "sm90.cuh"
 
 namespace {
@@ -77,8 +101,11 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;  // 128 x 24 + 256 x 240 
 // bytes keep each row 16-byte aligned
 constexpr int kPitch = 264;
 enum Gelu { kErf = 0, kTanh = 1 };
+enum Norm { kNone = 0, kLayer = 1 };
+constexpr int kMaxCluster = 8;  // the layer-norm epilogue's blocks a frame: C_out <= 8 x 128
+constexpr int kQuads = kConsumers * 128 / 4;  // the consumers' quads: one a frame pair of the tile
 
-template <int kWidth>
+template <int kWidth, int kNorm>
 struct Layout {
   static constexpr int kSamples = 2 * (kBT - 1) + kWidth;  // samples a tile's frames read
   static constexpr int kAct = kKC * kPitch * 4;
@@ -86,8 +113,13 @@ struct Layout {
   static constexpr int kStage = kAct + kWidth * kPieces * kWBox;
   static constexpr int kStages = 2;
   static constexpr int kBarOff = kStages * kStage;
-  static constexpr size_t kBytes = kBarOff + 8 * 2 * kStages + 1024;  // + slack to align the base to 1024
-  static_assert(kSamples <= kPitch && kAct % 1024 == 0 && kStage % 1024 == 0, "tile layout");
+  // full and empty a stage; the layer-norm epilogue's mean and variance barriers
+  static constexpr int kBars = 2 * kStages + (kNorm == kLayer ? 2 : 0);
+  static constexpr int kStatOff = kBarOff + 8 * kBars;
+  // the partials of the mean and of the variance: (rank, quad) x two frames
+  static constexpr int kStatBytes = kNorm == kLayer ? 2 * kMaxCluster * kQuads * 8 : 0;
+  static constexpr size_t kBytes = kStatOff + kStatBytes + 1024;  // + slack to align the base to 1024
+  static_assert(kSamples <= kPitch && kAct % 1024 == 0 && kStage % 1024 == 0 && kStatOff % 16 == 0, "tile layout");
   static_assert(kBytes <= 232448, "shared memory");
 };
 
@@ -123,16 +155,98 @@ __device__ __forceinline__ float gelu(float v) {
   }
 }
 
+// -- the layer-norm epilogue ---------------------------------------------------
+__device__ __forceinline__ float2 ld_shared2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// a quad's partials v of its two frames, summed over the cluster's
+// `blocks` blocks: the quad's first thread stores them in slot (rank, quad)
+// of `buf` in every block, each store counted on that block's `bar`, whose
+// phase the block's thread 0 opens for the bytes of all slots; once they
+// have landed, every thread adds its quad's slots in rank order
+__device__ __forceinline__ void cluster_sum(float (&v)[2], uint32_t bar, uint32_t buf, uint32_t parity, int quad,
+                                            bool lead, int blocks) {
+  if (quad == 0 && lead) mbar_expect_tx(bar, kQuads * blocks * 8);
+  if (lead) {
+    const uint32_t slot = buf + (cluster_rank() * kQuads + quad) * 8u;
+    for (int r = 0; r < blocks; ++r) st_async(cluster_map(slot, r), v[0], v[1], cluster_map(bar, r));
+  }
+  mbar_wait_cluster(bar, parity);
+  float s0 = 0.f, s1 = 0.f;
+  for (int r = 0; r < blocks; ++r) {
+    const float2 p = ld_shared2(buf + (r * kQuads + quad) * 8u);
+    s0 += p.x;
+    s1 += p.y;
+  }
+  v[0] = s0;
+  v[1] = s1;
+}
+
+// The tile's LayerNorm over channels, in place on the accumulators (register
+// 4 jj + e: frame e / 2 of the thread's two, channel o0 + 8 jj + e % 2):
+// the mean, then the mean of the centred squares, each summed in the thread,
+// its quad and the cluster; then (v - mean) rsqrt(var + eps) scale + shift.
+// tile: the block's tiles before this one (the barriers' phase); bars the
+// stage barriers, followed by the mean's and the variance's; stats their
+// partials.
+template <int kStages>
+__device__ __forceinline__ void layer_norm(float (&acc)[64], const float* __restrict__ scale,
+                                           const float* __restrict__ shift, float eps, int o0, int c_out, int tid,
+                                           int cq, int tile, uint32_t bars, uint32_t stats) {
+  const int quad = tid / 4, blocks = c_out / kBO;
+  const uint32_t parity = tile & 1, mean_bar = bars + 8u * (2 * kStages);
+  const float n = (float)c_out;
+  float m[2] = {0.f, 0.f}, q[2] = {0.f, 0.f}, r[2];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) m[e % 4 / 2] += acc[e];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m[h] += __shfl_xor_sync(0xffffffffu, m[h], 1);
+    m[h] += __shfl_xor_sync(0xffffffffu, m[h], 2);
+  }
+  cluster_sum(m, mean_bar, stats, parity, quad, cq == 0, blocks);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) m[h] = __fdiv_rn(m[h], n);
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    const float d = acc[e] - m[e % 4 / 2];
+    q[e % 4 / 2] = fmaf(d, d, q[e % 4 / 2]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    q[h] += __shfl_xor_sync(0xffffffffu, q[h], 1);
+    q[h] += __shfl_xor_sync(0xffffffffu, q[h], 2);
+  }
+  cluster_sum(q, mean_bar + 8u, stats + kMaxCluster * kQuads * 8, parity, quad, cq == 0, blocks);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) r[h] = rsqrtf(__fdiv_rn(q[h], n) + eps);
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = o0 + 8 * jj + e % 2;
+      acc[4 * jj + e] = (acc[4 * jj + e] - m[e / 2]) * r[e / 2] * __ldg(scale + o) + __ldg(shift + o);
+    }
+  }
+}
+
 // Accumulator layout of m64n128k16: register 4 j + e of consumer thread t
 // (warp w = t / 32 % 4, g = t % 32 / 4, c = t % 4) holds frame 16 w + g +
 // 8 (e / 2) of its warpgroup's 64 and output channel 8 j + 2 c + e % 2. A
 // fragment register m holds frame 16 w + g + 8 (m % 2) and the input
 // channels 2 c + 8 (m / 2), + 1 of the step's 16 (the low half the first).
-template <int kWidth, int kGelu>
+// The layer-norm epilogue: C_out / 128 blocks of a cluster, block r on
+// channel tile r (the grid a whole number of clusters, so t % o_tiles is the
+// rank); scale and shift the LayerNorm's, eps its epsilon (unread without it).
+template <int kWidth, int kGelu, int kNorm>
 __global__ void __launch_bounds__(kThreads, 1)
-    conv_gelu_kernel(const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ x, float* __restrict__ out,
-                     int batch, int c_in, int c_out, int t_in, int t_out) {
-  using L = Layout<kWidth>;
+    conv_gelu_kernel(const __grid_constant__ CUtensorMap tm_w, const float* __restrict__ x,
+                     const float* __restrict__ scale, const float* __restrict__ shift, float eps,
+                     float* __restrict__ out, int batch, int c_in, int c_out, int t_in, int t_out) {
+  using L = Layout<kWidth, kNorm>;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -152,9 +266,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_init(full(s), 1);
       mbar_init(empty(s), kConsumers * 128);
     }
+    if constexpr (kNorm == kLayer) {  // the statistics: thread 0's arrival, and the bytes of every block's partials
+      mbar_init(bars + 8u * (2 * kStages), 1);
+      mbar_init(bars + 8u * (2 * kStages + 1), 1);
+    }
     mbar_init_fence();
   }
-  __syncthreads();
+  if constexpr (kNorm == kLayer) {
+    cluster_sync();  // no block arrives on a peer's barriers before the peer has made them
+  } else {
+    __syncthreads();
+  }
 
   if (wg == kConsumers) {  // the producer warpgroup: its first warp issues every copy, a row a lane
     setmaxnreg_dec<kProducerRegs>();
@@ -275,6 +397,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // the epilogue: gelu from registers to out, 8 frames x 4 channels a warp store
     const int o0 = ot * kBO + 2 * cq, f0 = ft * kBT + row0;
+    if constexpr (kNorm == kLayer)
+      layer_norm<kStages>(acc, scale, shift, eps, o0, c_out, tid, cq, it / k_blocks - 1, bars, base + L::kStatOff);
 #pragma unroll
     for (int jj = 0; jj < 16; ++jj) {
       float y[4];
@@ -289,12 +413,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int kWidth, int kGelu>
-cudaError_t launch(const CUtensorMap& tm_w, const float* x, float* out, int batch, int c_in, int c_out, int t_in,
-                   int t_out, cudaStream_t stream) {
-  constexpr size_t smem = Layout<kWidth>::kBytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(conv_gelu_kernel<kWidth, kGelu>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int kWidth, int kGelu, int kNorm>
+cudaError_t launch(const CUtensorMap& tm_w, const float* x, const float* scale, const float* shift, float eps,
+                   float* out, int batch, int c_in, int c_out, int t_in, int t_out, cudaStream_t stream) {
+  constexpr size_t smem = Layout<kWidth, kNorm>::kBytes;
+  const auto kernel = conv_gelu_kernel<kWidth, kGelu, kNorm>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;  // a persistent grid: one block per SM
   err = cudaGetDevice(&dev);
@@ -302,8 +426,196 @@ cudaError_t launch(const CUtensorMap& tm_w, const float* x, float* out, int batc
   if (err != cudaSuccess) return err;
   const long long tiles =
       (long long)batch * ((t_out + kBT - 1) / kBT) * ((c_out + kBO - 1) / kBO);
-  conv_gelu_kernel<kWidth, kGelu><<<(int)(tiles < sms ? tiles : sms), kThreads, smem, stream>>>(
-      tm_w, x, out, batch, c_in, c_out, t_in, t_out);
+  if constexpr (kNorm == kNone) {
+    conv_gelu_kernel<kWidth, kGelu, kNorm><<<(int)(tiles < sms ? tiles : sms), kThreads, smem, stream>>>(
+        tm_w, x, scale, shift, eps, out, batch, c_in, c_out, t_in, t_out);
+    return cudaGetLastError();
+  } else {  // clusters of c_out / 128 blocks, as many as the card holds at once
+    const int blocks = c_out / kBO;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(blocks * (sms / blocks)));
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    const long long frame_tiles = tiles / blocks;
+    cfg.gridDim = dim3((unsigned)(blocks * (frame_tiles < clusters ? frame_tiles : clusters)));
+    return cudaLaunchKernelEx(&cfg, kernel, tm_w, x, scale, shift, eps, out, batch, c_in, c_out, t_in, t_out);
+  }
+}
+
+template <int kNorm>
+cudaError_t launch_any(const CUtensorMap& tm_w, const float* x, const float* scale, const float* shift, float eps,
+                       float* out, int batch, int c_in, int c_out, int t_in, int t_out, int width, int gelu,
+                       cudaStream_t stream) {
+  if (width == 2 && gelu == kErf)
+    return launch<2, kErf, kNorm>(tm_w, x, scale, shift, eps, out, batch, c_in, c_out, t_in, t_out, stream);
+  if (width == 2)
+    return launch<2, kTanh, kNorm>(tm_w, x, scale, shift, eps, out, batch, c_in, c_out, t_in, t_out, stream);
+  if (gelu == kErf)
+    return launch<3, kErf, kNorm>(tm_w, x, scale, shift, eps, out, batch, c_in, c_out, t_in, t_out, stream);
+  return launch<3, kTanh, kNorm>(tm_w, x, scale, shift, eps, out, batch, c_in, c_out, t_in, t_out, stream);
+}
+
+// -- conv 0 of the layer-norm encoder ------------------------------------------
+// out = gelu(LN_channels(conv1d(x, w, stride 5))), x (B, 1, T_in), w (512, 1,
+// 10): out[c, t] = sum_j w[c, j] x[5 t + j], ten float32 FMAs an output in j
+// order, no split (the tensor cores would need a K of 16 for 10 products).
+// Bound by its write: 512 floats a frame, 6.7 GB at 64 rows of 16 s, 2 ms
+// at 3.35 TB/s; its arithmetic (the FMAs, the statistics, the GELU) about
+// as long on the CUDA cores.
+// A persistent grid of 512-thread blocks over tiles of 64 frames x all 512
+// channels: warp w holds channels 32 w .. 32 w + 31, lane l frames l and l +
+// 32 (a warp's store of a channel covers 32 frames, 128 contiguous bytes),
+// the 64 values in registers; the weights (padded to 12 a channel: three
+// 16-byte broadcast reads), the LayerNorm's scale and shift and the tile's
+// samples in shared memory, the next tile's samples copied (cp.async) while
+// this one's statistics form. Statistics: numerics.layer_norm's two passes,
+// per frame the thread's 32 channels, then the 16 warps' partials in warp
+// order through shared memory. Frames at or past T_out are not stored;
+// the stores stream (st.global.cs: with write-back stores the kernel took
+// 26 % longer, its arithmetic alone 44 % of that).
+namespace c0 {
+constexpr int kC = 512, kK = 10, kS = 5;
+constexpr int kThreads = 512, kWarps = kThreads / 32, kCW = kC / kWarps;  // 32 channels a warp
+constexpr int kBT = 64;                        // frames a tile, two a lane
+constexpr int kSamples = kS * (kBT - 1) + kK;  // 325
+constexpr int kXPitch = 328;
+constexpr int kWPitch = 12;
+}  // namespace c0
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+template <int kGelu>
+__global__ void __launch_bounds__(c0::kThreads, 1)
+    conv0_ln_gelu_kernel(const float* __restrict__ x, const float* __restrict__ w, const float* __restrict__ scale,
+                         const float* __restrict__ shift, float eps, float* __restrict__ out, int batch, int t_in,
+                         int t_out) {
+  __shared__ __align__(16) float ws[c0::kC * c0::kWPitch];
+  __shared__ float sc[c0::kC], sh[c0::kC];
+  __shared__ float xs[2][c0::kXPitch];
+  __shared__ float red[2][c0::kWarps][c0::kBT];  // the warps' partials of the mean and of the variance
+  const int tid = threadIdx.x, lane = tid % 32, wp = tid / 32;
+  const int f_tiles = (t_out + c0::kBT - 1) / c0::kBT;
+  const long long tiles = (long long)batch * f_tiles;
+  for (int i = tid; i < c0::kC * c0::kWPitch; i += c0::kThreads) {
+    const int c = i / c0::kWPitch, j = i % c0::kWPitch;
+    ws[i] = j < c0::kK ? w[c * c0::kK + j] : 0.f;
+  }
+  for (int i = tid; i < c0::kC; i += c0::kThreads) {
+    sc[i] = scale[i];
+    sh[i] = shift[i];
+  }
+  // the samples of tile t, zeros past the row's end
+  auto fetch = [&](long long t, int buf) {
+    const int s0 = (int)(t % f_tiles) * c0::kBT * c0::kS;
+    const float* row = x + (size_t)(t / f_tiles) * t_in;
+    for (int i = tid; i < c0::kSamples; i += c0::kThreads) {
+      if (s0 + i < t_in) {
+        cp_async4(&xs[buf][i], row + s0 + i);
+      } else {
+        xs[buf][i] = 0.f;
+      }
+    }
+  };
+  if (blockIdx.x < tiles) fetch(blockIdx.x, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  int it = 0;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+    const int buf = it & 1;
+    const int b = (int)(t / f_tiles), f0 = (int)(t % f_tiles) * c0::kBT;
+    float xv[2][c0::kK];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < c0::kK; ++j) xv[h][j] = xs[buf][c0::kS * (lane + 32 * h) + j];
+    float acc[c0::kCW][2];
+#pragma unroll
+    for (int i = 0; i < c0::kCW; ++i) {
+      const float4* wv = reinterpret_cast<const float4*>(ws + (wp * c0::kCW + i) * c0::kWPitch);
+      const float4 w0 = wv[0], w1 = wv[1], w2 = wv[2];
+      const float wj[c0::kK] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w, w2.x, w2.y};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v = wj[0] * xv[h][0];
+#pragma unroll
+        for (int j = 1; j < c0::kK; ++j) v = fmaf(wj[j], xv[h][j], v);
+        acc[i][h] = v;
+      }
+    }
+    float m[2] = {0.f, 0.f}, q[2] = {0.f, 0.f}, r[2];
+#pragma unroll
+    for (int i = 0; i < c0::kCW; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) m[h] += acc[i][h];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) red[0][wp][lane + 32 * h] = m[h];
+    if (t + gridDim.x < tiles) fetch(t + gridDim.x, buf ^ 1);  // read by tile it + 1, after both barriers below
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
+#pragma unroll
+      for (int v = 0; v < c0::kWarps; ++v) s += red[0][v][lane + 32 * h];
+      m[h] = __fdiv_rn(s, (float)c0::kC);
+    }
+#pragma unroll
+    for (int i = 0; i < c0::kCW; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float d = acc[i][h] - m[h];
+        q[h] = fmaf(d, d, q[h]);
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) red[1][wp][lane + 32 * h] = q[h];
+    cp_async_wait_all();
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
+#pragma unroll
+      for (int v = 0; v < c0::kWarps; ++v) s += red[1][v][lane + 32 * h];
+      r[h] = rsqrtf(__fdiv_rn(s, (float)c0::kC) + eps);
+    }
+#pragma unroll
+    for (int i = 0; i < c0::kCW; ++i) {
+      const int c = wp * c0::kCW + i;
+      float* row = out + ((size_t)b * c0::kC + c) * t_out + f0 + lane;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (f0 + lane + 32 * h < t_out) __stcs(row + 32 * h, gelu<kGelu>((acc[i][h] - m[h]) * r[h] * sc[c] + sh[c]));
+    }
+  }
+}
+
+template <int kGelu>
+cudaError_t launch_conv0(const float* x, const float* w, const float* scale, const float* shift, float eps, float* out,
+                         int batch, int t_in, int t_out, cudaStream_t stream) {
+  const auto kernel = conv0_ln_gelu_kernel<kGelu>;
+  int dev = 0, sms = 0, per_sm = 0;  // a persistent grid: as many blocks as the card holds at once
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, c0::kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)batch * ((t_out + c0::kBT - 1) / c0::kBT);
+  const long long grid = tiles < (long long)sms * per_sm ? tiles : (long long)sms * per_sm;
+  conv0_ln_gelu_kernel<kGelu><<<(int)grid, c0::kThreads, 0, stream>>>(x, w, scale, shift, eps, out, batch, t_in,
+                                                                       t_out);
   return cudaGetLastError();
 }
 
@@ -313,12 +625,18 @@ cudaError_t launch(const CUtensorMap& tm_w, const float* x, float* out, int batc
 // x (batch, c_in, t_in) float32, contiguous, 16-byte aligned; pieces (3, width, c_out, c_in)
 // bf16, contiguous, 16-byte aligned (ops/conv_gelu.py::split_pieces); out
 // (batch, c_out, t_out) float32, t_out = (t_in - width) / 2 + 1. c_in a
-// multiple of 32, c_out of 8, width 2 or 3, gelu 0 (erf) or 1 (tanh).
-extern "C" int fsem_conv_gelu(const float* x, const void* pieces, float* out, int batch, int c_in, int c_out,
-                              int t_in, int width, int gelu, void* stream_ptr) {
+// multiple of 32, c_out of 8, width 2 or 3, gelu 0 (erf) or 1 (tanh). With
+// scale and shift (c_out float32 each; both or neither) the LayerNorm over
+// channels with epsilon eps comes before the GELU: c_out then a multiple of
+// 128, at most 8 x 128.
+extern "C" int fsem_conv_gelu(const float* x, const void* pieces, const float* scale, const float* shift, float* out,
+                              int batch, int c_in, int c_out, int t_in, int width, int gelu, float eps,
+                              void* stream_ptr) {
   using namespace convg;
+  const bool norm = scale != nullptr;
   if (batch <= 0 || c_in <= 0 || c_in % kKC || c_out <= 0 || c_out % 8 || (width != 2 && width != 3) ||
-      t_in < width || (gelu != kErf && gelu != kTanh) || reinterpret_cast<uintptr_t>(x) % 16)
+      t_in < width || (gelu != kErf && gelu != kTanh) || reinterpret_cast<uintptr_t>(x) % 16 ||
+      norm != (shift != nullptr) || (norm && (c_out % kBO || c_out > kMaxCluster * kBO)))
     return (int)cudaErrorInvalidValue;
   const int t_out = (t_in - width) / 2 + 1;
   if ((long long)batch * ((t_out + kBT - 1) / kBT) * ((c_out + kBO - 1) / kBO) > 0x7fffffffLL)
@@ -328,10 +646,22 @@ extern "C" int fsem_conv_gelu(const float* x, const void* pieces, float* out, in
   const cuuint64_t strides[2] = {(cuuint64_t)c_in * 2, (cuuint64_t)c_out * c_in * 2};
   if (!sm90::tensor_map(&tm_w, pieces, 3, dims, strides, kBO, 2, 64)) return (int)cudaErrorInvalidValue;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (width == 2)
-    return (int)(gelu == kErf ? launch<2, kErf>(tm_w, x, out, batch, c_in, c_out, t_in, t_out, stream)
-                              : launch<2, kTanh>(tm_w, x, out, batch, c_in, c_out, t_in, t_out, stream));
-  return (int)(gelu == kErf ? launch<3, kErf>(tm_w, x, out, batch, c_in, c_out, t_in, t_out, stream)
-                            : launch<3, kTanh>(tm_w, x, out, batch, c_in, c_out, t_in, t_out, stream));
+  return (int)(norm ? launch_any<kLayer>(tm_w, x, scale, shift, eps, out, batch, c_in, c_out, t_in, t_out, width,
+                                         gelu, stream)
+                    : launch_any<kNone>(tm_w, x, scale, shift, eps, out, batch, c_in, c_out, t_in, t_out, width,
+                                        gelu, stream));
 }
 
+// x (batch, 1, t_in), w (512, 1, 10), scale and shift (512) float32,
+// contiguous; out (batch, 512, t_out) float32, t_out = (t_in - 10) / 5 + 1;
+// gelu 0 (erf) or 1 (tanh); eps the LayerNorm's epsilon.
+extern "C" int fsem_conv0_ln_gelu(const float* x, const float* w, const float* scale, const float* shift, float* out,
+                                  int batch, int t_in, int gelu, float eps, void* stream_ptr) {
+  using namespace convg;
+  if (batch <= 0 || t_in < c0::kK || (gelu != kErf && gelu != kTanh)) return (int)cudaErrorInvalidValue;
+  const int t_out = (t_in - c0::kK) / c0::kS + 1;
+  if ((long long)batch * ((t_out + c0::kBT - 1) / c0::kBT) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  return (int)(gelu == kErf ? launch_conv0<kErf>(x, w, scale, shift, eps, out, batch, t_in, t_out, stream)
+                            : launch_conv0<kTanh>(x, w, scale, shift, eps, out, batch, t_in, t_out, stream));
+}

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the TMA / wgmma kernels (flash_sm90.cuh,
-// gemm_sm90.cuh, attn_block_int8.cu, conv_gelu.cu, pos_conv.cu): mbarriers, TMA tensor loads and
-// bulk copies, the host-side encoding
+// gemm_sm90.cuh, attn_block_int8.cu, conv_gelu.cu, pos_conv.cu): mbarriers, a
+// cluster's distributed shared memory, TMA tensor loads and bulk copies, the host-side encoding
 // of their tensor maps, wgmma shared-memory descriptors and products, and
 // the setmaxnreg register hand-over of warp-specialized blocks.
 //
@@ -50,6 +50,49 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "{\n"
         ".reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// -- thread block clusters: distributed shared memory and its barriers --------
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster, writes before it visible to
+// reads after it (all threads of each block must reach it)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+// the address of a shared-memory location of this block in block `rank`'s
+// shared memory, for st_async
+__device__ __forceinline__ uint32_t cluster_map(uint32_t local, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(local), "r"(rank));
+  return r;
+}
+// an asynchronous store of two floats into a block of the cluster, its 8
+// bytes counted on that block's mbarrier (complete_tx, as a TMA copy's): no
+// wait for this thread's earlier stores, which a release-ordered arrival
+// would make
+__device__ __forceinline__ void st_async(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];"
+               ::"r"(addr), "f"(a), "f"(b), "r"(bar) : "memory");
+}
+// mbar_wait at the cluster's scope, for barriers that blocks of the cluster complete
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n"
         "}\n"
         : "=r"(done)

@@ -16,12 +16,14 @@ Parameters come in the JAX package's pytree layout (``init_params``,
 conv weights) and ``from_jax_params`` carries them into ``HubertEncoder``,
 which holds the conv weights transposed once to PyTorch's (out, in/groups,
 K). Every float32 conv runs with cuDNN's TF32 off and every float32 matmul
-without TF32, on the card as on the CPU, except two stages on the card in
-float32, each on one kernel in bf16x6 on the tensor cores (the float32
-class), their weights' bf16 pieces cached beside the block operands: the
-feature encoder's convs 1-6, conv and GELU (``ops/conv_gelu.py``), and
+without TF32, on the card as on the CPU, except these stages on the card
+in float32: two on one kernel each in bf16x6 on the tensor cores (the
+float32 class), their weights' bf16 pieces cached beside the block
+operands, the feature encoder's convs 1-6, conv and GELU, with the
+layer-norm encoder's LayerNorm between them (``ops/conv_gelu.py``), and
 the positional conv with its BN affine, bias, GELU and residual
-(``ops/pos_conv.py``).
+(``ops/pos_conv.py``); and the layer-norm encoder's conv 0, conv,
+LayerNorm and GELU, on a direct float32 kernel.
 
 ``attention_impl``: ``"einsum"`` (plain tensor ops, either softmax);
 ``"sdpa"``, ``"sdpa_exp2"``, ``"sdpa_exp2_bf16"`` (the attention itself on
@@ -131,8 +133,8 @@ class HubertEncoder(nn.Module):
     """The encoder's parameters in the port's layout, built by
     ``from_jax_params``; run it with ``hubert_hidden_state``. Packed block
     operands for kernels A7/A8 and the conv weights' pieces for
-    ``conv_gelu`` and ``pos_conv`` are made on first use and kept per layer
-    (and softmax mode) and device."""
+    ``conv_gelu`` and ``pos_conv`` are made on first use and kept per
+    layer (and softmax mode) and device."""
 
     def __init__(self, params: dict, config: HubertConfig = MHUBERT_147_CONFIG):
         super().__init__()
@@ -140,7 +142,7 @@ class HubertEncoder(nn.Module):
         fe = []
         for layer in params["feature_encoder"]:
             d = {k: _param(v) for k, v in layer.items() if k != "w"}
-            d["w"] = _param(np.transpose(np.asarray(layer["w"]), (2, 1, 0)))  # KIO -> OIK
+            d["w"] = _param(np.ascontiguousarray(np.transpose(np.asarray(layer["w"]), (2, 1, 0))))  # KIO -> OIK
             fe.append(nn.ParameterDict(d))
         self.feature_encoder = nn.ModuleList(fe)
         self.feature_projection = nn.ParameterDict({k: _param(v) for k, v in params["feature_projection"].items()})
@@ -205,20 +207,31 @@ def from_jax_params(params_np: dict, config: HubertConfig = MHUBERT_147_CONFIG) 
 def feature_encoder(enc: HubertEncoder, audio: torch.Tensor, gelu: str = "erf") -> torch.Tensor:
     """(B, T) raw audio -> (B, frames, conv_dim[-1]) conv features.
 
-    A layer with no bias and no norm whose conv ``conv_gelu.engages`` runs
-    conv and GELU as one kernel (on the card in float32: convs 1-6 of the
-    group-norm encoder); every other layer, and every layer on the CPU,
-    takes ``F.conv1d`` and its passes."""
+    A layer with no bias runs as one kernel where its shape fits (on the
+    card in float32): with no norm, conv and GELU (``conv_gelu.engages``:
+    convs 1-6 of the group-norm encoder); in the layer-norm encoder, conv,
+    LayerNorm and GELU (``conv_gelu.engages_ln``: convs 1-6;
+    ``conv_gelu.engages_conv0_ln``: conv 0). Every other layer, and every
+    layer on the CPU, takes ``F.conv1d`` and its passes."""
     with tracing.span("fsem.hubert.conv_encoder"):
         config = enc.config
         x = audio[:, None, :]  # (B, 1, T): channels first
         for i, layer in enumerate(enc.feature_encoder):
-            normed = (config.feat_extract_norm == "group" and i == 0) or config.feat_extract_norm == "layer"
+            layer_norm = config.feat_extract_norm == "layer"
+            normed = (config.feat_extract_norm == "group" and i == 0) or layer_norm
             c_out, c_in, width = layer["w"].shape
-            if ("b" not in layer and not normed
-                    and conv_gelu.engages(x.device.type, x.dtype, config.conv_stride[i], width, c_in, c_out)):
+            shape = (x.device.type, x.dtype, config.conv_stride[i], width, c_in, c_out)
+            if "b" not in layer and not normed and conv_gelu.engages(*shape):
                 x = conv_gelu.conv_gelu(x, layer["w"], gelu, pieces=enc.conv_pieces(i))
                 continue
+            if "b" not in layer and layer_norm and "norm_scale" in layer:
+                norm = (layer["norm_scale"], layer["norm_bias"], config.layer_norm_eps, gelu)
+                if conv_gelu.engages_ln(*shape):
+                    x = conv_gelu.conv_ln_gelu(x, layer["w"], *norm, pieces=enc.conv_pieces(i))
+                    continue
+                if conv_gelu.engages_conv0_ln(*shape):
+                    x = conv_gelu.conv0_ln_gelu(x, layer["w"], *norm)
+                    continue
             with _conv_flags():
                 x = F.conv1d(x, layer["w"].to(x.dtype), stride=config.conv_stride[i])
             if "b" in layer:

@@ -101,9 +101,13 @@ _SIGNATURES = {
     # (clean, denoised, bf16 halves, bf16 table halves, partials, batch,
     #  samples, lags, chunk groups, stream)
     "fsem_corr_fused": (_P,) * 5 + (_I, _L, _I, _I, _P),
-    # (x, bf16 weight pieces, out, batch, input channels, output channels,
-    #  input frames, width, gelu, stream)
-    "fsem_conv_gelu": (_P,) * 3 + (_I,) * 6 + (_P,),
+    # (x, bf16 weight pieces, LayerNorm scale or null, shift or null, out,
+    #  batch, input channels, output channels, input frames, width, gelu, eps,
+    #  stream)
+    "fsem_conv_gelu": (_P,) * 5 + (_I,) * 6 + (_F, _P),
+    # (x, weights, LayerNorm scale, shift, out, batch, input frames, gelu,
+    #  eps, stream)
+    "fsem_conv0_ln_gelu": (_P,) * 5 + (_I,) * 3 + (_F, _P),
     # (qkvg, gate constants, offset bias, ctx, rows, frames, width, heads,
     #  qkvg columns, offset half-length, softmax mode, stream)
     "fsem_relpos_attention": (_P,) * 4 + (_I,) * 7 + (_P,),

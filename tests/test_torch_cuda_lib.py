@@ -91,6 +91,12 @@ WRAPPERS = [
      lambda: relpos_attention.prenorm_out(_meta(2, 8, 64), _meta(2, 8, 64, dtype=torch.bfloat16), (), 1e-5),
      "pre-LN layer kernels"),
     (conv_gelu, "conv_gelu", lambda: conv_gelu.conv_gelu(_meta(2, 64, 101), _meta(64, 64, 3)), "conv_gelu kernel"),
+    (conv_gelu, "conv_ln_gelu",
+     lambda: conv_gelu.conv_ln_gelu(_meta(2, 64, 101), _meta(128, 64, 3), _meta(128), _meta(128), 1e-5),
+     "conv_ln_gelu kernel"),
+    (conv_gelu, "conv0_ln_gelu",
+     lambda: conv_gelu.conv0_ln_gelu(_meta(2, 1, 1000), _meta(512, 1, 10), _meta(512), _meta(512), 1e-5),
+     "conv0_ln_gelu kernel"),
     (pos_conv, "pos_conv", lambda: pos_conv.pos_conv(_meta(2, 40, 96), _meta(96, 48, 128), _meta(96), 2),
      "pos_conv kernel"),
 ]

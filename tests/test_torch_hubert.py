@@ -273,6 +273,39 @@ def test_conv_gelu_dispatch_rule(device_type, dtype, stride, width, c_in, c_out,
     assert conv_gelu.engages(device_type, dtype, stride, width, c_in, c_out) is want
 
 
+@pytest.mark.parametrize("rule,device_type,dtype,stride,width,c_in,c_out,want", [
+    ("ln", "cuda", torch.float32, 2, 3, 512, 512, True),  # WavLM's convs 1-4
+    ("ln", "cuda", torch.float32, 2, 2, 512, 512, True),  # convs 5-6
+    ("ln", "cuda", torch.float32, 2, 3, 64, 128, True),  # a cluster of one block
+    ("ln", "cuda", torch.float32, 2, 3, 512, 1024, True),  # of eight
+    ("ln", "cpu", torch.float32, 2, 3, 512, 512, False),
+    ("ln", "cuda", torch.bfloat16, 2, 3, 512, 512, False),
+    ("ln", "cuda", torch.float32, 5, 10, 1, 512, False),  # conv 0 is the other kernel's
+    ("ln", "cuda", torch.float32, 2, 3, 512, 64, False),  # outputs not a multiple of 128
+    ("ln", "cuda", torch.float32, 2, 3, 512, 384 + 64, False),
+    ("ln", "cuda", torch.float32, 2, 3, 512, 1152, False),  # a cluster of nine
+    ("ln", "cuda", torch.float32, 2, 3, 96, 512, False),
+    ("ln", "cuda", torch.float32, 1, 3, 512, 512, False),
+    ("ln", "cuda", torch.float32, 2, 4, 512, 512, False),
+    ("conv0", "cuda", torch.float32, 5, 10, 1, 512, True),  # WavLM's conv 0
+    ("conv0", "cpu", torch.float32, 5, 10, 1, 512, False),
+    ("conv0", "meta", torch.float32, 5, 10, 1, 512, False),
+    ("conv0", "cuda", torch.bfloat16, 5, 10, 1, 512, False),
+    ("conv0", "cuda", torch.float64, 5, 10, 1, 512, False),
+    ("conv0", "cuda", torch.float32, 5, 10, 1, 256, False),
+    ("conv0", "cuda", torch.float32, 5, 10, 2, 512, False),
+    ("conv0", "cuda", torch.float32, 4, 10, 1, 512, False),
+    ("conv0", "cuda", torch.float32, 5, 8, 1, 512, False),
+    ("conv0", "cuda", torch.float32, 2, 3, 512, 512, False),  # convs 1-6 are the other kernel's
+])
+def test_conv_ln_gelu_dispatch_rules(rule, device_type, dtype, stride, width, c_in, c_out, want):
+    """The LayerNorm kernels engage on what the call shows alone: convs 1-6
+    as FE's rule, outputs in 1 to 8 blocks of 128; conv 0 at its one shape;
+    a CUDA device and float32 for both."""
+    fn = conv_gelu.engages_ln if rule == "ln" else conv_gelu.engages_conv0_ln
+    assert fn(device_type, dtype, stride, width, c_in, c_out) is want
+
+
 def _feature_encoder_before_kernel(enc, audio, gelu):
     """``feature_encoder`` as it was before convs 1-6 had a kernel: every
     layer on ``F.conv1d`` and its passes."""
@@ -305,27 +338,53 @@ def test_feature_encoder_on_cpu_is_the_pre_kernel_path(overrides, gelu):
     assert torch.equal(got, _feature_encoder_before_kernel(enc, audio, gelu))
 
 
-@pytest.mark.parametrize("dtype,routed", [(torch.float32, 2), (torch.bfloat16, 0)])
-def test_feature_encoder_routes_eligible_layers(monkeypatch, dtype, routed):
-    """With the device check pretended away, the 64-channel encoder sends
-    convs 1-2 (no norm, no bias) to ``conv_gelu`` in float32, with their
-    cached pieces, and nothing in bf16; conv 0 (GroupNorm) never."""
-    _, _, enc = _setup(**WIDE)
-    rule, calls = conv_gelu.engages, []
+#: the layer-norm encoder at WavLM's conv widths (512 channels, conv 0 of width 10 and stride 5)
+LN_WIDE = dict(SMALL, conv_dim=(512, 512, 512), conv_kernel=(10, 3, 2), feat_extract_norm="layer")
 
-    def on_card(device_type, *args):
-        return rule("cuda", *args)
 
-    def plain(x, w, gelu, pieces=None):
-        calls.append(pieces)
-        return conv_gelu._conv_gelu_plain(x, w, gelu)
+@pytest.mark.parametrize("overrides,dtype,routed", [
+    (WIDE, torch.float32, {"conv_gelu": [1, 2]}),
+    (WIDE, torch.bfloat16, {}),
+    (LN_WIDE, torch.float32, {"conv0_ln_gelu": [0], "conv_ln_gelu": [1, 2]}),
+    (LN_WIDE, torch.bfloat16, {}),
+    (dict(LN_WIDE, conv_bias=True), torch.float32, {}),
+    (dict(WIDE, feat_extract_norm="layer"), torch.float32, {}),  # 64 outputs: no cluster of 128s
+])
+def test_feature_encoder_routes_eligible_layers(monkeypatch, overrides, dtype, routed):
+    """With the device check pretended away, each layer reaches the kernel
+    its rule names with its operands (convs 1-6 their cached pieces, conv
+    0 its weights, contiguous as converted): the group-norm
+    encoder's convs 1-2 (no norm, no bias) ``conv_gelu`` and its conv 0
+    (GroupNorm) cuDNN; the layer-norm encoder's conv 0 ``conv0_ln_gelu``
+    and convs 1-2 ``conv_ln_gelu``. Nothing in bf16, with a conv bias or
+    off the kernels' shapes. The wrappers' plain versions give the
+    pre-kernel path bit for bit."""
+    _, _, enc = _setup(**overrides)
+    calls = {}
 
-    monkeypatch.setattr(conv_gelu, "engages", on_card)
-    monkeypatch.setattr(conv_gelu, "conv_gelu", plain)
+    for name in ("engages", "engages_ln", "engages_conv0_ln"):
+        rule = getattr(conv_gelu, name)
+        monkeypatch.setattr(conv_gelu, name, lambda device_type, *args, rule=rule: rule("cuda", *args))
+
+    def plain(name, fn):
+        def wrapper(x, w, *args, pieces=None):
+            calls.setdefault(name, []).append(w if name == "conv0_ln_gelu" else pieces)
+            return fn(x, w, *args)
+        return wrapper
+
+    stride0 = conv_gelu.CONV0_SHAPE[2]
+    monkeypatch.setattr(conv_gelu, "conv_gelu", plain("conv_gelu", conv_gelu._conv_gelu_plain))
+    monkeypatch.setattr(conv_gelu, "conv_ln_gelu", plain("conv_ln_gelu", functools.partial(
+        lambda x, w, *args: conv_gelu._conv_ln_gelu_plain(x, w, *args, conv_gelu.STRIDE))))
+    monkeypatch.setattr(conv_gelu, "conv0_ln_gelu", plain("conv0_ln_gelu", functools.partial(
+        lambda x, w, *args: conv_gelu._conv_ln_gelu_plain(x, w, *args, stride0))))
     audio = torch.from_numpy(AUDIO).to(dtype)
     got = hubert.feature_encoder(enc, audio, gelu="tanh")
-    assert len(calls) == routed
-    assert all(p is enc.conv_pieces(i + 1) for i, p in enumerate(calls))
+    assert calls.keys() == routed.keys()
+    for name, layers in routed.items():
+        want = [enc.feature_encoder[i]["w"] if name == "conv0_ln_gelu" else enc.conv_pieces(i) for i in layers]
+        assert len(calls[name]) == len(want) and all(p is q for p, q in zip(calls[name], want))
+        assert all(w.is_contiguous() for w in calls[name])
     assert torch.equal(got, _feature_encoder_before_kernel(enc, audio, "tanh"))
 
 
@@ -353,6 +412,45 @@ def test_conv_gelu_pieces_arithmetic_is_float32_class(gelu):
     assert bool(torch.all((got - want).abs() <= 2.0**-22 * bound))
     plain = conv_gelu.conv_gelu(x, w, gelu)
     assert plain.dtype == torch.float32 and bool(torch.all((plain.double() - want).abs() <= 2.0**-18 * bound))
+
+
+def _ln64(y, scale, shift, eps=1e-5):
+    """LayerNorm over the channels of (B, C, T) float64."""
+    mean = y.mean(dim=1, keepdim=True)
+    var = ((y - mean) ** 2).mean(dim=1, keepdim=True)
+    return (y - mean) * torch.rsqrt(var + eps) * scale.double()[:, None] + shift.double()[:, None]
+
+
+@pytest.mark.parametrize("gelu", ["erf", "tanh"])
+@pytest.mark.parametrize("c_in,width,stride,t_in", [(64, 3, 2, 101), (128, 2, 2, 64), (1, 10, 5, 1003)])
+def test_conv_ln_gelu_arithmetic_is_float32_class(c_in, width, stride, t_in, gelu):
+    """The LayerNorm kernels' arithmetic in float64 (``_conv_ln_gelu_reference``:
+    the conv's six piece products at stride 2 or conv 0's plain products,
+    the two-pass statistics, the affine, the GELU) against conv +
+    LayerNorm + GELU in float64: within float32 rounding of the conv,
+    carried through the norm (a frame's largest |conv| term over its
+    deviation, times (2 + its largest |normed value|) for the mean's and
+    the deviation's share, times the scale), as is the plain version
+    (float32: ``F.conv1d``, ``numerics.layer_norm``, the GELU; 0.04-0.17
+    of the bound here, the model under 0.002)."""
+    rs = np.random.RandomState(6)
+    c_out = 128
+    x = torch.from_numpy(rs.randn(2, c_in, t_in).astype(np.float32))
+    w = torch.from_numpy((rs.randn(c_out, c_in, width) / np.sqrt(c_in * width)).astype(np.float32))
+    scale = torch.from_numpy((1 + 0.1 * rs.randn(c_out)).astype(np.float32))
+    shift = torch.from_numpy((0.1 * rs.randn(c_out)).astype(np.float32))
+    conv = torch.nn.functional.conv1d(x.double(), w.double(), stride=stride)
+    normed = _ln64(conv, torch.ones(c_out), torch.zeros(c_out))
+    want = numerics.gelu(_ln64(conv, scale, shift), gelu)
+    terms = torch.nn.functional.conv1d(x.double().abs(), w.double().abs(), stride=stride).amax(dim=1, keepdim=True)
+    sigma = (conv - conv.mean(dim=1, keepdim=True)).pow(2).mean(dim=1, keepdim=True).sqrt()
+    bound = 1.2 * 2.0**-22 * terms / sigma * (2 + normed.abs().amax(dim=1, keepdim=True)) * scale.abs().max()
+    got = conv_gelu._conv_ln_gelu_reference(x, w, scale, shift, 1e-5, gelu, stride)
+    assert bool(torch.all((got - want).abs() <= bound))
+    plain = conv_gelu._conv_ln_gelu_plain(x, w, scale, shift, 1e-5, gelu, stride)
+    assert plain.dtype == torch.float32 and bool(torch.all((plain.double() - want).abs() <= bound))
+    wrapper = conv_gelu.conv0_ln_gelu if stride == 5 else conv_gelu.conv_ln_gelu  # on the CPU: the plain version
+    assert torch.equal(wrapper(x, w, scale, shift, 1e-5, gelu), plain)
 
 
 if __name__ == "__main__":

@@ -940,7 +940,126 @@ def test_feature_encoder_takes_conv_gelu_in_float32_only(dev, monkeypatch):
         monkeypatch.setattr(conv_gelu, "engages", lambda *args: False)
         want = hubert.feature_encoder(enc, audio, gelu="tanh")
     assert cuda_lib.launch_counts[conv_gelu.KERNEL] == before + 6
+    assert not cuda_lib.launch_counts[conv_gelu.KERNEL_LN] and not cuda_lib.launch_counts[conv_gelu.KERNEL_CONV0]
     assert ((got - want).abs().max() / want.abs().max()).item() < 1e-5
+
+
+# -- the layer-norm encoder's convs: conv_gelu.cu with the LayerNorm fused --
+
+
+def _norm_params(dev, c_out, seed=1):
+    """The LayerNorm's scale 1 + N(0, 0.01) and shift N(0, 0.01), as the benchmark draws them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return 1 + 0.1 * torch.randn(c_out, device=dev, generator=g), 0.1 * torch.randn(c_out, device=dev, generator=g)
+
+
+def _conv_ln_gelu64(x, w, scale, shift, gelu, stride, eps=1e-5):
+    """conv + LayerNorm over channels + GELU in float64."""
+    y = torch.nn.functional.conv1d(x.double(), w.double(), stride=stride)
+    mean = y.mean(dim=1, keepdim=True)
+    y = (y - mean) * torch.rsqrt(((y - mean) ** 2).mean(dim=1, keepdim=True) + eps)
+    return numerics.gelu(y * scale.double()[:, None] + shift.double()[:, None], gelu)
+
+
+def _check_ln_kernel(kernel, name, x, w, scale, shift, gelu, stride):
+    """``kernel`` (a wrapper of x, w, scale, shift, eps, gelu) against the
+    float64 chain: max |err| over max |ref| at most twice cuDNN float32's +
+    ``numerics.layer_norm``'s on the same inputs (rows in groups of 8); a
+    second launch bit-equal; one launch counted each."""
+    before = cuda_lib.launch_counts[name]
+    got = kernel(x, w, scale, shift, 1e-5, gelu)
+    again = kernel(x, w, scale, shift, 1e-5, gelu)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts[name] == before + 2
+    c_out, _, width = w.shape
+    assert got.shape == (x.shape[0], c_out, (x.shape[2] - width) // stride + 1) and torch.equal(got, again)
+    del again
+    err = err_library = scale_max = 0.0
+    for r in range(0, x.shape[0], 8):
+        want = _conv_ln_gelu64(x[r:r + 8], w, scale, shift, gelu, stride)
+        library = conv_gelu._conv_ln_gelu_plain(x[r:r + 8], w, scale, shift, 1e-5, gelu, stride)
+        scale_max = max(scale_max, want.abs().max().item())
+        err = max(err, (got[r:r + 8].double() - want).abs().max().item())
+        err_library = max(err_library, (library.double() - want).abs().max().item())
+        del want, library
+    assert err <= 2 * err_library, (err / scale_max, err_library / scale_max)
+
+
+def _check_conv_ln_gelu(dev, rows, c_in, c_out, width, t_in, gelu):
+    x, w = _conv_inputs(dev, rows, c_in, c_out, width, t_in)
+    pieces = conv_gelu.split_pieces(w)
+    _check_ln_kernel(lambda *args: conv_gelu.conv_ln_gelu(*args, pieces=pieces), conv_gelu.KERNEL_LN, x, w,
+                     *_norm_params(dev, c_out), gelu, 2)
+
+
+@pytest.mark.parametrize("gelu", ["erf", "tanh"])
+@pytest.mark.parametrize("t_in,width", [(t, k) for t in (2, 3, 5, 257, 258, 259, 1001) for k in (2, 3) if t >= k])
+def test_conv_ln_gelu_kernel_against_float64(dev, t_in, width, gelu):
+    """WavLM's widths (512 channels, clusters of 4 blocks) at T_out of 1 to
+    500, ending mid-tile, and odd T_in (rows at every 4-byte offset)."""
+    _check_conv_ln_gelu(dev, 2, 512, 512, width, t_in, gelu)
+
+
+@pytest.mark.parametrize("c_in,c_out", [(64, 128), (512, 1024), (192, 384), (512, 256)])
+def test_conv_ln_gelu_kernel_cluster_sizes(dev, c_in, c_out):
+    """Clusters of 1, 8, 3 and 2 blocks a frame."""
+    _check_conv_ln_gelu(dev, 3, c_in, c_out, 3, 301, "erf")
+
+
+@pytest.mark.parametrize("rows", [2, 64])
+def test_conv_ln_gelu_kernel_main_shape(dev, rows):
+    """Conv 1 of WavLM-Large on 16 s (51 199 frames in, 25 599 out)."""
+    _check_conv_ln_gelu(dev, rows, 512, 512, 3, 51199, "tanh")
+
+
+@pytest.mark.parametrize("gelu", ["erf", "tanh"])
+@pytest.mark.parametrize("t_in", [10, 14, 15, 329, 334, 16000 + 3, 16 * 16000])
+def test_conv0_ln_gelu_kernel_against_float64(dev, t_in, gelu):
+    """Conv 0 of the layer-norm encoder on speech-scaled samples at T_out
+    of 1 to 51 199: one tile (64 frames), one frame into the next, 16 s."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = 0.1 * torch.randn(2, 1, t_in, device=dev, generator=g)
+    w = torch.randn(512, 1, 10, device=dev, generator=g) * 0.2 ** 0.5
+    _check_ln_kernel(conv_gelu.conv0_ln_gelu, conv_gelu.KERNEL_CONV0, x, w, *_norm_params(dev, 512), gelu, 5)
+
+
+def _feature_encoder64(enc, audio, gelu):
+    """The layer-norm encoder in float64."""
+    x = audio.double()[:, None]
+    for i, layer in enumerate(enc.feature_encoder):
+        x = _conv_ln_gelu64(x, layer["w"], layer["norm_scale"], layer["norm_bias"], gelu, enc.config.conv_stride[i])
+    return x.transpose(1, 2)
+
+
+def test_wavlm_feature_encoder_on_the_ln_kernels(dev, monkeypatch):
+    """WavLM-Large's conv encoder on the card at 2 x 16 s: conv 0 on its
+    kernel, convs 1-6 on conv_gelu.cu's LayerNorm epilogue, none of FE's
+    plain launches; within 1e-4 of a float64 encoder over its largest
+    magnitude (the SBS cell's features_gap limit) and within cuDNN
+    float32's distance; no launch with bf16 activations."""
+    params = init_params(torch.Generator().manual_seed(0), hubert.WAVLM_LARGE_CONFIG)
+    rs = np.random.RandomState(5)
+    for layer in params["feature_encoder"]:  # the benchmark's draws: He-normal convs, affine 1 + N(0, 0.01), N(0, 0.01)
+        k, c_in, c_out = layer["w"].shape
+        layer["w"] = (rs.randn(k, c_in, c_out) * (2.0 / (k * c_in)) ** 0.5).astype(np.float32)
+        layer["norm_scale"] = (1 + 0.1 * rs.randn(c_out)).astype(np.float32)
+        layer["norm_bias"] = (0.1 * rs.randn(c_out)).astype(np.float32)
+    enc = hubert.from_jax_params(params, hubert.WAVLM_LARGE_CONFIG).to(dev)
+    audio = torch.from_numpy(load_audio_data(16, 2, 16000)[0]).to(dev)
+    kernels = (conv_gelu.KERNEL_CONV0, conv_gelu.KERNEL_LN, conv_gelu.KERNEL)
+    before = [cuda_lib.launch_counts[k] for k in kernels]
+    with torch.inference_mode():
+        got = hubert.feature_encoder(enc, audio, gelu="tanh")
+        assert [cuda_lib.launch_counts[k] - n for k, n in zip(kernels, before)] == [1, 6, 0]
+        hubert.feature_encoder(enc, audio.to(torch.bfloat16), gelu="tanh")
+        assert [cuda_lib.launch_counts[k] - n for k, n in zip(kernels, before)] == [1, 6, 0]
+        monkeypatch.setattr(conv_gelu, "engages_ln", lambda *args: False)
+        monkeypatch.setattr(conv_gelu, "engages_conv0_ln", lambda *args: False)
+        library = hubert.feature_encoder(enc, audio, gelu="tanh")
+        want = _feature_encoder64(enc, audio, "tanh")
+    top = want.abs().max()
+    gap, gap_library = (((y.double() - want).abs().max() / top).item() for y in (got, library))
+    assert gap <= 1e-4 and gap <= gap_library, (gap, gap_library)
 
 
 # -- the positional conv stage (pos_conv.cu) --
@@ -1144,6 +1263,9 @@ def test_wavlm_public_call_takes_the_relpos_kernel(dev):
     got = np.array([r["SpeechBERTScore"] for r in metric(clean, noisy)])
     counts = dict(cuda_lib.launch_counts)
     assert counts.get(relpos_attention.KERNEL) == 14
+    # the conv encoder: conv 0 and convs 1-6 on the LayerNorm kernels, once a row chunk
+    assert (counts.get(conv_gelu.KERNEL_CONV0), counts.get(conv_gelu.KERNEL_LN), counts.get(conv_gelu.KERNEL)) == (
+        1, 6, None)
     assert not any(counts.get(k) for k in (attn_block_pallas.KERNEL_A7, attn_block_pallas.KERNEL_A8,
                                            sdpa_pallas.KERNEL_A9, sdpa_pallas.KERNEL_A15))
     exact = SpeechBERTScore(params=params, config=hubert.WAVLM_LARGE_CONFIG, output_layer=14, device=dev,

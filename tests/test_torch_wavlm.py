@@ -20,6 +20,7 @@ no WavLM.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ import torch
 
 from fast_speech_enhancement_metrics_tpu_torch import SpeechBERTScore, tracing
 from fast_speech_enhancement_metrics_tpu_torch.models import hubert
-from fast_speech_enhancement_metrics_tpu_torch.ops import relpos_attention
+from fast_speech_enhancement_metrics_tpu_torch.ops import conv_gelu, relpos_attention
 from fast_speech_enhancement_metrics_tpu_torch.utils import convert_hubert
 from portbench.reference import wavlm as reference
 
@@ -231,6 +232,35 @@ def test_routes_of_a_relative_bias_config(tiny):
                             device="cpu", attention_impl="relpos_block")
     with pytest.raises(ValueError, match="relative-bias"):
         plain._resolve_impl(16000, 2)
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.float32, {"conv0_ln_gelu": 1, "conv_ln_gelu": 6}),
+                                        (torch.bfloat16, {})])
+def test_wavlm_large_conv_encoder_reaches_the_ln_kernels(monkeypatch, dtype, want):
+    """WavLM-Large's seven convs (512 channels; widths 10, 3, 3, 3, 3, 2, 2)
+    with the card's rules pretended: conv 0 reaches ``conv0_ln_gelu`` and
+    convs 1-6 ``conv_ln_gelu``, FE's plain epilogue none; the act_bf16
+    control keeps every conv on ``F.conv1d`` and its passes. The wrappers'
+    plain versions give the CPU path bit for bit."""
+    cfg = dataclasses.replace(hubert.WAVLM_LARGE_CONFIG, hidden_size=64, num_hidden_layers=1, num_attention_heads=4,
+                              intermediate_size=64, num_conv_pos_embedding_groups=4)
+    enc = hubert.from_jax_params(hubert.init_params(torch.Generator().manual_seed(0), cfg), cfg)
+    audio = AUDIO.to(dtype)
+    want_out = hubert.feature_encoder(enc, audio, gelu="tanh")
+    calls = {}
+    for name in ("engages", "engages_ln", "engages_conv0_ln"):
+        rule = getattr(conv_gelu, name)
+        monkeypatch.setattr(conv_gelu, name, lambda device_type, *args, rule=rule: rule("cuda", *args))
+    for name, stride in (("conv_gelu", None), ("conv_ln_gelu", 2), ("conv0_ln_gelu", 5)):
+        def plain(x, w, *args, name=name, stride=stride, **_):
+            calls[name] = calls.get(name, 0) + 1
+            if stride is None:
+                return conv_gelu._conv_gelu_plain(x, w, *args)
+            return conv_gelu._conv_ln_gelu_plain(x, w, *args, stride)
+        monkeypatch.setattr(conv_gelu, name, plain)
+    got = hubert.feature_encoder(enc, audio, gelu="tanh")
+    assert calls == want
+    assert torch.equal(got, want_out)
 
 
 def test_bias_counter_and_span(tiny):
